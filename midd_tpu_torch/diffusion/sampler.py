@@ -1,5 +1,6 @@
-"""Deterministic reverse rollout (counterpart of ``midd_tpu/diffusion/sampler.py``,
-``denoise`` with ``stochastic=False``).
+"""Deterministic reverse rollout and the training-time noising helpers
+(counterpart of ``midd_tpu/diffusion/sampler.py``: ``denoise`` with
+``stochastic=False``, ``noise_images`` and ``sample_timesteps``).
 
 Semantics of the reference restorer (DDIM/DDIMModel.py:268-289): the loop
 starts from the noisy image, eps is clamped to [-5, 5], the posterior-mean
@@ -59,3 +60,19 @@ def denoise(
         mean = (x.float() - ((1.0 - a) / torch.sqrt(1.0 - ah)) * eps) / torch.sqrt(a)
         x = mean.clamp(0.0, 1.0).to(noisy.dtype)
     return x
+
+
+def noise_images(x: torch.Tensor, t: torch.Tensor, schedule: Schedule,
+                 generator: torch.Generator) -> tuple[torch.Tensor, torch.Tensor]:
+    """Forward noising q(x_t | x_0) for training (DDIM/DDIMModel.py:259-263):
+    eps ~ N(0, I) drawn from ``generator`` (on ``x``'s device), returns
+    (sqrt(ah) x + sqrt(1 - ah) eps, eps)."""
+    ah = schedule.to(x.device).alpha_hat[t][:, None, None, None]
+    eps = torch.randn(x.shape, generator=generator, device=x.device, dtype=torch.float32)
+    return torch.sqrt(ah) * x + torch.sqrt(1.0 - ah) * eps, eps
+
+
+def sample_timesteps(generator: torch.Generator, n: int, noise_steps: int) -> torch.Tensor:
+    """Uniform t in [1, noise_steps) (DDIM/DDIMModel.py:265-266), (n,) int64
+    on the generator's device."""
+    return torch.randint(1, noise_steps, (n,), generator=generator, device=generator.device)

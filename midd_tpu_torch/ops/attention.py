@@ -1,8 +1,9 @@
 """Spatial self-attention core (counterpart of ``midd_tpu/ops/attention.py``).
 
 Inputs keep the JAX package's (B, N, H, D) layout. ``mha`` dispatches on the
-tensor's device: the Hopper flash kernel for CUDA tensors, the exact
-reference for CPU tensors.
+tensor's device: the Hopper flash kernels for CUDA tensors (differentiable:
+the backward runs the dq and dk/dv kernels), the exact reference for CPU
+tensors.
 """
 
 from __future__ import annotations

@@ -1,14 +1,21 @@
-"""Flash-attention forward for the diffusion UNet's spatial self-attention.
+"""Flash attention for the diffusion UNet's spatial self-attention, forward
+and backward.
 
-The counterpart of ``midd_tpu/ops/flash_attention.py``. On a CUDA tensor the
-work goes to the hand-written Hopper kernel in ``csrc/flash_fwd.cu``; on a
-CPU tensor to ``flash_attention_plain``, a plain PyTorch version of the same
-function. The wrapper never falls back from the kernel to the plain version:
-a tensor the kernel does not take, a failed build or a failed launch raises.
+The counterpart of ``midd_tpu/ops/flash_attention.py``. On CUDA tensors the
+work goes to hand-written Hopper kernels: the forward in ``csrc/flash_fwd.cu``,
+the two backward kernels (dq; dk and dv) in ``csrc/flash_bwd.cu``. On CPU
+tensors it goes to ``flash_attention_plain`` and ``flash_attention_bwd_plain``,
+plain PyTorch versions of the same functions. The wrappers never fall back
+from a kernel to its plain version: a tensor a kernel does not take, a failed
+build or a failed launch raises.
 
-The kernel is compiled with ``nvcc`` at first use, from the sources in this
-package only, into ``midd_tpu_torch/build/`` (a shared library with a plain C
-interface, loaded through ``ctypes``). Nothing is built at import time.
+``mha_flash`` is differentiable on both devices through ``FlashAttention``,
+the counterpart of the JAX package's ``_flash_padded`` custom_vjp. A forward
+with gradients off (serving runs under ``inference_mode``) saves nothing.
+
+Each kernel source is compiled with ``nvcc`` at first use, from the sources
+in this package only, into ``midd_tpu_torch/build/`` (a shared library with a
+plain C interface, loaded through ``ctypes``). Nothing is built at import.
 """
 
 from __future__ import annotations
@@ -21,19 +28,20 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Optional, Tuple
+from typing import Dict, Tuple
 
 import torch
 
 _PKG = Path(__file__).resolve().parent.parent
 SOURCE = _PKG / "csrc" / "flash_fwd.cu"
+BWD_SOURCE = _PKG / "csrc" / "flash_bwd.cu"
 BUILD_DIR = _PKG / "build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 )
 
-_lib: Optional[ctypes.CDLL] = None
+_libs: Dict[Path, ctypes.CDLL] = {}
 _lib_lock = threading.Lock()
 
 
@@ -45,22 +53,24 @@ def _nvcc() -> str:
     ]:
         if cand and os.path.exists(cand):
             return cand
-    raise RuntimeError("nvcc not found: the flash-attention kernel cannot be built")
+    raise RuntimeError("nvcc not found: the flash-attention kernels cannot be built")
 
 
-def build(verbose: bool = False) -> Path:
-    """Compile ``csrc/flash_fwd.cu`` into ``build/`` unless a library built
-    from the same source and flags is already there. Returns its path.
-    ``verbose`` adds ``-Xptxas -v`` and prints the compiler's report."""
-    src = SOURCE.read_bytes()
+def build(source: Path = SOURCE, verbose: bool = False) -> Path:
+    """Compile one kernel source (default ``csrc/flash_fwd.cu``) into
+    ``build/`` unless a library built from the same source and flags is
+    already there. Returns its path. ``verbose`` adds ``-Xptxas -v`` and
+    prints the compiler's report. Safe to call for two sources at once from
+    two threads (each nvcc writes its own temporary file)."""
+    src = source.read_bytes()
     tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    out = BUILD_DIR / f"libmidd_flash_fwd_{tag}.so"
+    out = BUILD_DIR / f"libmidd_{source.stem}_{tag}.so"
     if out.exists() and not verbose:
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
     cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-           "-o", str(tmp), str(SOURCE)]
+           "-o", str(tmp), str(source)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(
@@ -73,22 +83,61 @@ def build(verbose: bool = False) -> Path:
     return out
 
 
-def _library() -> ctypes.CDLL:
-    global _lib
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_SIGNATURES = {
+    SOURCE: {
+        "midd_flash_fwd": [_P] * 5 + [_I] * 4 + [_P],
+        "midd_cuda_error_string": None,
+    },
+    BWD_SOURCE: {
+        "midd_flash_bwd_dq": [_P] * 7 + [_I] * 4 + [_P],
+        "midd_flash_bwd_dkv": [_P] * 8 + [_I] * 4 + [_P],
+        "midd_cuda_error_string": None,
+    },
+}
+
+
+def _library(source: Path = SOURCE) -> ctypes.CDLL:
+    """Build (if needed) and load one kernel library, with its ctypes
+    signatures declared."""
     with _lib_lock:
-        if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            lib.midd_flash_fwd.argtypes = [
-                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                ctypes.c_void_p, ctypes.c_void_p,
-                ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                ctypes.c_void_p,
-            ]
-            lib.midd_flash_fwd.restype = ctypes.c_int
-            lib.midd_cuda_error_string.argtypes = [ctypes.c_int]
-            lib.midd_cuda_error_string.restype = ctypes.c_char_p
-            _lib = lib
-        return _lib
+        if source not in _libs:
+            lib = ctypes.CDLL(str(build(source)))
+            for name, argtypes in _SIGNATURES[source].items():
+                fn = getattr(lib, name)
+                if argtypes is None:  # the error-string helper
+                    fn.argtypes, fn.restype = [_I], ctypes.c_char_p
+                else:
+                    fn.argtypes, fn.restype = argtypes, _I
+            _libs[source] = lib
+        return _libs[source]
+
+
+def _check_qkv(name: str, *ts: torch.Tensor) -> None:
+    """The checks every kernel wrapper makes on its (BH, N, D) operands."""
+    q = ts[0]
+    if q.dim() != 3 or any(t.shape != q.shape for t in ts):
+        raise ValueError(
+            f"{name}: operands must share one (BH, N, D) shape, got "
+            f"{[tuple(t.shape) for t in ts]}"
+        )
+    if q.dtype not in (torch.bfloat16, torch.float32) or any(t.dtype != q.dtype for t in ts):
+        raise ValueError(
+            f"{name}: dtypes must all be bfloat16 or all float32, got "
+            f"{[t.dtype for t in ts]}"
+        )
+    if any(t.device != q.device for t in ts):
+        raise ValueError(f"{name}: operands must be on one device")
+    if not all(t.is_contiguous() for t in ts):
+        raise ValueError(f"{name}: operands must be contiguous")
+    bh, n, d = q.shape
+    if not (1 <= d <= 128) or n < 1 or not (1 <= bh <= 65535):
+        raise ValueError(f"{name}: unsupported shape {tuple(q.shape)}")
+
+
+def _raise_on(err: int, lib: ctypes.CDLL, kernel: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{kernel} launch failed: {lib.midd_cuda_error_string(err).decode()}")
 
 
 def flash_attention_plain(
@@ -113,26 +162,9 @@ def flash_attention(
         return flash_attention_plain(q, k, v)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
-    if q.dim() != 3 or k.shape != q.shape or v.shape != q.shape:
-        raise ValueError(
-            f"flash_attention: q, k, v must share one (BH, N, D) shape, got "
-            f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}"
-        )
-    if q.dtype not in (torch.bfloat16, torch.float32) or not (
-        k.dtype == v.dtype == q.dtype
-    ):
-        raise ValueError(
-            f"flash_attention: dtypes must all be bfloat16 or all float32, got "
-            f"{q.dtype}, {k.dtype}, {v.dtype}"
-        )
-    if not (k.device == v.device == q.device):
-        raise ValueError("flash_attention: q, k, v must be on one device")
-    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
-        raise ValueError("flash_attention: q, k, v must be contiguous")
+    _check_qkv("flash_attention", q, k, v)
     bh, n, d = q.shape
-    if not (1 <= d <= 128) or n < 1 or not (1 <= bh <= 65535):
-        raise ValueError(f"flash_attention: unsupported shape {tuple(q.shape)}")
-    lib = _library()
+    lib = _library(SOURCE)
     o = torch.empty_like(q)
     lse = torch.empty((bh, n), device=q.device, dtype=torch.float32)
     with torch.cuda.device(q.device):
@@ -141,10 +173,7 @@ def flash_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             lse.data_ptr(), bh, n, d, int(q.dtype == torch.bfloat16), stream,
         )
-    if err != 0:
-        raise RuntimeError(
-            f"flash_fwd launch failed: {lib.midd_cuda_error_string(err).decode()}"
-        )
+    _raise_on(err, lib, "flash_fwd")
     flash_attention.launches += 1
     return o, lse
 
@@ -152,12 +181,146 @@ def flash_attention(
 flash_attention.launches = 0
 
 
+def _delta(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
+    """delta = rowsum(dO * O) in fp32, (BH, N), from O as the forward returned
+    it (in the input dtype), as ``_flash_padded_bwd`` computes it."""
+    return (do.float() * o.float()).sum(dim=-1)
+
+
+def _recompute_p(q, k, lse):
+    """Scores in fp32 and p = exp(scale q k^T - lse), as the TPU kernels
+    recompute them (``flash_attention.py:121-122``)."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    return torch.exp(torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+                     - lse[..., None]), scale
+
+
+def _ds(p, v, do, delta, dtype):
+    """ds = p * (dO v^T - delta), rounded to the input dtype."""
+    dp = torch.matmul(do.float(), v.float().transpose(-1, -2))
+    return (p * (dp - delta[..., None])).to(dtype).float()
+
+
+def bwd_dq_plain(q, k, v, do, lse, delta) -> torch.Tensor:
+    """Plain version of the dq kernel: dq = scale * ds k."""
+    p, scale = _recompute_p(q, k, lse)
+    return (scale * torch.matmul(_ds(p, v, do, delta, q.dtype), k.float())).to(q.dtype)
+
+
+def bwd_dkv_plain(q, k, v, do, lse, delta) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the dk/dv kernel: dk = scale * ds^T q, dv = p^T dO
+    with p^T rounded to the input dtype."""
+    p, scale = _recompute_p(q, k, lse)
+    ds = _ds(p, v, do, delta, q.dtype)
+    dk = scale * torch.matmul(ds.transpose(-1, -2), q.float())
+    dv = torch.matmul(p.to(q.dtype).float().transpose(-1, -2), do.float())
+    return dk.to(q.dtype), dv.to(q.dtype)
+
+
+def flash_attention_bwd_plain(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
+    lse: torch.Tensor, do: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The flash backward in plain PyTorch, with the TPU kernels' arithmetic:
+    p is recomputed from the saved ``lse`` (BH, N) rather than by autograd of
+    the forward; scores and dO v^T in fp32; ds and p^T rounded to the input
+    dtype before their products; the scale applied to dq and dk at the end.
+    Returns (dq, dk, dv) in the input dtype."""
+    delta = _delta(o, do)
+    dk, dv = bwd_dkv_plain(q, k, v, do, lse, delta)
+    return bwd_dq_plain(q, k, v, do, lse, delta), dk, dv
+
+
+def _launch_bwd(kernel: str, outs, q, k, v, do, lse, delta) -> None:
+    lib = _library(BWD_SOURCE)
+    bh, n, d = q.shape
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = getattr(lib, kernel)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), *(t.data_ptr() for t in outs),
+            bh, n, d, int(q.dtype == torch.bfloat16), stream,
+        )
+    _raise_on(err, lib, kernel)
+
+
+def flash_bwd_dq(q, k, v, do, lse, delta) -> torch.Tensor:
+    """Launch the dq kernel (``csrc/flash_bwd.cu``) on checked CUDA operands;
+    counts its launches in ``flash_bwd_dq.launches``."""
+    dq = torch.empty_like(q)
+    _launch_bwd("midd_flash_bwd_dq", (dq,), q, k, v, do, lse, delta)
+    flash_bwd_dq.launches += 1
+    return dq
+
+
+def flash_bwd_dkv(q, k, v, do, lse, delta) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch the dk/dv kernel on checked CUDA operands; counts its launches
+    in ``flash_bwd_dkv.launches``."""
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    _launch_bwd("midd_flash_bwd_dkv", (dk, dv), q, k, v, do, lse, delta)
+    flash_bwd_dkv.launches += 1
+    return dk, dv
+
+
+flash_bwd_dq.launches = 0
+flash_bwd_dkv.launches = 0
+
+
+def flash_attention_bwd(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
+    lse: torch.Tensor, do: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Gradients (dq, dk, dv) of ``flash_attention`` given its saved (O, lse)
+    and the output cotangent dO. CUDA tensors launch the two backward kernels
+    (bf16 or fp32, contiguous, 1 <= D <= 128; lse (BH, N) fp32); CPU tensors
+    take ``flash_attention_bwd_plain``."""
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(q, k, v, o, lse, do)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention_bwd: unsupported device {q.device}")
+    _check_qkv("flash_attention_bwd", q, k, v, o, do)
+    bh, n, _ = q.shape
+    if (lse.shape != (bh, n) or lse.dtype != torch.float32
+            or lse.device != q.device or not lse.is_contiguous()):
+        raise ValueError(
+            f"flash_attention_bwd: lse must be contiguous ({bh}, {n}) float32 on "
+            f"{q.device}, got {tuple(lse.shape)} {lse.dtype} on {lse.device}"
+        )
+    delta = _delta(o, do)
+    dq = flash_bwd_dq(q, k, v, do, lse, delta)
+    dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta)
+    return dq, dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """(BH, N, D) attention -> O, differentiable: the counterpart of
+    ``_flash_padded`` and its custom_vjp. The forward saves (q, k, v, O, lse);
+    the backward runs ``flash_attention_bwd`` on them."""
+
+    @staticmethod
+    def forward(ctx, q, k, v):
+        o, lse = flash_attention(q, k, v)
+        ctx.save_for_backward(q, k, v, o, lse)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        return flash_attention_bwd(q, k, v, o, lse, do.contiguous())
+
+
 def mha_flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """(B, N, H, D) attention through ``flash_attention`` -> (B, N, H, D)."""
+    """(B, N, H, D) attention through the flash kernels -> (B, N, H, D).
+    Differentiable; with gradients off it calls ``flash_attention`` alone and
+    keeps no residuals."""
     b, n, h, d = q.shape
 
     def to_bhnd(x):
         return x.permute(0, 2, 1, 3).contiguous().view(b * h, n, d)
 
-    out, _ = flash_attention(to_bhnd(q), to_bhnd(k), to_bhnd(v))
+    q3, k3, v3 = to_bhnd(q), to_bhnd(k), to_bhnd(v)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        out = FlashAttention.apply(q3, k3, v3)
+    else:
+        out, _ = flash_attention(q3, k3, v3)
     return out.view(b, h, n, d).permute(0, 2, 1, 3)

@@ -1,0 +1,43 @@
+"""Checkpoint I/O of the port (counterpart of ``midd_tpu/utils/checkpoint.py``).
+
+The JAX package writes orbax trees plus a ``metadata.json``; the port writes
+one ``<ckpt_dir>/<ckpt_name>.pth`` in the reference's torch format
+(DDIM/DDIMModel.py:429-435, hybrid3diffusionspeed.py:837-852):
+``model_state_dict``, ``optimizer_state_dict`` and the metadata keys (epoch,
+best_psnr, best_ssim, the histories, the flattened arch fields) at the top
+level. The port's serving engine reads exactly this file. Reading and
+writing orbax directories is ROADMAP.md queue 1 item 9.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Any, Dict, Mapping, Optional
+
+import torch
+
+
+def save_checkpoint(path: str, model_state_dict: Mapping[str, torch.Tensor],
+                    optimizer_state_dict: Optional[Dict[str, Any]] = None,
+                    metadata: Optional[Dict[str, Any]] = None) -> str:
+    """Write ``path`` (a ``.pth`` file) atomically: a reader never sees a
+    half-written file. Model tensors are stored on the CPU."""
+    path = os.path.abspath(path)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    payload: Dict[str, Any] = dict(metadata or {})
+    payload["model_state_dict"] = {k: v.detach().cpu() for k, v in model_state_dict.items()}
+    if optimizer_state_dict is not None:
+        payload["optimizer_state_dict"] = optimizer_state_dict
+    tmp = f"{path}.{os.getpid()}.tmp"
+    torch.save(payload, tmp)
+    os.replace(tmp, path)
+    return path
+
+
+def load_checkpoint(path: str) -> Dict[str, Any]:
+    """Read a checkpoint written by ``save_checkpoint`` (or a reference
+    ``.pth``) onto the CPU. ``path`` may omit the ``.pth`` suffix, as the JAX
+    package's checkpoint paths do."""
+    if not os.path.exists(path) and os.path.exists(path + ".pth"):
+        path += ".pth"
+    return torch.load(path, map_location="cpu", weights_only=True)

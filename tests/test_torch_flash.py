@@ -1,9 +1,11 @@
-"""The port's flash attention against the JAX package's Pallas kernel.
+"""The port's flash attention, forward and backward, against the JAX
+package's Pallas kernels.
 
-On the CPU the port's wrapper runs its plain version; the JAX kernel runs in
-interpret mode. N=1024 at block 1024 really reaches the Pallas kernel (the
-JAX wrapper's N % block fallback is not taken). Tolerance 2e-5, the JAX
-package's own kernel tolerance (tests/test_flash_attention.py).
+On the CPU the port's wrappers run their plain versions; the JAX kernels run
+in interpret mode. N=1024 at block 1024 really reaches the Pallas kernels
+(the JAX wrapper's N % block fallback is not taken). Forward tolerance 2e-5,
+the JAX package's own kernel tolerance (tests/test_flash_attention.py);
+gradients at that package's 5e-4 / 1e-3 or tighter, as stated per test.
 """
 
 import math
@@ -14,9 +16,16 @@ import torch
 
 import jax.numpy as jnp
 
-from midd_tpu.ops.flash_attention import _fwd_call, _pad_lane, mha_flash as jax_mha_flash
+import jax
+
+from midd_tpu.models.blocks import AttentionBlock as JAttentionBlock
+from midd_tpu.ops.flash_attention import _flash_padded_bwd, _fwd_call, _pad_lane
+from midd_tpu.ops.flash_attention import mha_flash as jax_mha_flash
+from midd_tpu_torch.convert.from_jax import state_dict_from_jax
+from midd_tpu_torch.models import blocks as port_blocks
 from midd_tpu_torch.ops import flash_attention as port_flash
 from midd_tpu_torch.ops.attention import mha, mha_reference
+from tests.torch_port_util import jax_init, nchw, nhwc, port
 
 ATOL = 2e-5
 
@@ -74,3 +83,112 @@ def test_kernel_source_and_build_flags_target_hopper():
     src = port_flash.SOURCE.read_text()
     assert 'extern "C" int midd_flash_fwd' in src
     assert "arch=compute_90a,code=sm_90a" in port_flash.NVCC_FLAGS
+    bwd = port_flash.BWD_SOURCE.read_text()
+    for name in port_flash._SIGNATURES[port_flash.BWD_SOURCE]:
+        assert f'extern "C" int {name}(' in bwd or f'extern "C" const char* {name}(' in bwd
+
+
+# -- the backward ----------------------------------------------------------------
+
+
+def _jax_pallas_bwd(q, k, v, do):
+    """The JAX package's two Pallas backward kernels (interpret mode) on
+    lane-padded (BH, N, D) inputs, from its own forward's (O, lse)."""
+    d = q.shape[-1]
+    scale = 1.0 / math.sqrt(d)
+    qp, kp, vp, dop = (_pad_lane(jnp.asarray(a)) for a in (q, k, v, do))
+    o, lse = _fwd_call(qp, kp, vp, 1024, 1024, scale, True)
+    dq, dk, dv = _flash_padded_bwd(1024, 1024, scale, True, (qp, kp, vp, o, lse), dop)
+    return tuple(np.asarray(g)[:, :, :d] for g in (dq, dk, dv))
+
+
+@pytest.mark.parametrize("d", [64, 96])
+def test_bwd_plain_matches_pallas_kernels(rng, d):
+    bh, n = 2, 1024
+    q, k, v, do = (rng.standard_normal((bh, n, d), dtype=np.float32) for _ in range(4))
+    want = _jax_pallas_bwd(q, k, v, do)
+    tq, tk, tv, tdo = (torch.from_numpy(a) for a in (q, k, v, do))
+    o, lse = port_flash.flash_attention(tq, tk, tv)
+    before = (port_flash.flash_bwd_dq.launches, port_flash.flash_bwd_dkv.launches)
+    got = port_flash.flash_attention_bwd(tq, tk, tv, o, lse, tdo)
+    assert (port_flash.flash_bwd_dq.launches, port_flash.flash_bwd_dkv.launches) == before
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert a.dtype == torch.float32 and a.shape == (bh, n, d)
+        # fp32 on both sides, another summation order over N = 1024 keys
+        np.testing.assert_allclose(a.numpy(), b, atol=2e-5, rtol=1e-4, err_msg=name)
+
+
+@pytest.mark.parametrize("d", [64, 96])
+def test_mha_gradients_match_jax_grad_through_pallas(rng, d):
+    """jax.grad through ``mha_flash`` reaches the Pallas backward; the port's
+    ``mha`` (the exact path on the CPU) and ``mha_flash`` (the autograd
+    Function, with the plain backward) are differentiated by torch."""
+    shape = (1, 1024, 2, d)
+    q, k, v, w = (rng.standard_normal(shape, dtype=np.float32) for _ in range(4))
+    jg = jax.grad(lambda q, k, v: jnp.sum(jax_mha_flash(q, k, v) * w), argnums=(0, 1, 2))(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    for fn in (mha, port_flash.mha_flash):
+        tq, tk, tv = (torch.from_numpy(a).requires_grad_(True) for a in (q, k, v))
+        (fn(tq, tk, tv) * torch.from_numpy(w)).sum().backward()
+        for name, a, b in zip(("dq", "dk", "dv"), (tq, tk, tv), jg):
+            # the JAX package's gradient tolerance (tests/test_flash_attention.py)
+            np.testing.assert_allclose(a.grad.numpy(), np.asarray(b), atol=5e-4, rtol=1e-3,
+                                       err_msg=f"{fn.__name__} {name}")
+
+
+@pytest.mark.parametrize("attention", ["mha", "mha_flash"])
+def test_attention_block_value_and_grads_match_jax(rng, monkeypatch, attention):
+    """Mirrors tests/test_flash_attention.py's AttentionBlock check: the JAX
+    block with the Pallas kernel (h*w = 1024 reaches it) against the port's
+    block on the same weights, value and every gradient."""
+    if attention == "mha_flash":  # route the CPU block through the autograd Function
+        monkeypatch.setattr(port_blocks, "mha", port_flash.mha_flash)
+    x = rng.standard_normal((1, 32, 32, 8), dtype=np.float32)
+    jblk = JAttentionBlock(use_flash=True)
+    variables = jax_init(jblk, jnp.zeros((1, 32, 32, 8)))
+    lj = lambda p, x: jnp.sum(jblk.apply(p, x) ** 2)
+    vj, (gj, gxj) = jax.value_and_grad(lj, argnums=(0, 1))(variables, jnp.asarray(x))
+    tblk = port(port_blocks.AttentionBlock(8), variables)
+    tx = nchw(x).requires_grad_(True)
+    vt = (tblk(tx) ** 2).sum()
+    vt.backward()
+    assert float(vt.detach()) == pytest.approx(float(vj), rel=1e-5)
+    np.testing.assert_allclose(nhwc(tx.grad), np.asarray(gxj), atol=5e-4, rtol=1e-3)
+    want = port_blocks.AttentionBlock(8)
+    want.load_state_dict(state_dict_from_jax({"params": jax.tree_util.tree_map(np.asarray, gj["params"])}))
+    for (name, p), (_, g) in zip(tblk.named_parameters(), want.named_parameters()):
+        np.testing.assert_allclose(p.grad.numpy(), g.detach().numpy(), atol=5e-4, rtol=1e-3, err_msg=name)
+
+
+def test_no_residuals_without_gradients(rng):
+    q = torch.from_numpy(rng.standard_normal((1, 40, 2, 8), dtype=np.float32))
+    with torch.inference_mode():
+        assert port_flash.mha_flash(q, q, q).grad_fn is None
+    with torch.no_grad():
+        assert port_flash.mha_flash(q.requires_grad_(True), q, q).grad_fn is None
+    fn = port_flash.mha_flash(q, q, q).grad_fn
+    while fn is not None and "FlashAttention" not in type(fn).__name__:
+        fn = fn.next_functions[0][0]
+    assert fn is not None
+
+
+def test_bwd_wrapper_rejects_unsupported_devices():
+    q = torch.zeros((1, 4, 8), device="meta")
+    lse = torch.zeros((1, 4), device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        port_flash.flash_attention_bwd(q, q, q, q, lse, q)
+
+
+def test_bwd_plain_rounds_bf16_like_the_kernels(rng):
+    """bf16: ds and p^T are rounded to bf16 before their products, so the
+    plain version differs from its fp32 run by about a bf16 ulp of max|dX|,
+    not by nothing."""
+    q, k, v, do = (torch.from_numpy(rng.standard_normal((2, 64, 16), dtype=np.float32)).bfloat16()
+                   for _ in range(4))
+    o, lse = port_flash.flash_attention_plain(q, k, v)
+    g16 = port_flash.flash_attention_bwd_plain(q, k, v, o, lse, do)
+    g32 = port_flash.flash_attention_bwd_plain(q.float(), k.float(), v.float(), o.float(), lse, do.float())
+    for a, b in zip(g16, g32):
+        assert a.dtype == torch.bfloat16
+        err = (a.float() - b).abs().max().item()
+        assert 0 < err <= 2.0 ** -6 * b.abs().max().item()

@@ -243,9 +243,13 @@ _CHECK = """
 import importlib, pkgutil, sys
 sys.path.insert(0, {repo!r})
 import midd_tpu_torch
+walked = set()
 for m in pkgutil.walk_packages(midd_tpu_torch.__path__, "midd_tpu_torch."):
     importlib.import_module(m.name)
-import midd_tpu_torch.serve.server
+    walked.add(m.name)
+want = {{"midd_tpu_torch." + n for n in ("serve.server", "ops.flash_attention", "train.data",
+        "train.losses", "train.metrics", "train.trainer", "train.recipes", "utils.checkpoint")}}
+assert want <= walked, sorted(want - walked)
 {extra}
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "midd_tpu"))
