@@ -35,7 +35,9 @@ more HTTP requests and 6 in-process ``process_all`` calls, each path's wall
 time (median of 5) beside its device time under ``torch.profiler`` (by kernel
 kind, top kernels, idle share = 1 - device / wall), ``F.group_norm`` against
 the port's ``GroupNorm32`` at the largest GroupNorm input of a 512² UNet
-eval, and the same wall/device breakdown for one 512² training step.
+eval, the host time per serving call of the flash forward through its
+autograd Function against a direct call, and the same wall/device breakdown
+for one 512² training step.
 """
 
 from __future__ import annotations
@@ -123,12 +125,14 @@ BWD_BF16_REL = 2.0 ** -7
 # and matmul sums in another order (~1e-6 relative per op) through ~80
 # layers, plus rare flips at the loss's non-smooth points (the eps and x0
 # clamps, the L1 sign), each of which moves one pixel's cotangent. Each
-# parameter's gradient must agree to 1e-3 of its largest entry; that entry is
-# floored at 1e-3 of the largest gradient of the model, because the key
-# biases of the qkv convs have an exactly zero gradient in exact arithmetic
-# (softmax is invariant to a constant shift of every key) and both devices
-# then return rounding noise. The losses must agree to 1e-5 relative.
-STEP_GRAD_REL = 1e-3
+# parameter's gradient must agree to 1e-4 of its largest entry (measured
+# 3.6-4.0e-6 on the H100, so ~25x of margin, while a layer run at reduced
+# precision, TF32 at 2^-11, would not fit under it); that entry is floored
+# at 1e-3 of the largest gradient of the model, because the key biases of
+# the qkv convs have an exactly zero gradient in exact arithmetic (softmax
+# is invariant to a constant shift of every key) and both devices then
+# return rounding noise. The losses must agree to 1e-5 relative.
+STEP_GRAD_REL = 1e-4
 STEP_LOSS_REL = 1e-5
 TRAIN_SIZE = 512
 TRAIN_PAIRS = 4
@@ -592,11 +596,34 @@ def profile_request(engine, addr) -> dict:
                 xg.float(), 8, gn.weight, gn.bias, gn.eps).to(dtype)),
             "GroupNorm32": time_ms(lambda: gn(xg)),
         }
+    out["flash_host_us"] = flash_host_us()
     print(json.dumps({"profile": {"http_p50_ms": out["http"]["p50_ms"],
                                   "process_all_p50_ms": out["process_all"]["p50_ms"],
                                   "sum_of_paths": out["sum_of_paths"],
-                                  "groupnorm_ms": out["groupnorm_ms"]}}), flush=True)
+                                  "groupnorm_ms": out["groupnorm_ms"],
+                                  "flash_host_us": out["flash_host_us"]}}), flush=True)
     return out
+
+
+def flash_host_us(calls: int = 2000) -> dict:
+    """``--report`` only: host time per serving call (inference_mode) of the
+    forward through ``FlashAttention.apply`` and of ``flash_attention``
+    called directly, at a shape small enough that the host, not the kernel,
+    sets the pace. Median of 5 loops of ``calls`` calls each, in turns."""
+    q = torch.randn(2, 64, 32, device="cuda")
+    fns = {"FlashAttention.apply": lambda: fa.FlashAttention.apply(q, q, q),
+           "flash_attention": lambda: fa.flash_attention(q, q, q)}
+    times = {name: [] for name in fns}
+    with torch.inference_mode():
+        for _ in range(5):
+            for name, fn in fns.items():
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                for _ in range(calls):
+                    fn()
+                torch.cuda.synchronize()
+                times[name].append((time.perf_counter() - t) * 1e6 / calls)
+    return {"shape": [2, 64, 32], **{name: statistics.median(ts) for name, ts in times.items()}}
 
 
 def _device_ms_by_kernel(prof) -> dict:

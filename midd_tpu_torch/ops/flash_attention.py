@@ -311,16 +311,12 @@ class FlashAttention(torch.autograd.Function):
 
 def mha_flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """(B, N, H, D) attention through the flash kernels -> (B, N, H, D).
-    Differentiable; with gradients off it calls ``flash_attention`` alone and
-    keeps no residuals."""
+    Differentiable through ``FlashAttention``; with gradients off, or no input
+    requiring them, autograd records no node and keeps no residuals."""
     b, n, h, d = q.shape
 
     def to_bhnd(x):
         return x.permute(0, 2, 1, 3).contiguous().view(b * h, n, d)
 
-    q3, k3, v3 = to_bhnd(q), to_bhnd(k), to_bhnd(v)
-    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
-        out = FlashAttention.apply(q3, k3, v3)
-    else:
-        out, _ = flash_attention(q3, k3, v3)
+    out = FlashAttention.apply(to_bhnd(q), to_bhnd(k), to_bhnd(v))
     return out.view(b, h, n, d).permute(0, 2, 1, 3)

@@ -91,22 +91,24 @@ def test_kernel_source_and_build_flags_target_hopper():
 # -- the backward ----------------------------------------------------------------
 
 
-def _jax_pallas_bwd(q, k, v, do):
+def _jax_pallas_bwd(q, k, v, do, dtype=jnp.float32):
     """The JAX package's two Pallas backward kernels (interpret mode) on
-    lane-padded (BH, N, D) inputs, from its own forward's (O, lse)."""
+    lane-padded (BH, N, D) inputs in ``dtype``, from its own forward's
+    (O, lse). Returns (dq, dk, dv) as fp32 numpy, and that O and lse."""
     d = q.shape[-1]
     scale = 1.0 / math.sqrt(d)
-    qp, kp, vp, dop = (_pad_lane(jnp.asarray(a)) for a in (q, k, v, do))
+    qp, kp, vp, dop = (_pad_lane(jnp.asarray(a, dtype=dtype)) for a in (q, k, v, do))
     o, lse = _fwd_call(qp, kp, vp, 1024, 1024, scale, True)
     dq, dk, dv = _flash_padded_bwd(1024, 1024, scale, True, (qp, kp, vp, o, lse), dop)
-    return tuple(np.asarray(g)[:, :, :d] for g in (dq, dk, dv))
+    f32 = lambda x: np.array(x.astype(jnp.float32))[:, :, :d]
+    return tuple(f32(g) for g in (dq, dk, dv)), f32(o), np.array(lse)[:, 0, :]
 
 
 @pytest.mark.parametrize("d", [64, 96])
 def test_bwd_plain_matches_pallas_kernels(rng, d):
     bh, n = 2, 1024
     q, k, v, do = (rng.standard_normal((bh, n, d), dtype=np.float32) for _ in range(4))
-    want = _jax_pallas_bwd(q, k, v, do)
+    want, _, _ = _jax_pallas_bwd(q, k, v, do)
     tq, tk, tv, tdo = (torch.from_numpy(a) for a in (q, k, v, do))
     o, lse = port_flash.flash_attention(tq, tk, tv)
     before = (port_flash.flash_bwd_dq.launches, port_flash.flash_bwd_dkv.launches)
@@ -116,6 +118,32 @@ def test_bwd_plain_matches_pallas_kernels(rng, d):
         assert a.dtype == torch.float32 and a.shape == (bh, n, d)
         # fp32 on both sides, another summation order over N = 1024 keys
         np.testing.assert_allclose(a.numpy(), b, atol=2e-5, rtol=1e-4, err_msg=name)
+
+
+@pytest.mark.parametrize("d", [64, 96])
+def test_bwd_plain_matches_pallas_kernels_bf16(rng, d):
+    """bf16 inputs through the Pallas backward (interpret mode) and the
+    port's plain backward, both given the Pallas forward's O and lse, so only
+    the backward's arithmetic is compared: ds and p^T rounded to bf16 before
+    their products. A plain version that kept them in fp32 agrees with the
+    kernels only to ~1e-4 of max|dX| on average; the port agrees to ~1e-8."""
+    bh, n = 2, 1024
+    q, k, v, do = (rng.standard_normal((bh, n, d), dtype=np.float32) for _ in range(4))
+    do *= rng.uniform(0.1, 2.0, (bh, n, 1)).astype(np.float32)  # non-uniform dO
+    want, o, lse = _jax_pallas_bwd(q, k, v, do, jnp.bfloat16)
+    tq, tk, tv, tdo, to = (torch.from_numpy(a).bfloat16() for a in (q, k, v, do, o))
+    got = port_flash.flash_attention_bwd(tq, tk, tv, to, torch.from_numpy(lse), tdo)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert a.dtype == torch.bfloat16 and a.shape == (bh, n, d)
+        err, top = np.abs(a.float().numpy() - b), np.abs(b).max()
+        # The two differ only where an fp32 sum, taken in another order, lands
+        # ds, p^T or dX on the other side of a bf16 rounding boundary: two bf16
+        # ulps of the largest gradient, the bound the card holds its kernels
+        # to. The mean error catches a rounding point moved: measured
+        # <= 8e-8 * max|dX|; the bound 2^-16 * max|dX| (1.5e-5) sits 6x below
+        # what keeping ds and p^T in fp32 gives (1e-4 to 1.8e-4).
+        assert err.max() <= 2.0 ** -7 * top, (name, err.max(), top)
+        assert err.mean() <= 2.0 ** -16 * top, (name, err.mean(), top)
 
 
 @pytest.mark.parametrize("d", [64, 96])
@@ -162,11 +190,17 @@ def test_attention_block_value_and_grads_match_jax(rng, monkeypatch, attention):
 
 def test_no_residuals_without_gradients(rng):
     q = torch.from_numpy(rng.standard_normal((1, 40, 2, 8), dtype=np.float32))
-    with torch.inference_mode():
-        assert port_flash.mha_flash(q, q, q).grad_fn is None
-    with torch.no_grad():
-        assert port_flash.mha_flash(q.requires_grad_(True), q, q).grad_fn is None
-    fn = port_flash.mha_flash(q, q, q).grad_fn
+    saved = []
+    with torch.autograd.graph.saved_tensors_hooks(lambda t: saved.append(t) or t, lambda t: t):
+        with torch.inference_mode():
+            assert port_flash.mha_flash(q, q, q).grad_fn is None
+        assert port_flash.mha_flash(q, q, q).grad_fn is None  # no input requires grad
+        with torch.no_grad():
+            assert port_flash.mha_flash(q.requires_grad_(True), q, q).grad_fn is None
+        assert saved == []
+        out = port_flash.mha_flash(q, q, q)
+    assert len(saved) >= 5  # q, k, v, O, lse, beside what the layout ops save
+    fn = out.grad_fn
     while fn is not None and "FlashAttention" not in type(fn).__name__:
         fn = fn.next_functions[0][0]
     assert fn is not None
