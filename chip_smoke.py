@@ -1,32 +1,43 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU: builds the hand-written
 kernels from this checkout and holds each against its plain PyTorch version,
 serves full-width 512² /denoise requests through the port's HTTP server,
-trains the full-width diffusion UNet through the port's training CLI and
-serves the checkpoint it wrote, and checks the card against the CPU on one
-exact rollout and on one training step.
+runs the kernel-fused NAFNet forward, trains the full-width diffusion UNet
+and NAFNet through the port's training CLI and serves the checkpoints they
+wrote, and checks the card against the CPU on one exact rollout, one NAFNet
+forward and one training step of each model.
 
-    python3 chip_smoke.py [--report FILE]
+    python3 chip_smoke.py [--report FILE] [--ab-parent DIR]
 
 Phases (any failure exits non-zero, and no result line is printed):
 1. device: a CUDA device is required; prints the card's name and power limit;
-2. build: compiles csrc/flash_fwd.cu and csrc/flash_bwd.cu with nvcc, the two
-   at once;
+2. build: compiles csrc/flash_fwd.cu, csrc/flash_bwd.cu, csrc/ln2d.cu and
+   csrc/naf_ffn.cu with nvcc, all four at once;
 3. forward kernel vs plain: flash_attention against flash_attention_plain
    (TF32 off) at the served shapes, with timings and the SDPA yardstick;
 4. backward kernels vs plain: flash_bwd_dq and flash_bwd_dkv against their
    plain versions (TF32 off), with timings and SDPA's backward as yardstick;
-5. serving slice: InferenceEngine(EngineConfig()) at 512² with seeded demo
+5. ln2d kernel vs plain at every SERVE_NAFNET stage shape of a 512² input
+   (batch 1 and 2) and one ragged shape, fp32 and bf16, with timings and
+   ``F.layer_norm`` on a channels-last copy as yardstick;
+6. naf_ffn kernel vs plain at the same shapes, fp32 and bf16, with timings;
+7. fused NAFNet forward: ``nafnet_apply_fused`` at SERVE_NAFNET, 512², fp32,
+   against the module's forward (TF32 off); exactly 30 naf_ffn launches;
+8. serving slice: InferenceEngine(EngineConfig()) at 512² with seeded demo
    weights behind the stdlib server; 3 multipart requests, four non-null
-   PNGs each, exactly 48 forward and no backward launches per request;
-6. card vs CPU: one exact fp32 diffusion rollout at 256² on both devices;
-7. one training step, card vs CPU: SERVE_DIFFUSION at 128², fp32, TF32 off,
-   same weights, batch and (t, eps); loss and every parameter gradient
-   compared; 6 forward, 6 dq and 6 dk/dv launches;
-8. training slice: ``recipes.main`` (--model diffusion, 512², 1 epoch, 4
-   seeded synthetic pairs, batch 1) = 4 train steps of 6/6/6 launches and a
-   validation rollout of 17 evals (102 forward launches); finite losses,
-   moved parameters, a diffusion.pth with its metadata; then an
-   InferenceEngine on that checkpoint answers one 512² request.
+   PNGs each, exactly 48 flash forward, 120 ln2d (the nafnet path and the
+   hybrid's NAFNet backend) and no backward launches per request;
+9. card vs CPU: one exact fp32 diffusion rollout and one fp32 NAFNet forward
+   at 256² on both devices;
+10. one training step, card vs CPU, of each model at 128², fp32, TF32 off,
+   same weights and batch: SERVE_DIFFUSION (6 forward, 6 dq and 6 dk/dv
+   launches) and SERVE_NAFNET (60 ln2d launches; every LayerNorm2d weight
+   and bias gets a gradient); loss and every parameter gradient compared;
+11. training slices: ``recipes.main`` --model diffusion (512², 1 epoch, 4
+   seeded synthetic pairs, batch 1 = 4 train steps of 6/6/6 launches and a
+   validation rollout of 17 evals) and --model nafnet (512², 1 epoch, 8
+   pairs, batch 2 = 4 train steps of 60 ln2d launches and one validation
+   forward); finite losses, moved parameters, a .pth with its metadata;
+   then an InferenceEngine on each checkpoint answers one 512² request.
 The second-to-last line is the kernels JSON, the last {"ok": true, ...}.
 
 ``--report FILE`` also measures where a request's and a training step's time
@@ -37,12 +48,18 @@ kind, top kernels, idle share = 1 - device / wall), ``F.group_norm`` against
 the port's ``GroupNorm32`` at the largest GroupNorm input of a 512² UNet
 eval, the host time per serving call of the flash forward through its
 autograd Function against a direct call, and the same wall/device breakdown
-for one 512² training step.
+for one 512² training step of each model.
+
+``--ab-parent DIR`` (with ``--report``) times the served nafnet and hybrid
+paths, wall and device, with the ``midd_tpu_torch`` package under DIR and
+with this checkout's, in turns (DIR, this, this, DIR; a fresh process
+each), and adds them to the report.
 """
 
 from __future__ import annotations
 
 import base64
+import contextlib
 import http.client
 import io
 import json
@@ -62,16 +79,24 @@ from PIL import Image
 
 from midd_tpu_torch import config
 from midd_tpu_torch.diffusion.schedule import make_schedule
-from midd_tpu_torch.models.blocks import GroupNorm32, init_weights
+from midd_tpu_torch.models.blocks import GroupNorm32, LayerNorm2d, init_weights
+from midd_tpu_torch.models.nafnet import EnhancedNAFNet
 from midd_tpu_torch.models.unet_diffusion import UNetDiffusion
+from midd_tpu_torch.ops import _build
 from midd_tpu_torch.ops import flash_attention as fa
+from midd_tpu_torch.ops import ln2d as ln
+from midd_tpu_torch.ops import naf_ffn as ffn
+from midd_tpu_torch.ops.naf_fast import nafnet_apply_fused
 from midd_tpu_torch.serve.engine import MODEL_NAMES, EngineConfig, InferenceEngine
 from midd_tpu_torch.serve.server import make_server
 from midd_tpu_torch.train import recipes
-from midd_tpu_torch.train.trainer import Trainer, diffusion_draw, diffusion_loss_fn
+from midd_tpu_torch.train.trainer import (Trainer, diffusion_draw, diffusion_loss_fn,
+                                          nafnet_loss_fn, no_draw)
 
-# H100 SXM data sheet (dense): bf16 tensor-core peak and HBM3 rate
+# H100 SXM data sheet (dense): bf16 tensor-core peak, fp32 CUDA-core peak
+# and HBM3 rate
 PEAK_BF16_FLOPS = 989e12
+PEAK_FP32_FLOPS = 67e12
 HBM_BYTES_PER_S = 3.35e12
 
 # (bh, n, d, dtype). The plain version runs in fp32 on the same (for bf16:
@@ -96,8 +121,49 @@ TOL_FP32 = 1e-5
 # while these outputs are 0.01-0.3.
 BF16_O_REL = 2.0 ** -7
 PROFILE_REQUESTS = 6
-LAUNCHES_PER_REQUEST = 48  # (4 diffusion + 4 hybrid UNet evals) x 6 attention blocks
+PER_REQUEST = {
+    "flash_fwd": 48,  # (4 diffusion + 4 hybrid UNet evals) x 6 attention blocks
+    "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+    "ln2d": 120,  # (nafnet path + the hybrid's NAFNet backend) x 30 NAFBlocks x 2 norms
+    "naf_ffn": 0,  # no engine path runs the fused functional forward
+}
 CARD_VS_CPU_BOUND = 1e-3
+
+# SERVE_NAFNET at 512²: (C, H = W) of each stage, and the LayerNorm2d calls
+# (2 per NAFBlock) and FFN halves (1 per NAFBlock) one forward makes there:
+# encoders (2, 2, 4, 6) at C 32..256, 8 middle blocks at C 512, decoders
+# (2, 2, 2, 2) at C 256..32.
+NAF_STAGES = [(32, 512), (64, 256), (128, 128), (256, 64), (512, 32)]
+NAF_BLOCKS = {32: 4, 64: 4, 128: 6, 256: 8, 512: 8}
+NAF_RAGGED = (48, 37, 29)  # (C, H, W): C not a multiple of 32, odd H*W
+# ln2d fp32: the kernel takes its sums in the plain version's order with
+# every step rounded as written, so the two should agree to the last bits;
+# 1e-5 of max|y| would still hold a summation in another order (about
+# sqrt(C) ulps of E[x^2], amplified by mean^2 / var ~ 7 at these inputs,
+# whose mean is 2.5x their spread), while a fault of one term in 10^4 would
+# not fit.
+LN_FP32_REL = 1e-5
+# bf16: both sides compute in fp32 from the same bf16 inputs and round once
+# to bf16; where the fp32 values straddle a rounding boundary they differ by
+# one bf16 ulp: two ulps of the largest output, 2^-7 * max|y|, as for the
+# flash kernels.
+LN_BF16_REL = 2.0 ** -7
+# naf_ffn fp32: the two products sum C (then C) terms in another order than
+# cuBLAS (TF32 off): ~sqrt(C) * 2^-24 of the terms' size each, so ~1e-6 of
+# max|out| at C 512; 1e-5 leaves a margin while a TF32 product (2^-11) would
+# not fit. bf16: as for ln2d.
+FFN_FP32_REL = 1e-5
+FFN_BF16_REL = 2.0 ** -7
+# nafnet_apply_fused vs the module, fp32, TF32 off: the same convolutions;
+# norm1 and norm2 take a centred variance in the fused forward and the
+# one-pass one in the module (both in fp32, ~1e-7 relative apart at these
+# activations), and the FFN products sum in another order, through 30
+# blocks. 1e-4 of max|out|: a TF32 layer (2^-11) would not fit.
+NAFNET_FUSED_REL = 1e-4
+# One NAFNet forward at 256², card vs CPU, fp32, TF32 off: the convolutions
+# in another order (~1e-6 relative per layer, through ~170 layers); the
+# same bound, for the same reason.
+NAFNET_CARD_VS_CPU_REL = 1e-4
 
 # Backward cases: the training shape first (fp32, as the trainer runs), then
 # as the forward's cases. dO is drawn like q, k, v (non-uniform).
@@ -137,6 +203,8 @@ STEP_LOSS_REL = 1e-5
 TRAIN_SIZE = 512
 TRAIN_PAIRS = 4
 VAL_EVALS = 17  # val_inference_steps 15 over 50 noise steps: stride 3, t = 48..0
+NAF_TRAIN_PAIRS = 8  # 4 steps at the CLI's batch of 2
+NO_LAUNCHES = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0, "ln2d": 0, "naf_ffn": 0}
 
 
 def phase(name: str) -> None:
@@ -221,7 +289,7 @@ def check_kernel(report: dict) -> dict:
 
 
 KERNEL_COUNTERS = {"flash_fwd": fa.flash_attention, "flash_bwd_dq": fa.flash_bwd_dq,
-                   "flash_bwd_dkv": fa.flash_bwd_dkv}
+                   "flash_bwd_dkv": fa.flash_bwd_dkv, "ln2d": ln.ln2d, "naf_ffn": ffn.naf_ffn_fused}
 
 
 def counts() -> dict:
@@ -315,8 +383,266 @@ def check_bwd(report: dict) -> list:
     return entries
 
 
+def _dt(dtype) -> str:
+    return str(dtype).replace("torch.", "")
+
+
+def _kernel_cases():
+    """(b, c, h, w, dtype, layout): every SERVE_NAFNET stage of a 512² input
+    at batch 1 and 2, and the ragged shape, in fp32 and bf16, NCHW; and at
+    batch 1 in channels-last, the layout the engine's and the trainer's
+    activations take (cuDNN keeps it from their permuted NHWC inputs)."""
+    shapes = [(b, c, s, s, "nchw") for c, s in NAF_STAGES for b in (1, 2)]
+    shapes += [(1, c, s, s, "channels_last") for c, s in NAF_STAGES]
+    shapes += [(2, *NAF_RAGGED, layout) for layout in ("nchw", "channels_last")]
+    return [(*shape[:4], dtype, shape[4]) for shape in shapes for dtype in (torch.float32, torch.bfloat16)]
+
+
+def _in_layout(x: torch.Tensor, layout: str) -> torch.Tensor:
+    return x.contiguous(memory_format=torch.channels_last) if layout == "channels_last" else x
+
+
+def _per_forward(rows: list, key: str) -> float:
+    """Sum of a per-call number over one SERVE_NAFNET forward at 512², batch
+    1, fp32: each stage's call times the calls there (``calls`` per block)."""
+    return sum(r[key] * r["calls_per_forward"] for r in rows)
+
+
+def check_ln2d(report: dict) -> dict:
+    """Phase 5: the LayerNorm2d kernel against its plain version; returns its
+    kernels-line entry (launches filled in from the main paths)."""
+    set_tf32(False)
+    gen = torch.Generator().manual_seed(2)
+    rows, stage_rows = [], {"nchw": [], "channels_last": []}
+    for b, c, h, w, dtype, layout in _kernel_cases():
+        x = (2.5 + torch.randn(b, c, h, w, generator=gen)).to("cuda", dtype)  # mean 2.5x the spread
+        x = _in_layout(x, layout)
+        scale = (1 + 0.2 * torch.randn(c, generator=gen)).cuda()
+        bias = (0.2 * torch.randn(c, generator=gen)).cuda()
+        y = ln.ln2d(x, scale, bias)
+        ref = ln.ln2d_plain(x, scale, bias)
+        torch.cuda.synchronize()
+        max_y = ref.float().abs().max().item()
+        tol = (LN_BF16_REL if dtype == torch.bfloat16 else LN_FP32_REL) * max_y
+        err = (y.float() - ref.float()).abs().max().item()
+        row = {"shape": [b, c, h, w], "dtype": _dt(dtype), "layout": layout, "max_abs_y": max_y,
+               "max_abs_err": err, "tol": tol, "bitwise_equal": bool(torch.equal(y, ref)),
+               "ok": err <= tol and y.dtype == dtype and y.shape == x.shape and y.stride() == x.stride()}
+        if b == 1:  # the served batch: times, bound and yardstick
+            p, elt = b * h * w, x.element_size()
+            t_bytes = (2 * p * c * elt + 2 * c * 4) / HBM_BYTES_PER_S * 1e3
+            t_ops = 8.0 * p * c / PEAK_FP32_FLOPS * 1e3
+            xcl = x.permute(0, 2, 3, 1).reshape(-1, c).contiguous()  # made once, outside the timing
+            sc, bi = scale.to(dtype), bias.to(dtype)
+            row.update({
+                "ms": time_ms(lambda: ln.ln2d(x, scale, bias)),
+                "plain_ms": time_ms(lambda: ln.ln2d_plain(x, scale, bias), reps=5, warmup=1),
+                "library_ms": time_ms(lambda: F.layer_norm(xcl, (c,), sc, bi, 1e-6)),
+                "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                "calls_per_forward": 2 * NAF_BLOCKS.get(c, 0),
+            })
+            if dtype == torch.float32 and c in NAF_BLOCKS:
+                stage_rows[layout].append(row)
+        print(json.dumps({"ln2d": row}), flush=True)
+        rows.append(row)
+        if not row["ok"]:
+            raise AssertionError(f"ln2d disagrees with its plain version: {row}")
+    report["ln2d_cases"] = rows
+    # C 32 at 512², batch 1, fp32, channels-last: the largest call, in the
+    # layout of the served and trained NAFNet
+    main = stage_rows["channels_last"][0]
+    return {
+        "name": "ln2d", "route": "cuda", "source": "midd_tpu_torch/csrc/ln2d.cu",
+        "replaces": "midd_tpu/ops/ln2d.py:66", "replaces_also": "midd_tpu/ops/ln2d.py:102",
+        "launches": None, "max_abs_err": main["max_abs_err"], "ms": main["ms"],
+        "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+        "library_ms": main["library_ms"],
+        "library": "F.layer_norm over the last dim of a pre-made (P, C) channels-last copy",
+        "shape": main["shape"], "dtype": "float32", "layout": main["layout"],
+        "per_forward": {layout: {k: _per_forward(r, k) for k in ("ms", "plain_ms", "bound_ms", "library_ms")}
+                        for layout, r in stage_rows.items()},
+    }
+
+
+def _ffn_params(c: int, gen: torch.Generator):
+    """norm2 scale and bias, conv4 and conv5 as the port's modules hold them
+    (LeCun-normal weights), and gamma: non-trivial values, on the card."""
+    r = lambda *shape: torch.randn(*shape, generator=gen)  # noqa: E731
+    return [t.cuda() for t in (1 + 0.2 * r(c), 0.2 * r(c), r(2 * c, c, 1, 1) * c ** -0.5,
+                               0.1 * r(2 * c), r(c, c, 1, 1) * c ** -0.5, 0.1 * r(c), 0.2 * r(1, c, 1, 1))]
+
+
+def check_naf_ffn(report: dict) -> dict:
+    """Phase 6: the fused FFN kernel against its plain version; returns its
+    kernels-line entry (launches filled in from the fused forward)."""
+    set_tf32(False)
+    gen = torch.Generator().manual_seed(4)
+    rows, stage_rows = [], {"nchw": [], "channels_last": []}
+    for b, c, h, w, dtype, layout in _kernel_cases():
+        y = _in_layout(torch.randn(b, c, h, w, generator=gen).to("cuda", dtype), layout)
+        params = _ffn_params(c, gen)
+        out = ffn.naf_ffn_fused(y, *params)
+        ref = ffn.naf_ffn_plain(y, *params)
+        torch.cuda.synchronize()
+        max_out = ref.float().abs().max().item()
+        tol = (FFN_BF16_REL if dtype == torch.bfloat16 else FFN_FP32_REL) * max_out
+        err = (out.float() - ref.float()).abs().max().item()
+        row = {"shape": [b, c, h, w], "dtype": _dt(dtype), "layout": layout, "max_abs_out": max_out,
+               "max_abs_err": err, "tol": tol,
+               "ok": err <= tol and out.dtype == dtype and out.shape == y.shape and out.stride() == y.stride()}
+        if b == 1:
+            p, elt = b * h * w, y.element_size()
+            # 6 P C^2 for the two products, ~12 P C for the norm, gate, bias and residual
+            t_ops = (6.0 * p * c * c + 12.0 * p * c) / PEAK_FP32_FLOPS * 1e3
+            t_bytes = (2 * p * c * elt + (3 * c * c + 7 * c) * 4) / HBM_BYTES_PER_S * 1e3
+            row.update({
+                "ms": time_ms(lambda: ffn.naf_ffn_fused(y, *params)),
+                "plain_ms": time_ms(lambda: ffn.naf_ffn_plain(y, *params)),
+                "library_ms": None,
+                "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                "calls_per_forward": NAF_BLOCKS.get(c, 0),
+            })
+            if dtype == torch.float32 and c in NAF_BLOCKS:
+                stage_rows[layout].append(row)
+        print(json.dumps({"naf_ffn": row}), flush=True)
+        rows.append(row)
+        if not row["ok"]:
+            raise AssertionError(f"naf_ffn disagrees with its plain version: {row}")
+    report["naf_ffn_cases"] = rows
+    main = stage_rows["nchw"][0]  # C 32 at 512², fp32, NCHW: the layout of phase 7's input
+    return {
+        "name": "naf_ffn", "route": "cuda", "source": "midd_tpu_torch/csrc/naf_ffn.cu",
+        "replaces": "midd_tpu/ops/naf_ffn.py:32", "launches": None,
+        "max_abs_err": main["max_abs_err"], "ms": main["ms"], "plain_ms": main["plain_ms"],
+        "bound_ms": main["bound_ms"], "bound_by": main["bound_by"], "library_ms": None,
+        "library": "none: no single PyTorch call computes LayerNorm -> 1x1 -> SimpleGate -> 1x1 -> residual",
+        "shape": main["shape"], "dtype": "float32", "layout": main["layout"],
+        "per_forward": {layout: {k: _per_forward(r, k) for k in ("ms", "plain_ms", "bound_ms")}
+                        for layout, r in stage_rows.items()},
+    }
+
+
+def perturbed_nafnet(seed: int) -> EnhancedNAFNet:
+    """SERVE_NAFNET with seeded LeCun-normal convs (``init_weights``) and
+    random biases, norm scales and NAFBlock beta/gamma, on the CPU: with the
+    initial zero beta and gamma every NAFBlock is the identity."""
+    model = init_weights(EnhancedNAFNet(config.SERVE_NAFNET), torch.Generator().manual_seed(seed))
+    gen = torch.Generator().manual_seed(seed + 1)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith(("bias", "beta", "gamma")):
+                p.copy_(0.2 * torch.randn(p.shape, generator=gen))
+            elif ".norm" in name:
+                p.copy_(1 + 0.2 * torch.randn(p.shape, generator=gen))
+    return model
+
+
+def fused_forward(report: dict) -> dict:
+    """Phase 7: ``nafnet_apply_fused`` at SERVE_NAFNET, 512², fp32, against the
+    module's forward on the card. Returns the launches of the fused forward."""
+    set_tf32(False)
+    model = perturbed_nafnet(7).cuda().eval()
+    x = torch.from_numpy(np.asarray(Image.open(io.BytesIO(xray_png(512, 512, 13))), np.float32) / 255)
+    x = x[None, None].cuda()
+    with torch.inference_mode():
+        zero_counts()
+        out = nafnet_apply_fused(model, x)
+        torch.cuda.synchronize()
+        launched = counts()
+        ref = model(x)
+        res = {"shape": list(out.shape), "max_abs_ref": ref.abs().max().item(),
+               "max_abs_err": (out - ref).abs().max().item(), "launches": launched,
+               "fused_ms": time_ms(lambda: nafnet_apply_fused(model, x), reps=10),
+               "module_ms": time_ms(lambda: model(x), reps=10)}
+    res["tol"] = NAFNET_FUSED_REL * res["max_abs_ref"]
+    report["nafnet_apply_fused"] = res
+    print(json.dumps({"nafnet_apply_fused": res}), flush=True)
+    assert launched == {**NO_LAUNCHES, "naf_ffn": 30}, launched
+    assert torch.isfinite(out).all() and out.shape == (1, 1, 512, 512)
+    assert res["max_abs_err"] <= res["tol"], res
+    del model
+    torch.cuda.empty_cache()
+    return launched
+
+
+def nafnet_card_vs_cpu(report: dict) -> None:
+    """Phase 9b: one fp32 NAFNet forward at 256², card against CPU, same
+    perturbed weights and input."""
+    set_tf32(False)
+    x = torch.from_numpy(np.asarray(Image.open(io.BytesIO(xray_png(256, 256, 17))), np.float32) / 255)
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        model = perturbed_nafnet(11).to(dev).eval()
+        with torch.inference_mode():
+            zero_counts()
+            outs[dev] = model(x[None, None].to(dev)).cpu()
+            launched = counts()
+        if dev == "cuda":
+            card_launches = launched
+    diff = (outs["cuda"] - outs["cpu"]).abs().max().item()
+    top = outs["cpu"].abs().max().item()
+    res = {"max_abs_diff": diff, "max_abs_out": top, "bound": NAFNET_CARD_VS_CPU_REL * top,
+           "launches": card_launches}
+    report["nafnet_card_vs_cpu"] = res
+    print(json.dumps({"nafnet_card_vs_cpu": res}), flush=True)
+    assert card_launches == {**NO_LAUNCHES, "ln2d": 60}, card_launches
+    assert torch.isfinite(outs["cuda"]).all() and diff <= res["bound"], res
+
+
+def worst_grad_ratio(g_gpu: dict, g_cpu: dict) -> tuple:
+    """The largest card-vs-CPU gradient difference over all parameters, each
+    divided by its CPU gradient's largest entry (floored at 1e-3 of the
+    model's largest, see STEP_GRAD_REL), and the parameter it occurs in."""
+    top = max(g.abs().max().item() for g in g_cpu.values())
+    worst, worst_name = 0.0, None
+    for name, g in g_cpu.items():
+        scale = max(g.abs().max().item(), 1e-3 * top)
+        ratio = (g_gpu[name] - g).abs().max().item() / scale
+        if ratio > worst:
+            worst, worst_name = ratio, name
+    return worst, worst_name
+
+
+def nafnet_step_card_vs_cpu(report: dict) -> None:
+    """Phase 10b: one NAFNet training step's loss and gradients on both
+    devices (the reference CombinedLoss), and a gradient for every
+    LayerNorm2d weight and bias and for the convolutions in front of them."""
+    set_tf32(False)
+    rng = np.random.default_rng(6)
+    clean = np.stack([np.asarray(Image.open(io.BytesIO(xray_png(128, 128, 40 + i))), np.float32) / 255
+                      for i in range(2)])[:, None]
+    noisy = np.clip(clean + 0.1 * rng.standard_normal(clean.shape), 0, 1).astype(np.float32)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        model = perturbed_nafnet(23).to(dev)
+        batch = tuple(torch.from_numpy(a).to(dev) for a in (clean, noisy))
+        zero_counts()
+        loss, _ = nafnet_loss_fn("reference")(model, batch, no_draw(batch, None))
+        loss.backward()
+        launched = counts()
+        norms = [n for n, m in model.named_modules() if isinstance(m, LayerNorm2d)]
+        out[dev] = (loss.item(), {n: p.grad.detach().cpu() for n, p in model.named_parameters()},
+                    launched, norms)
+    (l_gpu, g_gpu, launched, norms), (l_cpu, g_cpu, _, _) = out["cuda"], out["cpu"]
+    worst, worst_name = worst_grad_ratio(g_gpu, g_cpu)
+    norm_grads = [f"{n}.{k}" for n in norms for k in ("weight", "bias")]
+    dead = [n for n in norm_grads + [n for n in g_gpu if n.endswith(("conv1.weight", "conv4.weight"))]
+            if not (torch.isfinite(g_gpu[n]).all() and g_gpu[n].abs().max() > 0)]
+    res = {"loss_card": l_gpu, "loss_cpu": l_cpu, "loss_rel_diff": abs(l_gpu - l_cpu) / abs(l_cpu),
+           "worst_grad_ratio": worst, "worst_param": worst_name, "grad_bound": STEP_GRAD_REL,
+           "n_params": len(g_cpu), "norms": len(norms), "params_without_gradient": dead,
+           "launches": launched}
+    report["nafnet_step_card_vs_cpu"] = res
+    print(json.dumps({"nafnet_step_card_vs_cpu": res}), flush=True)
+    assert launched == {**NO_LAUNCHES, "ln2d": 60} and len(norms) == 60, (launched, len(norms))
+    assert not dead, dead
+    assert np.isfinite(l_gpu) and res["loss_rel_diff"] <= STEP_LOSS_REL, res
+    assert worst <= STEP_GRAD_REL, res
+
+
 def train_step_card_vs_cpu(report: dict) -> None:
-    """Phase 7: one training step's loss and gradients on both devices."""
+    """Phase 10a: one diffusion training step's loss and gradients on both
+    devices."""
     set_tf32(False)
     size = 128
     rng = np.random.default_rng(5)
@@ -338,19 +664,13 @@ def train_step_card_vs_cpu(report: dict) -> None:
         launched = counts()
         out[dev] = (loss.item(), {n: p.grad.detach().cpu() for n, p in model.named_parameters()}, launched)
     (l_gpu, g_gpu, launched), (l_cpu, g_cpu, _) = out["cuda"], out["cpu"]
-    top = max(g.abs().max().item() for g in g_cpu.values())
-    worst, worst_name = 0.0, None
-    for name, g in g_cpu.items():
-        scale = max(g.abs().max().item(), 1e-3 * top)
-        ratio = (g_gpu[name] - g).abs().max().item() / scale
-        if ratio > worst:
-            worst, worst_name = ratio, name
+    worst, worst_name = worst_grad_ratio(g_gpu, g_cpu)
     res = {"loss_card": l_gpu, "loss_cpu": l_cpu, "loss_rel_diff": abs(l_gpu - l_cpu) / abs(l_cpu),
            "worst_grad_ratio": worst, "worst_param": worst_name, "grad_bound": STEP_GRAD_REL,
            "n_params": len(g_cpu), "launches": launched}
     report["train_step_card_vs_cpu"] = res
     print(json.dumps({"train_step_card_vs_cpu": res}), flush=True)
-    assert launched == {"flash_fwd": 6, "flash_bwd_dq": 6, "flash_bwd_dkv": 6}, launched
+    assert launched == {**NO_LAUNCHES, "flash_fwd": 6, "flash_bwd_dq": 6, "flash_bwd_dkv": 6}, launched
     assert np.isfinite(l_gpu) and res["loss_rel_diff"] <= STEP_LOSS_REL, res
     assert worst <= STEP_GRAD_REL, res
 
@@ -373,17 +693,15 @@ def write_pairs(root: str, n: int, size: int):
     return dirs
 
 
-def train_slice(report: dict, smi: str) -> dict:
-    """Phase 8: the port's training CLI at full width, then serving what it
-    wrote. Returns the launches of the training run."""
+@contextlib.contextmanager
+def cli_run(model: str, n_pairs: int, *extra: str):
+    """``recipes.main --model MODEL`` at 512², 1 epoch, on ``n_pairs`` seeded
+    synthetic pairs in a temporary working directory, with every Trainer
+    step timed and counted and every validation counted. Yields the run's
+    record, the TrainerState and the checkpoint directory (deleted on exit)."""
     # torch's defaults, as a training process runs: fp32 matmuls exact, convs TF32
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = True
-    try:
-        import matplotlib
-        plotting = matplotlib.__version__
-    except ImportError:
-        plotting = None
     steps, vals = [], []
     orig_step, orig_validate = Trainer.train_step, Trainer.validate
 
@@ -401,7 +719,7 @@ def train_slice(report: dict, smi: str) -> dict:
 
     cwd = os.getcwd()
     with tempfile.TemporaryDirectory() as tmp:
-        clean_dir, noisy_dir = write_pairs(tmp, TRAIN_PAIRS, TRAIN_SIZE)
+        clean_dir, noisy_dir = write_pairs(tmp, n_pairs, TRAIN_SIZE)
         Trainer.train_step, Trainer.validate = timed_step, counted_validate
         os.chdir(tmp)  # the CLI writes checkpoints/ and its curves PNG to the working directory
         try:
@@ -409,9 +727,8 @@ def train_slice(report: dict, smi: str) -> dict:
             zero_counts()
             t0 = time.perf_counter()
             state = recipes.main([
-                "--model", "diffusion", "--clear-dir", clean_dir, "--noisy-dirs", noisy_dir,
-                "--img-size", str(TRAIN_SIZE), "--epochs", "1", "--max-samples", str(TRAIN_PAIRS),
-                "--batch-size", "1",
+                "--model", model, "--clear-dir", clean_dir, "--noisy-dirs", noisy_dir,
+                "--img-size", str(TRAIN_SIZE), "--epochs", "1", "--max-samples", str(n_pairs), *extra,
             ])
             torch.cuda.synchronize()
             wall_s = time.perf_counter() - t0
@@ -420,28 +737,61 @@ def train_slice(report: dict, smi: str) -> dict:
         finally:
             Trainer.train_step, Trainer.validate = orig_step, orig_validate
             os.chdir(cwd)
+        step_ms = [st["ms"] for st in steps]
+        run = {
+            "steps": len(steps), "losses": [st["loss"] for st in steps], "step_ms": step_ms,
+            "step_ms_median_after_first": statistics.median(step_ms[1:]),
+            "launches_per_step": [st["launches"] for st in steps], "validation_launches": vals,
+            "launches": launched, "wall_s": wall_s, "peak_memory_gib": peak_gib,
+            "history": state.history,
+        }
+        yield run, state, os.path.join(tmp, "checkpoints")
 
-        ckpt_dir = os.path.join(tmp, "checkpoints")
+
+def serve_checkpoint(ckpt_dir: str, name: str) -> tuple:
+    """An InferenceEngine on a trained checkpoint answers one 512² request;
+    returns its launches and the checkpoint's metadata as the engine read it."""
+    engine = InferenceEngine(EngineConfig(ckpt_dir=ckpt_dir))
+    try:
+        meta = engine.meta[name]
+        assert "demo_weights" not in meta and meta.get("epoch") == 0, meta
+        x = np.asarray(Image.open(io.BytesIO(xray_png(512, 512, 21))), np.float32)[None, :, :, None] / 255
+        zero_counts()
+        outs = engine.process_all(x, (512, 512))
+        served = counts()
+    finally:
+        engine.close()
+    assert all(outs[n] is not None for n in MODEL_NAMES), [n for n in MODEL_NAMES if outs[n] is None]
+    assert served == PER_REQUEST, served
+    return served, meta
+
+
+def moved_tensors(ckpt: dict, fresh: dict) -> int:
+    return sum(not torch.equal(fresh[k], v) for k, v in ckpt["model_state_dict"].items())
+
+
+def train_slice(report: dict, smi: str) -> dict:
+    """Phase 11a: the diffusion training CLI at full width, then serving what
+    it wrote. Returns the launches of the training run."""
+    try:
+        import matplotlib
+        plotting = matplotlib.__version__
+    except ImportError:
+        plotting = None
+    with cli_run("diffusion", TRAIN_PAIRS, "--batch-size", "1") as (run, state, ckpt_dir):
         ckpt = torch.load(os.path.join(ckpt_dir, "diffusion.pth"), map_location="cpu", weights_only=True)
         fresh = init_weights(UNetDiffusion(config.SERVE_DIFFUSION),
                              torch.Generator().manual_seed(42)).state_dict()
-        moved = sum(not torch.equal(fresh[k], v) for k, v in ckpt["model_state_dict"].items())
-        step_ms = [s["ms"] for s in steps]
-        res = {
-            "card": smi, "steps": len(steps), "losses": [s["loss"] for s in steps],
-            "step_ms": step_ms, "step_ms_median_after_first": statistics.median(step_ms[1:]),
-            "launches_per_step": [s["launches"] for s in steps], "validation_launches": vals,
-            "launches": launched, "wall_s": wall_s, "peak_memory_gib": peak_gib,
-            "history": state.history, "tensors_moved": moved,
-            "tensors": len(ckpt["model_state_dict"]), "matplotlib": plotting,
-        }
+        moved = moved_tensors(ckpt, fresh)
+        res = {"card": smi, **run, "tensors_moved": moved,
+               "tensors": len(ckpt["model_state_dict"]), "matplotlib": plotting}
         report["train_slice"] = res
         print(json.dumps({"train_slice": res}), flush=True)
-        assert len(steps) == TRAIN_PAIRS, res
-        assert all(np.isfinite(s["loss"]) for s in steps), res
-        per_step = {"flash_fwd": 6, "flash_bwd_dq": 6, "flash_bwd_dkv": 6}
-        assert all(s["launches"] == per_step for s in steps), res
-        assert vals == [{"flash_fwd": 6 * VAL_EVALS, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}], res
+        assert run["steps"] == TRAIN_PAIRS, res
+        assert all(np.isfinite(loss) for loss in run["losses"]), res
+        per_step = {**NO_LAUNCHES, "flash_fwd": 6, "flash_bwd_dq": 6, "flash_bwd_dkv": 6}
+        assert all(n == per_step for n in run["launches_per_step"]), res
+        assert run["validation_launches"] == [{**NO_LAUNCHES, "flash_fwd": 6 * VAL_EVALS}], res
         assert moved >= 0.9 * len(fresh), res
         meta_keys = {"epoch", "best_psnr", "best_ssim", "losses", "psnrs", "ssims", "in_channels",
                      "model_channels", "channel_mult", "num_res_blocks", "attention_resolutions",
@@ -449,23 +799,44 @@ def train_slice(report: dict, smi: str) -> dict:
         assert meta_keys <= set(ckpt), sorted(ckpt)
         assert ckpt["noise_steps"] == config.SERVE_SCHEDULE.noise_steps and ckpt["epoch"] == 0, ckpt["epoch"]
 
-        engine = InferenceEngine(EngineConfig(ckpt_dir=ckpt_dir))
-        try:
-            meta = engine.meta["diffusion"]
-            assert "demo_weights" not in meta and meta.get("epoch") == 0, meta
-            x = np.asarray(Image.open(io.BytesIO(xray_png(512, 512, 21))), np.float32)[None, :, :, None] / 255
-            zero_counts()
-            outs = engine.process_all(x, (512, 512))
-            served = counts()
-        finally:
-            engine.close()
-        assert all(outs[n] is not None for n in MODEL_NAMES), [n for n in MODEL_NAMES if outs[n] is None]
-        assert served == {"flash_fwd": LAUNCHES_PER_REQUEST, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}, served
+        served, meta = serve_checkpoint(ckpt_dir, "diffusion")
         report["train_slice"]["served_launches"] = served
-        print(json.dumps({"served_trained_checkpoint": {"launches": served,
+        print(json.dumps({"served_trained_checkpoint": {"model": "diffusion", "launches": served,
                                                         "meta_epoch": meta["epoch"]}}), flush=True)
     torch.cuda.empty_cache()
-    return launched
+    return run["launches"]
+
+
+def nafnet_train_slice(report: dict, smi: str) -> dict:
+    """Phase 11b: the NAFNet training CLI at full width and its default batch
+    of 2, then serving what it wrote. Returns the launches of the training
+    run."""
+    with cli_run("nafnet", NAF_TRAIN_PAIRS) as (run, state, ckpt_dir):
+        ckpt = torch.load(os.path.join(ckpt_dir, "nafnet.pth"), map_location="cpu", weights_only=True)
+        fresh = init_weights(EnhancedNAFNet(config.SERVE_NAFNET),
+                             torch.Generator().manual_seed(42)).state_dict()
+        moved = moved_tensors(ckpt, fresh)
+        res = {"card": smi, "batch_size": 2, **run, "tensors_moved": moved,
+               "tensors": len(ckpt["model_state_dict"])}
+        report["nafnet_train_slice"] = res
+        print(json.dumps({"nafnet_train_slice": res}), flush=True)
+        assert run["steps"] == NAF_TRAIN_PAIRS // 2, res
+        assert all(np.isfinite(loss) for loss in run["losses"]), res
+        per_forward = {**NO_LAUNCHES, "ln2d": 60}  # the backward recomputes the norms in plain ops
+        assert all(n == per_forward for n in run["launches_per_step"]), res
+        assert run["validation_launches"] == [per_forward], res
+        assert moved >= 0.9 * len(fresh), res
+        meta_keys = {"epoch", "best_psnr", "best_ssim", "losses", "psnrs", "ssims", "img_channel",
+                     "width", "middle_blk_num", "enc_blk_nums", "dec_blk_nums", "optimizer_state_dict"}
+        assert meta_keys <= set(ckpt), sorted(ckpt)
+        assert ckpt["width"] == config.SERVE_NAFNET.width and ckpt["epoch"] == 0, ckpt["epoch"]
+
+        served, meta = serve_checkpoint(ckpt_dir, "nafnet")
+        report["nafnet_train_slice"]["served_launches"] = served
+        print(json.dumps({"served_trained_checkpoint": {"model": "nafnet", "launches": served,
+                                                        "meta_epoch": meta["epoch"]}}), flush=True)
+    torch.cuda.empty_cache()
+    return run["launches"]
 
 
 def xray_png(width: int, height: int, seed: int) -> bytes:
@@ -518,6 +889,10 @@ def _device_us(evt) -> float:
 
 def _kind(kernel: str) -> str:
     n = kernel.lower()
+    if "ln2d" in n:
+        return "ln2d (port kernel)"
+    if "naf_ffn" in n:
+        return "naf_ffn (port kernel)"
     if "flash_fwd" in n:
         return "flash_fwd (port kernel)"
     if "flash_bwd" in n:
@@ -566,10 +941,11 @@ def profile_request(engine, addr) -> dict:
             t = time.perf_counter()
             fn(x)
             walls.append((time.perf_counter() - t) * 1e3)
-        before = fa.flash_attention.launches
+        before = counts()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             fn(x)
             torch.cuda.synchronize()
+        launched = since(before)
         by_kernel = _device_ms_by_kernel(prof)
         kinds = {}
         for k, ms in by_kernel.items():
@@ -578,7 +954,7 @@ def profile_request(engine, addr) -> dict:
         out["paths"][name] = {
             "wall_ms": walls, "wall_p50_ms": wall, "device_ms": device,
             "idle_share": 1.0 - device / wall,
-            "flash_launches": fa.flash_attention.launches - before,
+            "launches": launched,
             "device_ms_by_kind": dict(sorted(kinds.items(), key=lambda kv: -kv[1])),
             "top_kernels": sorted(by_kernel.items(), key=lambda kv: -kv[1])[:15],
         }
@@ -639,22 +1015,29 @@ def _device_ms_by_kernel(prof) -> dict:
     return by_kernel
 
 
-def profile_train_step() -> dict:
+def profile_train_step(model: str) -> dict:
     """``--report`` only: where a full-width training step's time goes. One
-    Trainer step of SERVE_DIFFUSION at 512², batch 1, fp32 (torch's TF32
-    defaults, as the CLI runs): wall time (median of 5 after 2 warm-up
-    steps) beside the device time of one further step under
+    Trainer step at 512², fp32 (torch's TF32 defaults, as the CLI runs), at
+    the CLI's defaults: SERVE_DIFFUSION at batch 1, or SERVE_NAFNET (the
+    reference CombinedLoss) at batch 2. Wall time (median of 5 after 2
+    warm-up steps) beside the device time of one further step under
     ``torch.profiler``, by kernel kind."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = True
-    sched = make_schedule(config.SERVE_SCHEDULE, "cuda")
-    trainer = Trainer(diffusion_loss_fn(sched), None, recipes.default_train_config(),
-                      init_weights(UNetDiffusion(config.SERVE_DIFFUSION), torch.Generator().manual_seed(0)),
-                      diffusion_draw(sched), device="cuda")
     x = torch.from_numpy(np.asarray(Image.open(io.BytesIO(xray_png(512, 512, 31))), np.float32) / 255)
-    batch = (x[None, None].cuda(), (0.9 * x)[None, None].cuda())
+    cfg = recipes.default_train_config(model)
+    gen = torch.Generator().manual_seed(0)
+    if model == "diffusion":
+        sched = make_schedule(config.SERVE_SCHEDULE, "cuda")
+        trainer = Trainer(diffusion_loss_fn(sched), None, cfg,
+                          init_weights(UNetDiffusion(config.SERVE_DIFFUSION), gen),
+                          diffusion_draw(sched), device="cuda")
+    else:
+        trainer = Trainer(nafnet_loss_fn(), None, cfg, perturbed_nafnet(0), no_draw, device="cuda")
+    clean = x[None, None].expand(cfg.batch_size, 1, -1, -1).contiguous().cuda()
+    batch = (clean, 0.9 * clean)
     for _ in range(2):
         trainer.train_step(batch)
     walls = []
@@ -662,27 +1045,92 @@ def profile_train_step() -> dict:
         t = time.perf_counter()
         trainer.train_step(batch)  # returns a host float: the step has finished
         walls.append((time.perf_counter() - t) * 1e3)
+    zero_counts()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         trainer.train_step(batch)
         torch.cuda.synchronize()
+    launched = counts()
     by_kernel = _device_ms_by_kernel(prof)
     kinds = {}
     for k, ms in by_kernel.items():
         kinds[_kind(k)] = kinds.get(_kind(k), 0.0) + ms
     wall, device = statistics.median(walls), sum(by_kernel.values())
-    out = {"wall_ms": walls, "wall_p50_ms": wall, "device_ms": device, "idle_share": 1.0 - device / wall,
+    out = {"model": model, "batch_size": cfg.batch_size, "wall_ms": walls, "wall_p50_ms": wall,
+           "device_ms": device, "idle_share": 1.0 - device / wall, "launches": launched,
            "device_ms_by_kind": dict(sorted(kinds.items(), key=lambda kv: -kv[1])),
            "top_kernels": sorted(by_kernel.items(), key=lambda kv: -kv[1])[:15]}
     print(json.dumps({"train_step_profile": {k: out[k] for k in
-                                             ("wall_p50_ms", "device_ms", "idle_share", "device_ms_by_kind")}}),
-          flush=True)
+                                             ("model", "wall_p50_ms", "device_ms", "idle_share",
+                                              "device_ms_by_kind")}}), flush=True)
     del trainer
     torch.cuda.empty_cache()
     return out
 
 
+# Run in a fresh process from the root of a checkout (``--ab-parent``): the
+# served nafnet and hybrid paths at 512², wall (median of 10 after 2 warm-up
+# calls) and device time (one call under torch.profiler). It uses only the
+# engine's API, which the parent's package shares.
+AB_SNIPPET = r"""
+import json, statistics, time
+import numpy as np, torch
+from torch.profiler import ProfilerActivity, profile
+from midd_tpu_torch.serve.engine import EngineConfig, InferenceEngine
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = True
+eng = InferenceEngine(EngineConfig())
+rng = np.random.default_rng(0)
+x = np.clip(0.5 + 0.1 * rng.standard_normal((1, 512, 512, 1)), 0, 1).astype(np.float32)
+out = {}
+for name in ("nafnet", "hybrid"):
+    fn = eng.fns[name]
+    for _ in range(2):
+        fn(x)
+    walls = []
+    for _ in range(10):
+        t = time.perf_counter()
+        fn(x)
+        walls.append((time.perf_counter() - t) * 1e3)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn(x)
+        torch.cuda.synchronize()
+    dev_us = 0.0
+    for e in prof.key_averages():
+        if getattr(e, "is_user_annotation", False) or "cuda" not in str(getattr(e, "device_type", "")).lower():
+            continue
+        dev_us += float(getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0)))
+    wall = statistics.median(walls)
+    out[name] = {"wall_ms": walls, "wall_p50_ms": wall, "device_ms": dev_us / 1e3,
+                 "idle_share": 1.0 - dev_us / 1e3 / wall}
+eng.close()
+print("AB_PATHS " + json.dumps(out))
+"""
+
+
+def ab_paths(parent: str) -> dict:
+    """``--ab-parent`` only: the served nafnet and hybrid paths with the
+    package under ``parent`` and with this checkout's, in turns (parent,
+    this, this, parent), each in a fresh process started from that tree."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    parent = os.path.abspath(parent)
+    assert os.path.isdir(os.path.join(parent, "midd_tpu_torch")), parent
+    runs = []
+    for label, tree in (("parent", parent), ("change", here), ("change", here), ("parent", parent)):
+        env = {**os.environ, "PYTHONPATH": tree}
+        proc = subprocess.run([sys.executable, "-c", AB_SNIPPET], cwd=tree, env=env,
+                              capture_output=True, text=True, timeout=600)
+        lines = [ln_ for ln_ in proc.stdout.splitlines() if ln_.startswith("AB_PATHS ")]
+        if proc.returncode != 0 or not lines:
+            raise RuntimeError(f"A/B run in {tree} failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
+        runs.append({"tree": label, **json.loads(lines[-1][len("AB_PATHS "):])})
+        print(json.dumps({"ab_paths": {"tree": label, **{n: {k: runs[-1][n][k] for k in
+                                                            ("wall_p50_ms", "device_ms", "idle_share")}
+                                                        for n in ("nafnet", "hybrid")}}}), flush=True)
+    return {"order": [r["tree"] for r in runs], "runs": runs}
+
+
 def serve_slice(report: dict, profile: bool) -> dict:
-    """Phase 5: full-width serving through the port's server; returns the
+    """Phase 8: full-width serving through the port's server; returns the
     kernel launches of the requests."""
     # torch's defaults, as a served process runs: fp32 matmuls exact, convs TF32
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -711,8 +1159,7 @@ def serve_slice(report: dict, profile: bool) -> dict:
             before = counts()
             latencies.append(post_denoise(addr, xray_png(*size, seed=i), size))
             per_request.append(since(before))
-            want = {"flash_fwd": LAUNCHES_PER_REQUEST, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
-            assert per_request[-1] == want, f"request {i}: {per_request[-1]} launches"
+            assert per_request[-1] == PER_REQUEST, f"request {i}: {per_request[-1]} launches"
         launches = counts()
         report["path_ms"] = {n: list(engine.path_ms[n]) for n in MODEL_NAMES}
         if profile:
@@ -740,7 +1187,7 @@ def serve_slice(report: dict, profile: bool) -> dict:
 
 
 def card_vs_cpu(report: dict) -> None:
-    """Phase 6: one exact fp32 diffusion rollout at 256² on the card and on
+    """Phase 9a: one exact fp32 diffusion rollout at 256² on the card and on
     the CPU, same seeded demo weights and input."""
     set_tf32(False)
     kw = dict(img_size=256, warmup=False, turbo_eps_reuse=1, hybrid_turbo_eps_reuse=1,
@@ -764,8 +1211,13 @@ def main(argv=None) -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--report", default=None,
-                    help="also profile a request and write a JSON report here")
+                    help="also profile a request and a training step and write a JSON report here")
+    ap.add_argument("--ab-parent", default=None, metavar="DIR",
+                    help="with --report: time the served nafnet and hybrid paths with the "
+                         "midd_tpu_torch package under DIR and with this one, in turns")
     args = ap.parse_args(argv)
+    if args.ab_parent and not args.report:
+        ap.error("--ab-parent needs --report")
     t_all = time.time()
     phase("device")
     if not torch.cuda.is_available():
@@ -782,11 +1234,13 @@ def main(argv=None) -> int:
 
     phase("build")
     t = time.time()
-    with ThreadPoolExecutor(max_workers=2) as pool:  # one nvcc per source, both at once
-        for lib in pool.map(lambda src: fa.build(src, verbose=True), (fa.SOURCE, fa.BWD_SOURCE)):
+    libraries = {fa.SOURCE: fa._SIGNATURES[fa.SOURCE], fa.BWD_SOURCE: fa._SIGNATURES[fa.BWD_SOURCE],
+                 ln.SOURCE: ln._SIGNATURES, ffn.SOURCE: ffn._SIGNATURES}
+    with ThreadPoolExecutor(max_workers=len(libraries)) as pool:  # one nvcc per source, all at once
+        for lib in pool.map(lambda src: _build.build(src, verbose=True), libraries):
             print(lib, flush=True)
-    fa._library(fa.SOURCE)
-    fa._library(fa.BWD_SOURCE)
+    for source, signatures in libraries.items():
+        _build.library(source, signatures)
     report["build_s"] = time.time() - t
     print(json.dumps({"build_s": report["build_s"]}), flush=True)
 
@@ -796,22 +1250,39 @@ def main(argv=None) -> int:
     phase("backward kernels vs plain")
     entries += check_bwd(report)
 
+    phase("ln2d kernel vs plain")
+    entries.append(check_ln2d(report))
+
+    phase("naf_ffn kernel vs plain")
+    entries.append(check_naf_ffn(report))
+
+    # the main paths, each driven with the counts set to 0 just before it
+    paths = {}
+    phase("slice: nafnet_apply_fused at 512²")
+    paths["nafnet_apply_fused"] = fused_forward(report)
+
     phase("slice: 512² /denoise through the port's server")
-    served = serve_slice(report, profile=args.report is not None)
+    paths["serve"] = serve_slice(report, profile=args.report is not None)
 
     phase("card vs CPU")
     card_vs_cpu(report)
+    nafnet_card_vs_cpu(report)
 
     phase("one training step, card vs CPU")
     train_step_card_vs_cpu(report)
+    nafnet_step_card_vs_cpu(report)
 
     phase("slice: training through recipes.main at 512², then serving its checkpoint")
-    trained = train_slice(report, smi)
+    paths["train_diffusion"] = train_slice(report, smi)
+    paths["train_nafnet"] = nafnet_train_slice(report, smi)
     if args.report:
-        report["train_step_profile"] = profile_train_step()
+        report["train_step_profile"] = profile_train_step("diffusion")
+        report["nafnet_train_step_profile"] = profile_train_step("nafnet")
+    if args.ab_parent:
+        report["ab_paths"] = ab_paths(args.ab_parent)
 
     for entry in entries:
-        by_path = {"serve": served[entry["name"]], "train": trained[entry["name"]]}
+        by_path = {p: launched[entry["name"]] for p, launched in paths.items()}
         entry["launches"] = sum(by_path.values())
         entry["launches_by_path"] = by_path
         if entry["launches"] == 0:

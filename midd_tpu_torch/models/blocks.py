@@ -23,6 +23,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from midd_tpu_torch.ops.attention import mha
+from midd_tpu_torch.ops.ln2d import ln2d_fused
 
 
 def _cast(p: Optional[torch.Tensor], dtype: torch.dtype) -> Optional[torch.Tensor]:
@@ -95,8 +96,11 @@ class BatchNorm2d(nn.BatchNorm2d):
 
 
 class LayerNorm2d(nn.Module):
-    """NAFNet channel LayerNorm: per-pixel statistics over channels, biased
-    variance, eps 1e-6, fp32."""
+    """NAFNet channel LayerNorm: per-pixel statistics over channels, eps
+    1e-6, fp32, with the JAX module's one-pass variance E[x²] − u² clamped
+    at 0 (``midd_tpu/models/blocks.py::LayerNorm2d``). It runs through
+    ``ln2d_fused``: the Hopper kernel on the card, its plain version on the
+    CPU."""
 
     def __init__(self, channels: int, eps: float = 1e-6):
         super().__init__()
@@ -105,12 +109,7 @@ class LayerNorm2d(nn.Module):
         self.eps = eps
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        xf = x.float()
-        u = xf.mean(dim=1, keepdim=True)
-        s = (xf - u).pow(2).mean(dim=1, keepdim=True)
-        out = (xf - u) / torch.sqrt(s + self.eps)
-        out = out * self.weight[None, :, None, None] + self.bias[None, :, None, None]
-        return out.to(x.dtype)
+        return ln2d_fused(x, self.weight, self.bias, self.eps)
 
 
 def simple_gate(x: torch.Tensor) -> torch.Tensor:

@@ -8,7 +8,7 @@ to a multiple of 2**len(enc) (NafNet/NafnetModel.py:304-309).
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 import torch.nn as nn
@@ -46,6 +46,13 @@ class EnhancedNAFNet(nn.Module):
         self.ending = Conv2d(w, cfg.img_channel, 3)
 
     def forward(self, inp: torch.Tensor) -> torch.Tensor:
+        return self.forward_with(inp, lambda blk, x: blk(x))
+
+    def forward_with(self, inp: torch.Tensor,
+                     block: Callable[[NAFBlock, torch.Tensor], torch.Tensor]) -> torch.Tensor:
+        """The forward with each NAFBlock applied as ``block(module, x)``
+        (``ops/naf_fast.py`` routes the blocks' FFN halves through the fused
+        kernel this way)."""
         h_in, w_in = inp.shape[-2:]
         inp = pad_to_multiple(inp, self.cfg.padder_size)
         if self.compute_dtype is not None:
@@ -53,12 +60,16 @@ class EnhancedNAFNet(nn.Module):
         x = self.intro(inp)
         encs = []
         for enc, down in zip(self.encoders, self.downs):
-            x = enc(x)
+            for blk in enc:
+                x = block(blk, x)
             encs.append(x)
             x = down(x)
-        x = self.middle_blks(x)
+        for blk in self.middle_blks:
+            x = block(blk, x)
         for up, skip_conv, dec, skip in zip(self.ups, self.skip_convs, self.decoders, encs[::-1]):
             x = resize_bilinear(up(x), skip.shape[-2:])
-            x = dec(skip_conv(torch.cat([x, skip], dim=1)))
+            x = skip_conv(torch.cat([x, skip], dim=1))
+            for blk in dec:
+                x = block(blk, x)
         x = self.ending(x) + inp
         return x[:, :, :h_in, :w_in]

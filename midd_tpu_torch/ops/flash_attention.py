@@ -14,76 +14,22 @@ the counterpart of the JAX package's ``_flash_padded`` custom_vjp. A forward
 with gradients off (serving runs under ``inference_mode``) saves nothing.
 
 Each kernel source is compiled with ``nvcc`` at first use, from the sources
-in this package only, into ``midd_tpu_torch/build/`` (a shared library with a
-plain C interface, loaded through ``ctypes``). Nothing is built at import.
+in this package only, into ``midd_tpu_torch/build/`` (``ops/_build.py``: a
+shared library with a plain C interface, loaded through ``ctypes``). Nothing
+is built at import.
 """
 
 from __future__ import annotations
 
-import ctypes
-import hashlib
 import math
-import os
-import shutil
-import subprocess
-import threading
-from pathlib import Path
-from typing import Dict, Tuple
+from typing import Tuple
 
 import torch
 
-_PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "flash_fwd.cu"
-BWD_SOURCE = _PKG / "csrc" / "flash_bwd.cu"
-BUILD_DIR = _PKG / "build"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-)
+from midd_tpu_torch.ops._build import CSRC, NVCC_FLAGS, I as _I, P as _P, library, raise_on
 
-_libs: Dict[Path, ctypes.CDLL] = {}
-_lib_lock = threading.Lock()
-
-
-def _nvcc() -> str:
-    cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
-    for cand in ([os.path.join(cuda_home, "bin", "nvcc")] if cuda_home else []) + [
-        shutil.which("nvcc") or "",
-        "/usr/local/cuda/bin/nvcc",
-    ]:
-        if cand and os.path.exists(cand):
-            return cand
-    raise RuntimeError("nvcc not found: the flash-attention kernels cannot be built")
-
-
-def build(source: Path = SOURCE, verbose: bool = False) -> Path:
-    """Compile one kernel source (default ``csrc/flash_fwd.cu``) into
-    ``build/`` unless a library built from the same source and flags is
-    already there. Returns its path. ``verbose`` adds ``-Xptxas -v`` and
-    prints the compiler's report. Safe to call for two sources at once from
-    two threads (each nvcc writes its own temporary file)."""
-    src = source.read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    out = BUILD_DIR / f"libmidd_{source.stem}_{tag}.so"
-    if out.exists() and not verbose:
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-           "-o", str(tmp), str(source)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-            f"{proc.stdout}\n{proc.stderr}"
-        )
-    if verbose:
-        print(proc.stdout + proc.stderr)
-    os.replace(tmp, out)
-    return out
-
-
-_P, _I = ctypes.c_void_p, ctypes.c_int
+SOURCE = CSRC / "flash_fwd.cu"
+BWD_SOURCE = CSRC / "flash_bwd.cu"
 _SIGNATURES = {
     SOURCE: {
         "midd_flash_fwd": [_P] * 5 + [_I] * 4 + [_P],
@@ -97,20 +43,9 @@ _SIGNATURES = {
 }
 
 
-def _library(source: Path = SOURCE) -> ctypes.CDLL:
-    """Build (if needed) and load one kernel library, with its ctypes
-    signatures declared."""
-    with _lib_lock:
-        if source not in _libs:
-            lib = ctypes.CDLL(str(build(source)))
-            for name, argtypes in _SIGNATURES[source].items():
-                fn = getattr(lib, name)
-                if argtypes is None:  # the error-string helper
-                    fn.argtypes, fn.restype = [_I], ctypes.c_char_p
-                else:
-                    fn.argtypes, fn.restype = argtypes, _I
-            _libs[source] = lib
-        return _libs[source]
+def _library(source=SOURCE):
+    """Build (if needed) and load one of the two flash kernel libraries."""
+    return library(source, _SIGNATURES[source])
 
 
 def _check_qkv(name: str, *ts: torch.Tensor) -> None:
@@ -133,11 +68,6 @@ def _check_qkv(name: str, *ts: torch.Tensor) -> None:
     bh, n, d = q.shape
     if not (1 <= d <= 128) or n < 1 or not (1 <= bh <= 65535):
         raise ValueError(f"{name}: unsupported shape {tuple(q.shape)}")
-
-
-def _raise_on(err: int, lib: ctypes.CDLL, kernel: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"{kernel} launch failed: {lib.midd_cuda_error_string(err).decode()}")
 
 
 def flash_attention_plain(
@@ -173,7 +103,7 @@ def flash_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             lse.data_ptr(), bh, n, d, int(q.dtype == torch.bfloat16), stream,
         )
-    _raise_on(err, lib, "flash_fwd")
+    raise_on(err, lib, "flash_fwd")
     flash_attention.launches += 1
     return o, lse
 
@@ -241,7 +171,7 @@ def _launch_bwd(kernel: str, outs, q, k, v, do, lse, delta) -> None:
             lse.data_ptr(), delta.data_ptr(), *(t.data_ptr() for t in outs),
             bh, n, d, int(q.dtype == torch.bfloat16), stream,
         )
-    _raise_on(err, lib, kernel)
+    raise_on(err, lib, kernel)
 
 
 def flash_bwd_dq(q, k, v, do, lse, delta) -> torch.Tensor:

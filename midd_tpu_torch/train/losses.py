@@ -1,10 +1,11 @@
-"""The diffusion trainer's loss (counterpart of the part of
-``midd_tpu/train/losses.py`` that ``train_diffusion`` calls): MSE on the
-clamped eps prediction plus 0.2 x the Sobel-edge L1 on the clamped x0
-reconstruction (DDIM/DDIMModel.py:356-375). Single-channel NCHW tensors.
+"""The losses of the ported trainers (counterpart of the parts of
+``midd_tpu/train/losses.py`` that ``train_diffusion`` and ``train_nafnet``
+call): the diffusion loss, MSE on the clamped eps prediction plus 0.2 x the
+Sobel-edge L1 on the clamped x0 reconstruction (DDIM/DDIMModel.py:356-375),
+and the NAFNet CombinedLoss, 1 mse + 0.5 l1 + 0.3 frequency + 0.2 edge
+(NafNet/NafnetModel.py:349-386). Single-channel NCHW tensors.
 
-The NAFNet, expert, hybrid and tiny loss suites are ROADMAP.md queue 1
-item 11.
+The expert, hybrid and tiny loss suites are ROADMAP.md queue 1 item 11.
 """
 
 from __future__ import annotations
@@ -59,3 +60,24 @@ def diffusion_loss(
         "edge": edge_loss(pred_clean, clean, eps=1e-8),
     }
     return parts["mse"] + 0.2 * parts["edge"], parts
+
+
+def frequency_loss(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    """L1 of the rfft2 amplitudes over the spatial axes, norm "ortho"
+    (NafNet:312-322), in fp32."""
+    pf = torch.fft.rfft2(pred.float(), norm="ortho")
+    tf = torch.fft.rfft2(target.float(), norm="ortho")
+    return torch.mean(torch.abs(torch.abs(pf) - torch.abs(tf)))
+
+
+def combined_loss_nafnet(pred: torch.Tensor, target: torch.Tensor
+                         ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """The NAFNet CombinedLoss: 1 mse + 0.5 l1 + 0.3 freq + 0.2 edge (eps 1e-6)."""
+    parts = {
+        "mse": mse(pred, target),
+        "l1": l1(pred, target),
+        "freq": frequency_loss(pred, target),
+        "edge": edge_loss(pred, target, eps=1e-6),
+    }
+    total = 1.0 * parts["mse"] + 0.5 * parts["l1"] + 0.3 * parts["freq"] + 0.2 * parts["edge"]
+    return total, parts

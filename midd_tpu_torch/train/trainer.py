@@ -163,6 +163,33 @@ def diffusion_loss_fn(schedule: Schedule) -> Callable:
 
 
 # ---------------------------------------------------------------------------
+# The NAFNet family: no draws, a loss on the direct prediction
+# ---------------------------------------------------------------------------
+
+
+def no_draw(batch, generator: torch.Generator) -> None:
+    """The draw function of a loss that draws nothing (the NAFNet's)."""
+    return None
+
+
+def nafnet_loss_fn(loss_variant: str = "reference") -> Callable:
+    """loss(model, batch, draw) -> (loss, parts) on pred = model(noisy):
+    "reference" is the CombinedLoss (NafNet/NafnetModel.py:349-386), "l2"
+    pure MSE (``midd_tpu/train/trainer.py::nafnet_loss_fn``)."""
+    if loss_variant not in ("reference", "l2"):
+        raise ValueError(f"loss_variant must be 'reference' or 'l2', got {loss_variant!r}")
+
+    def fn(model: nn.Module, batch, draw):
+        clean, noisy = batch
+        pred = model(noisy)
+        if loss_variant == "l2":
+            return losses.mse(pred, clean), {}
+        return losses.combined_loss_nafnet(pred, clean)
+
+    return fn
+
+
+# ---------------------------------------------------------------------------
 # The training engine
 # ---------------------------------------------------------------------------
 

@@ -1,6 +1,7 @@
-"""The hand-written flash-attention kernels on the card (forward; backward dq
-and dk/dv): agreement with their plain versions, the launch counts,
-gradients through ``mha``, and the wrappers' refusals. Marked ``cuda``;
+"""The hand-written kernels on the card (flash-attention forward; backward dq
+and dk/dv; LayerNorm2d; the fused NAFBlock FFN half): agreement with their
+plain versions, the launch counts, gradients through ``mha`` and through
+``LayerNorm2d``, and the wrappers' refusals. Marked ``cuda``;
 skipped where there is no GPU. This file imports no JAX, so on a machine
 without JAX run it without the suite's conftest:
 
@@ -120,3 +121,152 @@ def test_bwd_wrapper_refuses_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError, match="lse"):
         fa.flash_attention_bwd(q, k, v, o, lse[:, None], o)
     assert (fa.flash_bwd_dq.launches, fa.flash_bwd_dkv.launches) == before
+
+
+# -- LayerNorm2d and the fused FFN half --------------------------------------------
+
+
+def _ln_inputs(b, c, h, w, dtype, seed=0):
+    gen = torch.Generator().manual_seed(seed)
+    x = (2.5 + torch.randn(b, c, h, w, generator=gen)).to("cuda", dtype)  # mean 2.5x the spread
+    return (x, (1 + 0.2 * torch.randn(c, generator=gen)).cuda(),
+            (0.2 * torch.randn(c, generator=gen)).cuda())
+
+
+LAYOUT_CASES = [
+    (1, 32, 128, 128, torch.float32, "nchw"), (2, 64, 64, 64, torch.bfloat16, "nchw"),
+    (1, 512, 32, 32, torch.float32, "nchw"), (2, 256, 16, 16, torch.bfloat16, "nchw"),
+    (2, 48, 37, 29, torch.float32, "nchw"), (1, 1, 1, 1, torch.float32, "nchw"),
+    (1, 32, 128, 128, torch.float32, "channels_last"), (2, 48, 37, 29, torch.bfloat16, "channels_last"),
+    (2, 64, 9, 1, torch.float32, "channels_last"),
+]
+
+
+def _layout(x, layout):
+    return x.contiguous(memory_format=torch.channels_last) if layout == "channels_last" else x
+
+
+@pytest.mark.parametrize("b,c,h,w,dtype,layout", LAYOUT_CASES)
+def test_ln2d_kernel_matches_plain(cuda, b, c, h, w, dtype, layout):
+    from midd_tpu_torch.ops import ln2d as ln
+
+    x, scale, bias = _ln_inputs(b, c, h, w, dtype)
+    x = _layout(x, layout)
+    before = ln.ln2d.launches
+    y = ln.ln2d(x, scale, bias)
+    torch.cuda.synchronize()
+    assert ln.ln2d.launches == before + 1 and y.dtype == dtype and y.stride() == x.stride()
+    ref = ln.ln2d_plain(x, scale, bias).float()
+    # fp32: the same summation order, so summation noise only (reasons in
+    # chip_smoke.py); bf16: two bf16 ulps of the largest output
+    rel = 2.0 ** -7 if dtype == torch.bfloat16 else 1e-5
+    assert (y.float() - ref).abs().max().item() <= rel * ref.abs().max().item()
+
+
+def test_layernorm2d_gradients_on_the_card(cuda):
+    """The norms' weight and bias and the conv in front of them get the
+    gradients the CPU computes (the kernel writes a tensor with no history;
+    ``LayerNorm2dFn`` must carry it)."""
+    from midd_tpu_torch.models.blocks import Conv2d, LayerNorm2d
+    from midd_tpu_torch.ops import ln2d as ln
+
+    gen = torch.Generator().manual_seed(3)
+    x = torch.randn(2, 4, 20, 24, generator=gen)
+    grads = {}
+    for dev in ("cpu", "cuda"):
+        torch.manual_seed(0)  # the same weights, drawn on the CPU, on both devices
+        net = torch.nn.Sequential(Conv2d(4, 64, 3), LayerNorm2d(64))
+        with torch.no_grad():
+            net[1].weight.uniform_(0.5, 1.5)
+            net[1].bias.uniform_(-0.5, 0.5)
+        net = net.to(dev)
+        before = ln.ln2d.launches
+        (net(x.to(dev)).sin() * 1.5).sum().backward()
+        if dev == "cuda":
+            assert ln.ln2d.launches == before + 1
+        grads[dev] = {n: p.grad.cpu() for n, p in net.named_parameters()}
+    for n, g in grads["cpu"].items():
+        assert g.abs().max() > 0 and torch.isfinite(grads["cuda"][n]).all(), n
+        assert (grads["cuda"][n] - g).abs().max() <= 1e-4 * g.abs().max(), n
+
+
+def test_ln2d_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    from midd_tpu_torch.ops import ln2d as ln
+
+    x, scale, bias = _ln_inputs(1, 8, 4, 4, torch.float32)
+    before = ln.ln2d.launches
+    with pytest.raises(ValueError, match="contiguous"):
+        ln.ln2d(x.transpose(2, 3), scale, bias)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        ln.ln2d(x.half(), scale, bias)
+    with pytest.raises(ValueError, match="scale"):
+        ln.ln2d(x, scale.double(), bias)
+    assert ln.ln2d.launches == before
+
+
+def _ffn_inputs(b, c, h, w, dtype, seed=0):
+    gen = torch.Generator().manual_seed(seed)
+    r = lambda *s: torch.randn(*s, generator=gen)  # noqa: E731
+    y = r(b, c, h, w).to("cuda", dtype)
+    params = (1 + 0.2 * r(c), 0.2 * r(c), r(2 * c, c, 1, 1) * c ** -0.5, 0.1 * r(2 * c),
+              r(c, c, 1, 1) * c ** -0.5, 0.1 * r(c), 0.2 * r(1, c, 1, 1))
+    return (y, *(p.cuda() for p in params))
+
+
+@pytest.mark.parametrize("b,c,h,w,dtype,layout", LAYOUT_CASES)
+def test_naf_ffn_kernel_matches_plain(cuda, b, c, h, w, dtype, layout):
+    from midd_tpu_torch.ops import naf_ffn as ffn
+
+    args = list(_ffn_inputs(b, c, h, w, dtype))
+    args[0] = _layout(args[0], layout)
+    before = ffn.naf_ffn_fused.launches
+    out = ffn.naf_ffn_fused(*args)
+    torch.cuda.synchronize()
+    assert ffn.naf_ffn_fused.launches == before + 1 and out.dtype == dtype and out.stride() == args[0].stride()
+    ref = ffn.naf_ffn_plain(*args).float()
+    # fp32: products of C terms in another order; bf16: two bf16 ulps
+    # (reasons in chip_smoke.py)
+    rel = 2.0 ** -7 if dtype == torch.bfloat16 else 1e-5
+    assert (out.float() - ref).abs().max().item() <= rel * ref.abs().max().item()
+
+
+def test_naf_ffn_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    from midd_tpu_torch.ops import naf_ffn as ffn
+
+    y, *params = _ffn_inputs(1, 16, 4, 4, torch.float32)
+    before = ffn.naf_ffn_fused.launches
+    with pytest.raises(ValueError, match="contiguous"):
+        ffn.naf_ffn_fused(y.transpose(2, 3), *params)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        ffn.naf_ffn_fused(y.half(), *params)
+    with pytest.raises(ValueError, match="parameters"):
+        ffn.naf_ffn_fused(y, params[0].bfloat16(), *params[1:])
+    with pytest.raises(ValueError, match="do not fit"):
+        ffn.naf_ffn_fused(y, params[0][:8], *params[1:])
+    big = _ffn_inputs(1, 1024, 1, 1, torch.float32)
+    with pytest.raises(ValueError, match="shared memory"):
+        ffn.naf_ffn_fused(*big)
+    assert ffn.naf_ffn_fused.launches == before
+
+
+def test_nafnet_apply_fused_on_the_card(cuda):
+    from midd_tpu_torch import config
+    from midd_tpu_torch.models.blocks import NAFBlock, init_weights
+    from midd_tpu_torch.models.nafnet import EnhancedNAFNet
+    from midd_tpu_torch.ops import naf_ffn as ffn
+    from midd_tpu_torch.ops.naf_fast import nafnet_apply_fused
+
+    cfg = config.NAFNetConfig(width=16, middle_blk_num=1, enc_blk_nums=(1, 2), dec_blk_nums=(1, 1))
+    model = init_weights(EnhancedNAFNet(cfg), torch.Generator().manual_seed(0)).cuda().eval()
+    gen = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        for mod in model.modules():
+            if isinstance(mod, NAFBlock):
+                mod.beta.copy_(0.3 * torch.randn(mod.beta.shape, generator=gen))
+                mod.gamma.copy_(0.3 * torch.randn(mod.gamma.shape, generator=gen))
+        x = torch.rand(1, 1, 40, 36, generator=gen).cuda()
+        before = ffn.naf_ffn_fused.launches
+        got = nafnet_apply_fused(model, x)
+        assert ffn.naf_ffn_fused.launches == before + 6  # one per NAFBlock
+        want = model(x)
+    assert (got - want).abs().max().item() <= 1e-4 * want.abs().max().item()
