@@ -6,7 +6,7 @@ and NAFNet through the port's training CLI and serves the checkpoints they
 wrote, and checks the card against the CPU on one exact rollout, one NAFNet
 forward and one training step of each model.
 
-    python3 chip_smoke.py [--report FILE] [--ab-parent DIR]
+    python3 chip_smoke.py [--report FILE]
 
 Phases (any failure exits non-zero, and no result line is printed):
 1. device: a CUDA device is required; prints the card's name and power limit;
@@ -47,13 +47,11 @@ time (median of 5) beside its device time under ``torch.profiler`` (by kernel
 kind, top kernels, idle share = 1 - device / wall), ``F.group_norm`` against
 the port's ``GroupNorm32`` at the largest GroupNorm input of a 512² UNet
 eval, the host time per serving call of the flash forward through its
-autograd Function against a direct call, and the same wall/device breakdown
-for one 512² training step of each model.
-
-``--ab-parent DIR`` (with ``--report``) times the served nafnet and hybrid
-paths, wall and device, with the ``midd_tpu_torch`` package under DIR and
-with this checkout's, in turns (DIR, this, this, DIR; a fresh process
-each), and adds them to the report.
+autograd Function against a direct call, the device time by kernel kind of
+one ``nafnet_apply_fused`` call and one module forward at 512², the sums
+over one NAFNet forward of the ln2d and naf_ffn per-call times of phases 5
+and 6 (computed from isolated calls, not measured in a forward), and the
+same wall/device breakdown for one 512² training step of each model.
 """
 
 from __future__ import annotations
@@ -402,10 +400,13 @@ def _in_layout(x: torch.Tensor, layout: str) -> torch.Tensor:
     return x.contiguous(memory_format=torch.channels_last) if layout == "channels_last" else x
 
 
-def _per_forward(rows: list, key: str) -> float:
-    """Sum of a per-call number over one SERVE_NAFNET forward at 512², batch
-    1, fp32: each stage's call times the calls there (``calls`` per block)."""
-    return sum(r[key] * r["calls_per_forward"] for r in rows)
+def _isolated_sums(stage_rows: dict, keys: tuple) -> dict:
+    """Per layout, the sum over one SERVE_NAFNET forward at 512², batch 1,
+    fp32 of a per-call number: each stage's isolated call times its calls
+    per forward. Computed, not measured in a forward: there the input was
+    just written by the layer before, and the time can differ."""
+    return {layout: {k: sum(r[k] * r["calls_per_forward"] for r in rows) for k in keys}
+            for layout, rows in stage_rows.items()}
 
 
 def check_ln2d(report: dict) -> dict:
@@ -448,6 +449,8 @@ def check_ln2d(report: dict) -> dict:
         if not row["ok"]:
             raise AssertionError(f"ln2d disagrees with its plain version: {row}")
     report["ln2d_cases"] = rows
+    report["ln2d_sum_of_isolated_calls_per_forward"] = _isolated_sums(
+        stage_rows, ("ms", "plain_ms", "bound_ms", "library_ms"))
     # C 32 at 512², batch 1, fp32, channels-last: the largest call, in the
     # layout of the served and trained NAFNet
     main = stage_rows["channels_last"][0]
@@ -459,8 +462,6 @@ def check_ln2d(report: dict) -> dict:
         "library_ms": main["library_ms"],
         "library": "F.layer_norm over the last dim of a pre-made (P, C) channels-last copy",
         "shape": main["shape"], "dtype": "float32", "layout": main["layout"],
-        "per_forward": {layout: {k: _per_forward(r, k) for k in ("ms", "plain_ms", "bound_ms", "library_ms")}
-                        for layout, r in stage_rows.items()},
     }
 
 
@@ -509,6 +510,8 @@ def check_naf_ffn(report: dict) -> dict:
         if not row["ok"]:
             raise AssertionError(f"naf_ffn disagrees with its plain version: {row}")
     report["naf_ffn_cases"] = rows
+    report["naf_ffn_sum_of_isolated_calls_per_forward"] = _isolated_sums(
+        stage_rows, ("ms", "plain_ms", "bound_ms"))
     main = stage_rows["nchw"][0]  # C 32 at 512², fp32, NCHW: the layout of phase 7's input
     return {
         "name": "naf_ffn", "route": "cuda", "source": "midd_tpu_torch/csrc/naf_ffn.cu",
@@ -517,8 +520,6 @@ def check_naf_ffn(report: dict) -> dict:
         "bound_ms": main["bound_ms"], "bound_by": main["bound_by"], "library_ms": None,
         "library": "none: no single PyTorch call computes LayerNorm -> 1x1 -> SimpleGate -> 1x1 -> residual",
         "shape": main["shape"], "dtype": "float32", "layout": main["layout"],
-        "per_forward": {layout: {k: _per_forward(r, k) for k in ("ms", "plain_ms", "bound_ms")}
-                        for layout, r in stage_rows.items()},
     }
 
 
@@ -537,9 +538,11 @@ def perturbed_nafnet(seed: int) -> EnhancedNAFNet:
     return model
 
 
-def fused_forward(report: dict) -> dict:
+def fused_forward(report: dict, profile: bool) -> dict:
     """Phase 7: ``nafnet_apply_fused`` at SERVE_NAFNET, 512², fp32, against the
-    module's forward on the card. Returns the launches of the fused forward."""
+    module's forward on the card; with ``profile`` (``--report``), the device
+    time by kernel kind of one call of each. Returns the launches of the
+    fused forward."""
     set_tf32(False)
     model = perturbed_nafnet(7).cuda().eval()
     x = torch.from_numpy(np.asarray(Image.open(io.BytesIO(xray_png(512, 512, 13))), np.float32) / 255)
@@ -554,6 +557,9 @@ def fused_forward(report: dict) -> dict:
                "max_abs_err": (out - ref).abs().max().item(), "launches": launched,
                "fused_ms": time_ms(lambda: nafnet_apply_fused(model, x), reps=10),
                "module_ms": time_ms(lambda: model(x), reps=10)}
+        if profile:
+            res["device_ms_by_kind"] = {"fused": device_profile(lambda: nafnet_apply_fused(model, x))[1],
+                                        "module": device_profile(lambda: model(x))[1]}
     res["tol"] = NAFNET_FUSED_REL * res["max_abs_ref"]
     report["nafnet_apply_fused"] = res
     print(json.dumps({"nafnet_apply_fused": res}), flush=True)
@@ -915,8 +921,6 @@ def _path_p50_since(engine, marks) -> dict:
 def profile_request(engine, addr) -> dict:
     """``--report`` only: where a 512² request's time goes (see the module
     docstring). Runs after the main path's launch count was read."""
-    from torch.profiler import ProfilerActivity, profile
-
     png = xray_png(512, 512, seed=7)
     x = np.asarray(Image.open(io.BytesIO(png)), np.float32)[None, :, :, None] / 255
     out = {}
@@ -942,20 +946,14 @@ def profile_request(engine, addr) -> dict:
             fn(x)
             walls.append((time.perf_counter() - t) * 1e3)
         before = counts()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            fn(x)
-            torch.cuda.synchronize()
+        by_kernel, kinds = device_profile(lambda: fn(x))
         launched = since(before)
-        by_kernel = _device_ms_by_kernel(prof)
-        kinds = {}
-        for k, ms in by_kernel.items():
-            kinds[_kind(k)] = kinds.get(_kind(k), 0.0) + ms
         wall, device = statistics.median(walls), sum(by_kernel.values())
         out["paths"][name] = {
             "wall_ms": walls, "wall_p50_ms": wall, "device_ms": device,
             "idle_share": 1.0 - device / wall,
             "launches": launched,
-            "device_ms_by_kind": dict(sorted(kinds.items(), key=lambda kv: -kv[1])),
+            "device_ms_by_kind": kinds,
             "top_kernels": sorted(by_kernel.items(), key=lambda kv: -kv[1])[:15],
         }
     wall = sum(p["wall_p50_ms"] for p in out["paths"].values())
@@ -1015,6 +1013,21 @@ def _device_ms_by_kernel(prof) -> dict:
     return by_kernel
 
 
+def device_profile(fn) -> tuple:
+    """One call of ``fn`` under ``torch.profiler``: device ms by kernel, and
+    by kernel kind (largest first)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    by_kernel = _device_ms_by_kernel(prof)
+    kinds = {}
+    for k, ms in by_kernel.items():
+        kinds[_kind(k)] = kinds.get(_kind(k), 0.0) + ms
+    return by_kernel, dict(sorted(kinds.items(), key=lambda kv: -kv[1]))
+
+
 def profile_train_step(model: str) -> dict:
     """``--report`` only: where a full-width training step's time goes. One
     Trainer step at 512², fp32 (torch's TF32 defaults, as the CLI runs), at
@@ -1022,8 +1035,6 @@ def profile_train_step(model: str) -> dict:
     reference CombinedLoss) at batch 2. Wall time (median of 5 after 2
     warm-up steps) beside the device time of one further step under
     ``torch.profiler``, by kernel kind."""
-    from torch.profiler import ProfilerActivity, profile
-
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = True
     x = torch.from_numpy(np.asarray(Image.open(io.BytesIO(xray_png(512, 512, 31))), np.float32) / 255)
@@ -1046,18 +1057,12 @@ def profile_train_step(model: str) -> dict:
         trainer.train_step(batch)  # returns a host float: the step has finished
         walls.append((time.perf_counter() - t) * 1e3)
     zero_counts()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        trainer.train_step(batch)
-        torch.cuda.synchronize()
+    by_kernel, kinds = device_profile(lambda: trainer.train_step(batch))
     launched = counts()
-    by_kernel = _device_ms_by_kernel(prof)
-    kinds = {}
-    for k, ms in by_kernel.items():
-        kinds[_kind(k)] = kinds.get(_kind(k), 0.0) + ms
     wall, device = statistics.median(walls), sum(by_kernel.values())
     out = {"model": model, "batch_size": cfg.batch_size, "wall_ms": walls, "wall_p50_ms": wall,
            "device_ms": device, "idle_share": 1.0 - device / wall, "launches": launched,
-           "device_ms_by_kind": dict(sorted(kinds.items(), key=lambda kv: -kv[1])),
+           "device_ms_by_kind": kinds,
            "top_kernels": sorted(by_kernel.items(), key=lambda kv: -kv[1])[:15]}
     print(json.dumps({"train_step_profile": {k: out[k] for k in
                                              ("model", "wall_p50_ms", "device_ms", "idle_share",
@@ -1065,68 +1070,6 @@ def profile_train_step(model: str) -> dict:
     del trainer
     torch.cuda.empty_cache()
     return out
-
-
-# Run in a fresh process from the root of a checkout (``--ab-parent``): the
-# served nafnet and hybrid paths at 512², wall (median of 10 after 2 warm-up
-# calls) and device time (one call under torch.profiler). It uses only the
-# engine's API, which the parent's package shares.
-AB_SNIPPET = r"""
-import json, statistics, time
-import numpy as np, torch
-from torch.profiler import ProfilerActivity, profile
-from midd_tpu_torch.serve.engine import EngineConfig, InferenceEngine
-torch.backends.cuda.matmul.allow_tf32 = False
-torch.backends.cudnn.allow_tf32 = True
-eng = InferenceEngine(EngineConfig())
-rng = np.random.default_rng(0)
-x = np.clip(0.5 + 0.1 * rng.standard_normal((1, 512, 512, 1)), 0, 1).astype(np.float32)
-out = {}
-for name in ("nafnet", "hybrid"):
-    fn = eng.fns[name]
-    for _ in range(2):
-        fn(x)
-    walls = []
-    for _ in range(10):
-        t = time.perf_counter()
-        fn(x)
-        walls.append((time.perf_counter() - t) * 1e3)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn(x)
-        torch.cuda.synchronize()
-    dev_us = 0.0
-    for e in prof.key_averages():
-        if getattr(e, "is_user_annotation", False) or "cuda" not in str(getattr(e, "device_type", "")).lower():
-            continue
-        dev_us += float(getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0)))
-    wall = statistics.median(walls)
-    out[name] = {"wall_ms": walls, "wall_p50_ms": wall, "device_ms": dev_us / 1e3,
-                 "idle_share": 1.0 - dev_us / 1e3 / wall}
-eng.close()
-print("AB_PATHS " + json.dumps(out))
-"""
-
-
-def ab_paths(parent: str) -> dict:
-    """``--ab-parent`` only: the served nafnet and hybrid paths with the
-    package under ``parent`` and with this checkout's, in turns (parent,
-    this, this, parent), each in a fresh process started from that tree."""
-    here = os.path.dirname(os.path.abspath(__file__))
-    parent = os.path.abspath(parent)
-    assert os.path.isdir(os.path.join(parent, "midd_tpu_torch")), parent
-    runs = []
-    for label, tree in (("parent", parent), ("change", here), ("change", here), ("parent", parent)):
-        env = {**os.environ, "PYTHONPATH": tree}
-        proc = subprocess.run([sys.executable, "-c", AB_SNIPPET], cwd=tree, env=env,
-                              capture_output=True, text=True, timeout=600)
-        lines = [ln_ for ln_ in proc.stdout.splitlines() if ln_.startswith("AB_PATHS ")]
-        if proc.returncode != 0 or not lines:
-            raise RuntimeError(f"A/B run in {tree} failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
-        runs.append({"tree": label, **json.loads(lines[-1][len("AB_PATHS "):])})
-        print(json.dumps({"ab_paths": {"tree": label, **{n: {k: runs[-1][n][k] for k in
-                                                            ("wall_p50_ms", "device_ms", "idle_share")}
-                                                        for n in ("nafnet", "hybrid")}}}), flush=True)
-    return {"order": [r["tree"] for r in runs], "runs": runs}
 
 
 def serve_slice(report: dict, profile: bool) -> dict:
@@ -1212,12 +1155,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--report", default=None,
                     help="also profile a request and a training step and write a JSON report here")
-    ap.add_argument("--ab-parent", default=None, metavar="DIR",
-                    help="with --report: time the served nafnet and hybrid paths with the "
-                         "midd_tpu_torch package under DIR and with this one, in turns")
     args = ap.parse_args(argv)
-    if args.ab_parent and not args.report:
-        ap.error("--ab-parent needs --report")
     t_all = time.time()
     phase("device")
     if not torch.cuda.is_available():
@@ -1259,7 +1197,7 @@ def main(argv=None) -> int:
     # the main paths, each driven with the counts set to 0 just before it
     paths = {}
     phase("slice: nafnet_apply_fused at 512²")
-    paths["nafnet_apply_fused"] = fused_forward(report)
+    paths["nafnet_apply_fused"] = fused_forward(report, profile=args.report is not None)
 
     phase("slice: 512² /denoise through the port's server")
     paths["serve"] = serve_slice(report, profile=args.report is not None)
@@ -1278,8 +1216,6 @@ def main(argv=None) -> int:
     if args.report:
         report["train_step_profile"] = profile_train_step("diffusion")
         report["nafnet_train_step_profile"] = profile_train_step("nafnet")
-    if args.ab_parent:
-        report["ab_paths"] = ab_paths(args.ab_parent)
 
     for entry in entries:
         by_path = {p: launched[entry["name"]] for p, launched in paths.items()}
