@@ -12,10 +12,16 @@ Phases (any failure exits non-zero, and no result line is printed):
 1. device: a CUDA device is required; prints the card's name and power limit;
 2. build: compiles csrc/flash_fwd.cu, csrc/flash_bwd.cu, csrc/ln2d.cu and
    csrc/naf_ffn.cu with nvcc, all four at once;
-3. forward kernel vs plain: flash_attention against flash_attention_plain
-   (TF32 off) at the served shapes, with timings and the SDPA yardstick;
+3. forward kernel vs plain: flash_attention (tensor cores: bf16 in one
+   pass, fp32 in three TF32 passes) against flash_attention_plain (TF32
+   off) at the served shapes and a few others; timed at the three served
+   sequence lengths (N 1024, 4096, 16384; D 96; bf16) and at the training
+   shape (2, 4096, 96) in fp32, each beside SDPA in the same dtype and the
+   bound (operations over the bf16 or the TF32 peak);
 4. backward kernels vs plain: flash_bwd_dq and flash_bwd_dkv against their
-   plain versions (TF32 off), with timings and SDPA's backward as yardstick;
+   plain versions (TF32 off), timed at the same shapes beside SDPA's
+   backward in the same dtype (its device time under the profiler) and
+   their bounds;
 5. ln2d kernel vs plain at every SERVE_NAFNET stage shape of a 512² input
    (batch 1 and 2) and one ragged shape, fp32 and bf16, with timings and
    ``F.layer_norm`` on a channels-last copy as yardstick;
@@ -38,7 +44,9 @@ Phases (any failure exits non-zero, and no result line is printed):
    pairs, batch 2 = 4 train steps of 60 ln2d launches and one validation
    forward); finite losses, moved parameters, a .pth with its metadata;
    then an InferenceEngine on each checkpoint answers one 512² request.
-The second-to-last line is the kernels JSON, the last {"ok": true, ...}.
+The second-to-last line is the kernels JSON (each flash entry with an
+``fp32`` object and the times of every timed shape), the last
+{"ok": true, ...}.
 
 ``--report FILE`` also measures where a request's and a training step's time
 goes and writes a longer JSON report to FILE: every request and path time, 6
@@ -91,14 +99,16 @@ from midd_tpu_torch.train import recipes
 from midd_tpu_torch.train.trainer import (Trainer, diffusion_draw, diffusion_loss_fn,
                                           nafnet_loss_fn, no_draw)
 
-# H100 SXM data sheet (dense): bf16 tensor-core peak, fp32 CUDA-core peak
-# and HBM3 rate
+# H100 SXM data sheet (dense): bf16 and TF32 tensor-core peaks, fp32
+# CUDA-core peak and HBM3 rate
 PEAK_BF16_FLOPS = 989e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_FP32_FLOPS = 67e12
 HBM_BYTES_PER_S = 3.35e12
 
 # (bh, n, d, dtype). The plain version runs in fp32 on the same (for bf16:
 # bf16-rounded) inputs, with TF32 off.
+FLASH_BATCH = 5  # flash kernels and SDPA's forward are timed over 5 calls in a row
 MAIN = (2, 4096, 96, torch.bfloat16)
 CASES = [
     MAIN,
@@ -209,18 +219,21 @@ def phase(name: str) -> None:
     print(f"== {name}", flush=True)
 
 
-def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
-    """Median device time of one call, from CUDA events around each call."""
+def time_ms(fn, reps: int = 20, warmup: int = 3, batch: int = 1) -> float:
+    """Median device time of one call, from CUDA events around each call, or
+    around ``batch`` calls in a row (divided by ``batch``), so that the host's
+    time to enqueue a call hides behind the device's work on the one before."""
     for _ in range(warmup):
         fn()
     times = []
     for _ in range(reps):
         a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         a.record()
-        fn()
+        for _ in range(batch):
+            fn()
         b.record()
         b.synchronize()
-        times.append(a.elapsed_time(b))
+        times.append(a.elapsed_time(b) / batch)
     return statistics.median(times)
 
 
@@ -229,12 +242,32 @@ def set_tf32(on: bool) -> None:
     torch.backends.cudnn.allow_tf32 = on
 
 
+def flash_bound(flops: float, nbytes: float, dtype) -> tuple:
+    """(bound ms, what bounds it) of a flash kernel: its operations over the
+    tensor-core peak of its dtype (fp32: the TF32 peak, the least time any
+    unit of the card could take), or its bytes over the HBM rate."""
+    peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_TF32_FLOPS
+    t_ops, t_bytes = flops / peak * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def flash_timings(rows: list) -> dict:
+    """The kernels-line keys of the timed flash shapes: the times at the
+    fp32 training shape (the one fp32 shape timed), and at every shape."""
+    keys = ("n", "dtype", "ms", "bound_ms", "bound_by", "library_ms")
+    fp32 = next(r for r in rows if r["dtype"] == "float32")
+    return {"fp32": {k: fp32[k] for k in ("ms", "bound_ms", "library_ms")},
+            "timings": [{k: r[k] for k in keys} for r in rows]}
+
+
 def check_kernel(report: dict) -> dict:
-    """Phase 3: the forward kernel against its plain version; returns its
-    kernels-line entry (launches filled in by phases 5 and 8)."""
+    """Phase 3: the forward kernel against its plain version, timed at every
+    D 96 case (the served sequence lengths in bf16, the training shape in
+    fp32) beside SDPA in the same dtype and the bound; returns its
+    kernels-line entry (launches filled in by the main paths)."""
     set_tf32(False)
     gen = torch.Generator().manual_seed(0)
-    rows = []
+    rows, timed = [], []
     for bh, n, d, dtype in CASES:
         q, k, v = (torch.randn(bh, n, d, generator=gen).to("cuda", dtype) for _ in range(3))
         o, lse = fa.flash_attention(q, k, v)
@@ -246,11 +279,17 @@ def check_kernel(report: dict) -> dict:
         err_lse = (lse - lse_ref).abs().max().item()
         ok = (err_o <= tol_o and err_lse <= TOL_FP32
               and o.dtype == dtype and lse.dtype == torch.float32)
-        row = {"bh": bh, "n": n, "d": d, "dtype": str(dtype).replace("torch.", ""),
+        row = {"bh": bh, "n": n, "d": d, "dtype": _dt(dtype),
                "max_abs_o": max_o, "max_abs_err_o": err_o, "max_abs_err_lse": err_lse,
                "tol_o": tol_o, "tol_lse": TOL_FP32, "ok": ok}
         if d == 96:
-            row["ms"] = time_ms(lambda: fa.flash_attention(q, k, v))
+            q4, k4, v4 = (t.view(1, bh, n, d) for t in (q, k, v))
+            bound, by = flash_bound(4.0 * bh * n * n * d, 4 * bh * n * d * q.element_size() + bh * n * 4, dtype)
+            row.update({"ms": time_ms(lambda: fa.flash_attention(q, k, v), batch=FLASH_BATCH),
+                        "library_ms": time_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4),
+                                              batch=FLASH_BATCH),
+                        "bound_ms": bound, "bound_by": by})
+            timed.append(row)
         print(json.dumps(row), flush=True)
         rows.append(row)
         if not ok:
@@ -260,15 +299,8 @@ def check_kernel(report: dict) -> dict:
     report["kernel_cases"] = rows
 
     bh, n, d, _ = MAIN
-    q, k, v = main_qkv
-    qf, kf, vf = q.float(), k.float(), v.float()
-    plain_ms = time_ms(lambda: fa.flash_attention_plain(qf, kf, vf), reps=10)
-    q4, k4, v4 = (t.view(1, bh, n, d) for t in (q, k, v))
-    library_ms = time_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4))
-    flops = 4.0 * bh * n * n * d
-    nbytes = 4 * bh * n * d * q.element_size() + bh * n * 4
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
-    entry = {
+    qf, kf, vf = (t.float() for t in main_qkv)
+    return {
         "name": "flash_fwd",
         "route": "cuda",
         "source": "midd_tpu_torch/csrc/flash_fwd.cu",
@@ -276,14 +308,15 @@ def check_kernel(report: dict) -> dict:
         "launches": None,
         "max_abs_err": main_row["max_abs_err_o"],
         "ms": main_row["ms"],
-        "plain_ms": plain_ms,
-        "bound_ms": max(t_ops, t_bytes),
-        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-        "library_ms": library_ms,
+        "plain_ms": time_ms(lambda: fa.flash_attention_plain(qf, kf, vf), reps=10),
+        "bound_ms": main_row["bound_ms"],
+        "bound_by": main_row["bound_by"],
+        "library_ms": main_row["library_ms"],
+        "library": "scaled_dot_product_attention, same dtype",
         "shape": [bh, n, d],
         "dtype": "bfloat16",
+        **flash_timings(timed),
     }
-    return entry
 
 
 KERNEL_COUNTERS = {"flash_fwd": fa.flash_attention, "flash_bwd_dq": fa.flash_bwd_dq,
@@ -303,12 +336,36 @@ def since(before: dict) -> dict:
     return {k: v - before[k] for k, v in counts().items()}
 
 
+def sdpa_bwd_ms(q, k, v, do) -> float:
+    """SDPA's backward on (BH, N, D) operands, dq, dk and dv together: the
+    device time under ``torch.profiler`` of the kernels of one forward +
+    ``autograd.grad`` less those of one forward (median of 3 each). Events
+    around the call would count autograd's host time, which exceeds the
+    device's at these shapes."""
+    bh, n, d = q.shape
+    q4, k4, v4 = (t.view(1, bh, n, d).clone().requires_grad_(True) for t in (q, k, v))
+    do4 = do.view(1, bh, n, d)
+
+    def fwd_bwd():
+        torch.autograd.grad(F.scaled_dot_product_attention(q4, k4, v4), (q4, k4, v4), do4)
+
+    def fwd():
+        with torch.no_grad():
+            F.scaled_dot_product_attention(q4, k4, v4)
+
+    fwd_bwd(), fwd()
+    device = lambda fn: statistics.median(sum(device_profile(fn)[0].values()) for _ in range(3))  # noqa: E731
+    return device(fwd_bwd) - device(fwd)
+
+
 def check_bwd(report: dict) -> list:
-    """Phase 4: the two backward kernels against their plain versions;
-    returns their kernels-line entries (launches filled in by phase 8)."""
+    """Phase 4: the two backward kernels against their plain versions, each
+    timed at every D 96 case beside SDPA's backward in the same dtype and
+    its bound; returns their kernels-line entries (launches filled in by the
+    main paths)."""
     set_tf32(False)
     gen = torch.Generator().manual_seed(1)
-    rows = []
+    rows, timed = [], {"dq": [], "dkv": []}
     for bh, n, d, dtype in BWD_CASES:
         q, k, v, do = (torch.randn(bh, n, d, generator=gen).to("cuda", dtype) for _ in range(4))
         o, lse = fa.flash_attention(q, k, v)
@@ -319,12 +376,23 @@ def check_bwd(report: dict) -> list:
         ref_dk, ref_dv = fa.bwd_dkv_plain(q, k, v, do, lse, delta)
         torch.cuda.synchronize()
         rel = BWD_BF16_REL if dtype == torch.bfloat16 else BWD_FP32_REL
-        row = {"bh": bh, "n": n, "d": d, "dtype": str(dtype).replace("torch.", ""), "ok": True}
+        row = {"bh": bh, "n": n, "d": d, "dtype": _dt(dtype), "ok": True}
         for name, got, want in (("dq", dq, ref_dq), ("dk", dk, ref_dk), ("dv", dv, ref_dv)):
             max_ref = want.float().abs().max().item()
             err = (got.float() - want.float()).abs().max().item()
             row[name] = {"max_abs": max_ref, "max_abs_err": err, "tol": rel * max_ref}
             row["ok"] &= got.dtype == dtype and got.shape == q.shape and err <= rel * max_ref
+        if d == 96:
+            ms = {"dq": time_ms(lambda: fa.flash_bwd_dq(q, k, v, do, lse, delta), batch=FLASH_BATCH),
+                  "dkv": time_ms(lambda: fa.flash_bwd_dkv(q, k, v, do, lse, delta), batch=FLASH_BATCH)}
+            library_ms = sdpa_bwd_ms(q, k, v, do)
+            in_bytes = 4 * bh * n * d * q.element_size() + 2 * bh * n * 4  # q, k, v, dO; lse, delta
+            for key, products, outs in (("dq", 3, 1), ("dkv", 4, 2)):
+                bound, by = flash_bound(products * 2.0 * bh * n * n * d,
+                                        in_bytes + outs * bh * n * d * q.element_size(), dtype)
+                timed[key].append({"n": n, "dtype": _dt(dtype), "ms": ms[key], "bound_ms": bound,
+                                   "bound_by": by, "library_ms": library_ms})
+            row["ms"] = ms
         print(json.dumps(row), flush=True)
         rows.append(row)
         if not row["ok"]:
@@ -335,32 +403,15 @@ def check_bwd(report: dict) -> list:
 
     bh, n, d, _ = MAIN
     q, k, v, do, lse, delta = main_in
-    ms = {"dq": time_ms(lambda: fa.flash_bwd_dq(q, k, v, do, lse, delta)),
-          "dkv": time_ms(lambda: fa.flash_bwd_dkv(q, k, v, do, lse, delta))}
     plain = {"dq": time_ms(lambda: fa.bwd_dq_plain(q, k, v, do, lse, delta), reps=10),
              "dkv": time_ms(lambda: fa.bwd_dkv_plain(q, k, v, do, lse, delta), reps=10)}
-    q4, k4, v4 = (t.view(1, bh, n, d).clone().requires_grad_(True) for t in (q, k, v))
-    do4 = do.view(1, bh, n, d)
-
-    def sdpa_fwd_bwd():
-        out = F.scaled_dot_product_attention(q4, k4, v4)
-        torch.autograd.grad(out, (q4, k4, v4), do4)
-
-    def sdpa_fwd():
-        with torch.no_grad():
-            F.scaled_dot_product_attention(q4, k4, v4)
-
-    library_ms = time_ms(sdpa_fwd_bwd) - time_ms(sdpa_fwd)
-    elt = q.element_size()
-    in_bytes = 4 * bh * n * d * elt + 2 * bh * n * 4  # q, k, v, dO; lse, delta
     entries = []
-    for name, line, products, outs, errs in (
-        ("flash_bwd_dq", 98, 3, 1, [main_row["dq"]["max_abs_err"]]),
-        ("flash_bwd_dkv", 132, 4, 2, [main_row["dk"]["max_abs_err"], main_row["dv"]["max_abs_err"]]),
+    for name, line, errs in (
+        ("flash_bwd_dq", 98, [main_row["dq"]["max_abs_err"]]),
+        ("flash_bwd_dkv", 132, [main_row["dk"]["max_abs_err"], main_row["dv"]["max_abs_err"]]),
     ):
-        t_ops = products * 2.0 * bh * n * n * d / PEAK_BF16_FLOPS * 1e3
-        t_bytes = (in_bytes + outs * bh * n * d * elt) / HBM_BYTES_PER_S * 1e3
         key = name.split("_")[-1]
+        main_t = next(r for r in timed[key] if r["n"] == n and r["dtype"] == "bfloat16")
         entries.append({
             "name": name,
             "route": "cuda",
@@ -368,15 +419,16 @@ def check_bwd(report: dict) -> list:
             "replaces": f"midd_tpu/ops/flash_attention.py:{line}",
             "launches": None,
             "max_abs_err": max(errs),
-            "ms": ms[key],
+            "ms": main_t["ms"],
             "plain_ms": plain[key],
-            "bound_ms": max(t_ops, t_bytes),
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "library_ms": library_ms,
-            "library": "scaled_dot_product_attention backward: (forward + autograd.grad) "
-                       "- forward, dq, dk and dv together",
+            "bound_ms": main_t["bound_ms"],
+            "bound_by": main_t["bound_by"],
+            "library_ms": main_t["library_ms"],
+            "library": "scaled_dot_product_attention backward, same dtype: device time of "
+                       "(forward + autograd.grad) - forward under torch.profiler, dq, dk and dv together",
             "shape": [bh, n, d],
             "dtype": "bfloat16",
+            **flash_timings(timed[key]),
         })
     return entries
 

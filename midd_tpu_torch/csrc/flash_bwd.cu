@@ -1,4 +1,5 @@
-// Flash-attention backward for Hopper (sm_90a), CUDA-core fp32 math.
+// Flash-attention backward for Hopper (sm_90a): dq on the CUDA cores in
+// fp32, dk/dv on the tensor cores.
 //
 // Replaces the two TPU kernels of midd_tpu/ops/flash_attention.py's
 // custom_vjp (_flash_padded_bwd):
@@ -23,20 +24,26 @@
 // (template NJ = Dp / 16). Any N >= 1: keys past N get p = 0, query rows
 // past N get p = 0 (their lse and delta are never read) and are not stored.
 //
-// Bound on this card. dq does 3 and dk/dv 4 matrix products of 2*BH*N^2*D
-// operations each (dk/dv recomputes s and dO v^T); at the training shape
-// (BH=2, N=4096, D=96) that is 19.3 and 25.8 GFLOP against ~7.9 and ~9.5 MB
-// of inputs and outputs: bound by operations (~20 and ~26 us at the dense
-// bf16 tensor-core peak). Like the forward, this first version runs its
-// products on the CUDA cores in fp32, so it cannot come near that bound;
-// what the design does about the operation bound is keep every operand in
-// shared memory or registers (O(N) device-memory traffic per block) and give
-// each thread 4x4 score tiles and 4 x NJ accumulator tiles, so each
-// shared-memory load feeds several FMAs. Tensor cores come next.
+// Bound on this card: operations. dq does 3 and dk/dv 4 matrix products of
+// 2*BH*N^2*D operations each (dk/dv recomputes s and dO v^T); at the
+// training shape (BH=2, N=4096, D=96) that is 19.3 and 25.8 GFLOP against
+// ~7.9 and ~9.5 MB of inputs and outputs (~20 and ~26 us at the dense bf16
+// tensor-core peak, twice that at the TF32 peak for fp32). The dq kernel
+// runs its products on the CUDA cores in fp32: it keeps every operand in
+// shared memory or registers (O(N) device-memory traffic per block) and
+// gives each thread 4x4 score tiles and 4 x NJ accumulator tiles, so each
+// shared-memory load feeds several FMAs. The dk/dv kernel runs all four
+// products on the tensor cores (flash_mma.cuh: one bf16 pass, or three TF32
+// passes for fp32), with P^T and dS^T kept in registers between products
+// (its note is below). Left for later: wgmma fed by a TMA producer warp, a
+// split of the queries across blocks (at BH 2, N 4096 the dk/dv grid is 128
+// blocks of 4 warps, under one wave on 132 SMs), and dq on the tensor cores.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
+
+#include "flash_mma.cuh"
 
 namespace {
 
@@ -74,22 +81,6 @@ template <int NJ> struct DqSmem {
   static constexpr int V_OFF = K_OFF + BK * RS;
   static constexpr int DS_OFF = V_OFF + BK * RS;
   static constexpr int FLOATS = DS_OFF + BK * TS;
-  static constexpr size_t BYTES = sizeof(float) * FLOATS;
-};
-
-template <int NJ> struct DkvSmem {
-  static constexpr int DP = NJ * 16;
-  static constexpr int RS = DP + 4;  // K, V, Q, dO row stride
-  static constexpr int TS = BK + 4;  // p and ds row stride (one row per query)
-  static constexpr int K_OFF = 0;
-  static constexpr int V_OFF = K_OFF + BK * RS;
-  static constexpr int Q_OFF = V_OFF + BK * RS;
-  static constexpr int DO_OFF = Q_OFF + BQ * RS;
-  static constexpr int P_OFF = DO_OFF + BQ * RS;
-  static constexpr int DS_OFF = P_OFF + BQ * TS;
-  static constexpr int L_OFF = DS_OFF + BQ * TS;  // lse * log2(e) per query
-  static constexpr int D_OFF = L_OFF + BQ;        // delta per query
-  static constexpr int FLOATS = D_OFF + BQ;
   static constexpr size_t BYTES = sizeof(float) * FLOATS;
 };
 
@@ -229,116 +220,167 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-// dk and dv for BK key rows of one (b, h); Q/dO tiles stream.
+// dk and dv for DKV_BK = 64 key rows of one (b, h), on the tensor cores
+// (flash_mma.cuh); Q, dO, lse and delta tiles stream. Each warp owns 16 key
+// rows; of the two groups of four warps, group g takes queries [32g, 32g +
+// 32) of every 64-query tile, and per 32 (fp32: 16) queries computes, in
+// registers:
+//   S^T = K_w Q^T;  P^T = exp2(S^T scale log2e - lse log2e)  (0 past N);
+//   dV_w += P^T dO  (P^T rounded to bf16 for bf16);
+//   dP^T = V_w dO^T;  dS^T = P^T (dP^T - delta);
+//   dK_w += dS^T Q  (dS^T rounded to bf16 for bf16).
+// No reduction across warps in the loop: a warp's key rows are its own; at
+// the end group 1 hands its sums to group 0 through shared memory. K and V
+// arrive once; Q, dO, lse and delta come through a two-stage cp.async ring
+// whose barrier is the only block-wide one in the loop. Q and dO are read
+// both as B stored [n][k] (ldmatrix) and as B stored [k][n] (bf16:
+// ldmatrix.trans; fp32: plain loads, two-way bank conflicts at the padding of
+// 4 floats that ldmatrix needs). Budget at D 96 (nvcc -Xptxas -v, sm_90a):
+// 256 threads; shared memory bf16 80,896 bytes, fp32 154,624 bytes;
+// registers per thread bf16 174, fp32 202, no spills; fp32 spills a few
+// words at D 17-32 (4 bytes) and at D > 96 (76-112 bytes, at the
+// 255-register cap).
+constexpr int DKV_BK = 64;      // key rows per block: 16 per warp of a group
+constexpr int DKV_BQ = 64;      // queries per streamed tile
+constexpr int DKV_GROUPS = 2;   // warp groups; group g takes queries [32g, 32g + 32) of a tile
+constexpr int DKV_THREADS = 128 * DKV_GROUPS;
+
+template <typename T, int NJ> struct DkvLayout {
+  static constexpr int DP = NJ * 16;
+  static constexpr int S = DP + midd_mma::Mma<T>::PAD;  // row stride of every tile, elements
+  static constexpr int TILE = 64 * S * sizeof(T);
+  static constexpr int STAGE = 2 * TILE + 2 * DKV_BQ * sizeof(float);  // Q, dO, lse, delta
+  static constexpr int BYTES = 2 * TILE + 2 * STAGE;                   // K, V, two stages
+  static constexpr int XCHG = DP;  // floats a lane hands over: its dK and dV fragments
+  static_assert(128 * XCHG * 4 <= 2 * STAGE, "merge buffer does not fit the ring");
+};
+
 template <typename T, int NJ>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(DKV_THREADS)
 flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, const T* __restrict__ dout,
                      const float* __restrict__ lse, const float* __restrict__ delta,
                      T* __restrict__ dk, T* __restrict__ dv, int n, int d,
-                     float scale) {
-  using S = DkvSmem<NJ>;
-  constexpr int DP = S::DP;
-  extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  float* ks = smem + S::K_OFF;
-  float* vs = smem + S::V_OFF;
-  float* qs = smem + S::Q_OFF;
-  float* dos = smem + S::DO_OFF;
-  float* ps = smem + S::P_OFF;
-  float* dss = smem + S::DS_OFF;
-  float* ls = smem + S::L_OFF;
-  float* dls = smem + S::D_OFF;
+                     float scale, bool async) {
+  namespace mm = midd_mma;
+  using Lay = DkvLayout<T, NJ>;
+  using M = mm::Mma<T>;
+  constexpr int DP = Lay::DP, S = Lay::S;
+  constexpr int ND = DP / 8;        // 8-column tiles of dK and dV
+  // queries per register pass: fp32 carries hi and lo A fragments, so half
+  constexpr int PASS = sizeof(T) == 2 ? 32 : 16;
+  constexpr int NT = PASS / 8;  // 8-query tiles of one pass
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* ks = reinterpret_cast<T*>(smem);
+  T* vs = reinterpret_cast<T*>(smem + Lay::TILE);
+  auto stage = [&](int st) { return smem + 2 * Lay::TILE + st * Lay::STAGE; };
 
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, t = lane & 3;
+  const int group = warp >> 2, wr = warp & 3;  // query group, 16-key-row group
   const int bh = blockIdx.y;
-  const int k0 = blockIdx.x * BK;
-  const int tid = threadIdx.x;
-  const int ty = tid >> 4;  // key rows ty*4 .. ty*4+3
-  const int tx = tid & 15;  // queries tx + 16*c; dk/dv columns tx + 16*j
-  const float scale_log2 = scale * LOG2E;
-
+  const int k0 = blockIdx.x * DKV_BK;
+  const float scale_log2 = scale * mm::LOG2E;
   const size_t base = (size_t)bh * n * d;
-  load_tile<T, DP>(ks, S::RS, k + base, k0, BK, n, d);
-  load_tile<T, DP>(vs, S::RS, v + base, k0, BK, n, d);
+  const float* lse_bh = lse + (size_t)bh * n;
+  const float* delta_bh = delta + (size_t)bh * n;
+  const int tiles = (n + DKV_BQ - 1) / DKV_BQ;
 
-  float acc_k[4][NJ], acc_v[4][NJ];
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) acc_k[r][j] = acc_v[r][j] = 0.f;
+  auto load_stage = [&](int st, int q0) {
+    unsigned char* p = stage(st);
+    mm::load_rows<T, DKV_BQ, DP, DKV_THREADS>(reinterpret_cast<T*>(p), S, q + base, q0, n, d, async);
+    mm::load_rows<T, DKV_BQ, DP, DKV_THREADS>(reinterpret_cast<T*>(p + Lay::TILE), S, dout + base,
+                                              q0, n, d, async);
+    float* vec = reinterpret_cast<float*>(p + 2 * Lay::TILE);
+    mm::load_vec<DKV_BQ>(vec, lse_bh, q0, n, (int)threadIdx.x);
+    mm::load_vec<DKV_BQ>(vec + DKV_BQ, delta_bh, q0, n, (int)threadIdx.x - DKV_BQ);
+  };
+  mm::load_rows<T, DKV_BK, DP, DKV_THREADS>(ks, S, k + base, k0, n, d, async);
+  mm::load_rows<T, DKV_BK, DP, DKV_THREADS>(vs, S, v + base, k0, n, d, async);
+  load_stage(0, 0);
+  mm::cp_async_commit();
 
-  for (int q0 = 0; q0 < n; q0 += BQ) {
-    __syncthreads();  // the previous tile's readers are done with qs/dos/ps/dss
-    load_tile<T, DP>(qs, S::RS, q + base, q0, BQ, n, d);
-    load_tile<T, DP>(dos, S::RS, dout + base, q0, BQ, n, d);
-    for (int i = tid; i < BQ; i += THREADS) {
-      const int row = q0 + i;
-      ls[i] = row < n ? lse[(size_t)bh * n + row] * LOG2E : 0.f;
-      dls[i] = row < n ? delta[(size_t)bh * n + row] : 0.f;
+  float dka[ND][4], dva[ND][4];
+#pragma unroll
+  for (int j = 0; j < ND; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dka[j][e] = dva[j][e] = 0.f;
+  const T* kw = ks + wr * 16 * S;
+  const T* vw = vs + wr * 16 * S;
+
+  for (int j = 0; j < tiles; ++j) {
+    mm::cp_async_wait_all();
+    __syncthreads();  // tile j is in; every warp is done with stage (j + 1) & 1
+    if (j + 1 < tiles) {
+      load_stage((j + 1) & 1, (j + 1) * DKV_BQ);
+      mm::cp_async_commit();
     }
-    __syncthreads();
+    const unsigned char* p = stage(j & 1);
+    const T* qt = reinterpret_cast<const T*>(p);
+    const T* dot = reinterpret_cast<const T*>(p + Lay::TILE);
+    const float* lt = reinterpret_cast<const float*>(p + 2 * Lay::TILE);
+    const float* dlt = lt + DKV_BQ;
+    const int q0 = j * DKV_BQ;
 
-    // s^T and (dO v^T)^T for this thread's 4 keys x 4 queries.
-    float s[4][4], dp[4][4];
-    dot_tile<DP, S::RS>(s, ks, qs, ty, tx);
-    dot_tile<DP, S::RS>(dp, vs, dos, ty, tx);
+#pragma unroll 1
+    for (int h = group * (DKV_BQ / DKV_GROUPS); h < (group + 1) * (DKV_BQ / DKV_GROUPS); h += PASS) {
+      const T* qh = qt + h * S;
+      const T* doh = dot + h * S;
+      float pt[NT][4], dst[NT][4];
+#pragma unroll
+      for (int c = 0; c < NT; ++c)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) pt[c][e] = dst[c][e] = 0.f;
 
-    // p and ds into shared memory, query-major: this thread's 4 keys of one
-    // query as one float4. Queries past n contribute nothing.
+      mm::warp_gemm_nt<T, NT, DP>(pt, kw, S, qh, S, lane);
 #pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const int qi = tx + 16 * c;
-      const bool valid = q0 + qi < n;
-      const float l2 = ls[qi];
-      const float dl = dls[qi];
-      float pv[4], dsv[4];
+      for (int c = 0; c < NT; ++c)
 #pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const float p = valid ? exp2f(fmaf(s[r][c], scale_log2, -l2)) : 0.f;
-        pv[r] = round_in<T>(p);
-        dsv[r] = round_in<T>(p * (dp[r][c] - dl));
-      }
-      *reinterpret_cast<float4*>(ps + qi * S::TS + ty * 4) =
-          make_float4(pv[0], pv[1], pv[2], pv[3]);
-      *reinterpret_cast<float4*>(dss + qi * S::TS + ty * 4) =
-          make_float4(dsv[0], dsv[1], dsv[2], dsv[3]);
-    }
-    __syncthreads();
+        for (int e = 0; e < 4; ++e) {
+          const int qi = h + c * 8 + M::col(t, e & 1);
+          pt[c][e] = q0 + qi < n ? exp2f(fmaf(pt[c][e], scale_log2, -lt[qi] * mm::LOG2E)) : 0.f;
+        }
+      mm::warp_gemm_pv<T, NT, ND>(dva, pt, doh, S, lane);
 
-    // dv += p^T dO, dk += ds^T q for this thread's 4 keys x NJ columns.
-#pragma unroll 2
-    for (int qq = 0; qq < BQ; ++qq) {
-      const float4 p4 = *reinterpret_cast<const float4*>(ps + qq * S::TS + ty * 4);
-      const float4 d4 = *reinterpret_cast<const float4*>(dss + qq * S::TS + ty * 4);
+      mm::warp_gemm_nt<T, NT, DP>(dst, vw, S, doh, S, lane);
 #pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        const float ov = dos[qq * S::RS + tx + 16 * j];
-        const float qv = qs[qq * S::RS + tx + 16 * j];
-        acc_v[0][j] = fmaf(p4.x, ov, acc_v[0][j]);
-        acc_v[1][j] = fmaf(p4.y, ov, acc_v[1][j]);
-        acc_v[2][j] = fmaf(p4.z, ov, acc_v[2][j]);
-        acc_v[3][j] = fmaf(p4.w, ov, acc_v[3][j]);
-        acc_k[0][j] = fmaf(d4.x, qv, acc_k[0][j]);
-        acc_k[1][j] = fmaf(d4.y, qv, acc_k[1][j]);
-        acc_k[2][j] = fmaf(d4.z, qv, acc_k[2][j]);
-        acc_k[3][j] = fmaf(d4.w, qv, acc_k[3][j]);
-      }
-    }
-  }
-
+      for (int c = 0; c < NT; ++c)
 #pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int row = k0 + ty * 4 + r;
-    if (row >= n) continue;
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      const int col = tx + 16 * j;
-      if (col < d) {
-        dk[base + (size_t)row * d + col] = from_f<T>(scale * acc_k[r][j]);
-        dv[base + (size_t)row * d + col] = from_f<T>(acc_v[r][j]);
-      }
+        for (int e = 0; e < 4; ++e) {
+          const int qi = h + c * 8 + M::col(t, e & 1);
+          dst[c][e] = pt[c][e] * (dst[c][e] - dlt[qi]);
+        }
+      mm::warp_gemm_pv<T, NT, ND>(dka, dst, qh, S, lane);
     }
   }
+
+  // Group 1 hands its dK and dV sums to the warp of group 0 with the same
+  // key rows through the idle ring (same lane, same fragment layout); group
+  // 0 adds them and stores.
+  static_assert(DKV_GROUPS == 2, "the merge below takes one other group's sums");
+  __syncthreads();  // the ring is idle: no copy is in flight after the last tile
+  float* x = reinterpret_cast<float*>(stage(0)) + (wr * 32 + lane) * Lay::XCHG;
+  if (group == 1) {
+#pragma unroll
+    for (int c = 0; c < ND; ++c)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        x[c * 4 + e] = dka[c][e];
+        x[(ND + c) * 4 + e] = dva[c][e];
+      }
+  }
+  __syncthreads();
+  if (group != 0) return;
+#pragma unroll
+  for (int c = 0; c < ND; ++c)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      dka[c][e] += x[c * 4 + e];
+      dva[c][e] += x[(ND + c) * 4 + e];
+    }
+  const int row0 = k0 + wr * 16;
+  const float mul_k[2] = {scale, scale}, one[2] = {1.f, 1.f};
+  mm::store_rows<T, ND>(dk + base, dka, mul_k, row0, n, d, lane);
+  mm::store_rows<T, ND>(dv + base, dva, one, row0, n, d, lane);
 }
 
 struct Args {
@@ -371,17 +413,20 @@ cudaError_t launch_dq(const Args& a) {
 
 template <typename T, int NJ>
 cudaError_t launch_dkv(const Args& a) {
-  constexpr size_t bytes = DkvSmem<NJ>::BYTES;
+  constexpr int bytes = DkvLayout<T, NJ>::BYTES;
   auto kern = flash_bwd_dkv_kernel<T, NJ>;
   cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
-  const dim3 grid((a.n + BK - 1) / BK, a.bh);
-  kern<<<grid, THREADS, bytes, a.stream>>>(
+  using midd_mma::aligned16;
+  const bool async = (a.d * sizeof(T)) % 16 == 0 && aligned16(a.q) && aligned16(a.k) &&
+                     aligned16(a.v) && aligned16(a.dout);
+  const dim3 grid((a.n + DKV_BK - 1) / DKV_BK, a.bh);
+  kern<<<grid, DKV_THREADS, bytes, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), static_cast<const T*>(a.dout), a.lse, a.delta,
       static_cast<T*>(a.out0), static_cast<T*>(a.out1), a.n, a.d,
-      1.0f / sqrtf((float)a.d));
+      1.0f / sqrtf((float)a.d), async);
   return cudaGetLastError();
 }
 

@@ -3,8 +3,9 @@
 Each source under ``midd_tpu_torch/csrc/`` is compiled with ``nvcc`` for
 ``sm_90a`` into its own shared library with a plain C interface, at first
 use, into ``midd_tpu_torch/build/`` (git-ignored), and loaded through
-``ctypes``. A library's name carries a hash of its source and the flags, so
-an edited source builds anew. Nothing is built at import.
+``ctypes``. A library's name carries a hash of its source, of the ``.cuh``
+headers beside it and of the flags (``tag``), so an edited source or header
+builds anew. Nothing is built at import.
 
 Every source exports ``midd_cuda_error_string(int)``; its kernel entry
 points return the launch's ``cudaError_t`` (0 = success), which the wrappers
@@ -47,15 +48,23 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the port's CUDA kernels cannot be built")
 
 
+def tag(source: Path) -> str:
+    """The hash a library built from ``source`` is named by: the source, every
+    ``.cuh`` header in its directory (by name, in order) and the flags."""
+    h = hashlib.sha256(source.read_bytes())
+    for header in sorted(source.parent.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:12]
+
+
 def build(source: Path, verbose: bool = False) -> Path:
-    """Compile one kernel source into ``build/`` unless a library built from
-    the same source and flags is already there. Returns its path.
+    """Compile one kernel source into ``build/`` unless a library with the
+    same ``tag`` is already there. Returns its path.
     ``verbose`` adds ``-Xptxas -v`` and prints the compiler's report. Safe
     to call for several sources at once from several threads (each nvcc
     writes its own temporary file)."""
-    src = source.read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    out = BUILD_DIR / f"libmidd_{source.stem}_{tag}.so"
+    out = BUILD_DIR / f"libmidd_{source.stem}_{tag(source)}.so"
     if out.exists() and not verbose:
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)

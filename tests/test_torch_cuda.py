@@ -1,7 +1,9 @@
 """The hand-written kernels on the card (flash-attention forward; backward dq
 and dk/dv; LayerNorm2d; the fused NAFBlock FFN half): agreement with their
-plain versions, the launch counts, gradients through ``mha`` and through
-``LayerNorm2d``, and the wrappers' refusals. Marked ``cuda``;
+plain versions (the tensor-core forward and dk/dv kernels also at their tile
+and ring edges, by plain loads and off 16-byte alignment), the launch
+counts, gradients through ``mha`` and through ``LayerNorm2d``, and the
+wrappers' refusals. Marked ``cuda``;
 skipped where there is no GPU. This file imports no JAX, so on a machine
 without JAX run it without the suite's conftest:
 
@@ -38,15 +40,19 @@ def _qkv(bh, n, d, dtype, seed=0):
     (4, 130, 40, torch.bfloat16),
 ])
 def test_kernel_matches_plain(cuda, bh, n, d, dtype):
-    q, k, v = _qkv(bh, n, d, dtype)
+    _check_fwd(*_qkv(bh, n, d, dtype))
+
+
+def _check_fwd(q, k, v):
+    bh, n, _ = q.shape
     before = fa.flash_attention.launches
     o, lse = fa.flash_attention(q, k, v)
     torch.cuda.synchronize()
     assert fa.flash_attention.launches == before + 1
     o_ref, lse_ref = fa.flash_attention_plain(q.float(), k.float(), v.float())
-    assert o.dtype == dtype and lse.dtype == torch.float32 and lse.shape == (bh, n)
+    assert o.dtype == q.dtype and lse.dtype == torch.float32 and lse.shape == (bh, n)
     # bf16: two bf16 ulps of the largest output (reasons in chip_smoke.py)
-    tol = 2.0 ** -7 * o_ref.abs().max().item() if dtype == torch.bfloat16 else 1e-5
+    tol = 2.0 ** -7 * o_ref.abs().max().item() if q.dtype == torch.bfloat16 else 1e-5
     assert (o.float() - o_ref).abs().max().item() <= tol
     assert (lse - lse_ref).abs().max().item() <= 1e-5
 
@@ -93,6 +99,73 @@ def test_bwd_kernels_match_plain(cuda, bh, n, d, dtype):
     for a, b in zip(got, want):
         assert a.dtype == dtype and a.shape == q.shape
         assert (a.float() - b.float()).abs().max().item() <= rel * b.float().abs().max().item()
+
+
+# -- the tensor-core forward and dk/dv kernels at the tile and ring edges ----------
+# N around the 16-row warp tiles and the 64-row block and ring tiles, D around
+# the 16-column k steps, BH 1 and 3, both dtypes; each against its plain
+# version at the bounds above.
+EDGE = [(bh, n, d, dtype) for n in (1, 15, 17, 63, 65, 1000) for d in (8, 40, 72, 96, 128)
+        for bh in (1, 3) for dtype in (torch.float32, torch.bfloat16)]
+# D * itemsize not a multiple of 16: the same kernels take their tiles by
+# plain loads instead of 16-byte cp.async copies
+PLAIN_LOADS = [(2, 130, 7, torch.float32), (2, 130, 7, torch.bfloat16),
+               (1, 200, 36, torch.bfloat16), (3, 65, 100, torch.bfloat16)]
+
+
+def _check_dkv(q, k, v, do):
+    bh, n, d = q.shape
+    o, lse = fa.flash_attention(q, k, v)
+    delta = fa._delta(o, do)
+    before = fa.flash_bwd_dkv.launches
+    dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse, delta)
+    torch.cuda.synchronize()
+    assert fa.flash_bwd_dkv.launches == before + 1
+    want_k, want_v = fa.bwd_dkv_plain(q, k, v, do, lse, delta)
+    rel = 2.0 ** -7 if q.dtype == torch.bfloat16 else 1e-5
+    top_k = want_k.float().abs().max().item()
+    if n == 1:
+        # One key: the softmax over it has no gradient, ds = p (dO.v - delta)
+        # is 0 in exact arithmetic, and dk of either version is the rounding
+        # noise of two sums in their own orders. Hold the kernel's to rel of
+        # the size of those sums' terms, scale * p (|dO| |v| + |delta|) |q|.
+        p, scale = fa._recompute_p(q, k, lse)
+        terms = p * (do.float().abs() @ v.float().abs().transpose(-1, -2) + delta.abs()[..., None])
+        top_k = (scale * terms.transpose(-1, -2) @ q.float().abs()).max().item()
+    for got, want, top in ((dk, want_k, top_k), (dv, want_v, want_v.float().abs().max().item())):
+        assert got.dtype == q.dtype and got.shape == q.shape
+        assert (got.float() - want.float()).abs().max().item() <= rel * top
+
+
+@pytest.mark.parametrize("bh,n,d,dtype", EDGE)
+def test_fwd_kernel_edges_match_plain(cuda, bh, n, d, dtype):
+    _check_fwd(*_qkv(bh, n, d, dtype))
+
+
+@pytest.mark.parametrize("bh,n,d,dtype", EDGE)
+def test_dkv_kernel_edges_match_plain(cuda, bh, n, d, dtype):
+    _check_dkv(*_qkv(bh, n, d, dtype), _qkv(bh, n, d, dtype, seed=1)[0])
+
+
+@pytest.mark.parametrize("bh,n,d,dtype", PLAIN_LOADS)
+def test_kernels_load_rows_without_async_copies(cuda, bh, n, d, dtype):
+    q, k, v = _qkv(bh, n, d, dtype)
+    _check_fwd(q, k, v)
+    _check_dkv(q, k, v, _qkv(bh, n, d, dtype, seed=1)[0])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernels_take_operands_off_16_byte_alignment(cuda, dtype):
+    """A contiguous view one element into its storage is not 16-byte aligned:
+    the kernels load it with plain loads."""
+    bh, n, d = 2, 130, 96
+    q, k, v = _qkv(bh, n, d, dtype)
+    flat = torch.empty(bh * n * d + 1, device="cuda", dtype=dtype)
+    q_off = flat[1:].view(bh, n, d)
+    q_off.copy_(q)
+    assert q_off.is_contiguous() and q_off.data_ptr() % 16 != 0
+    _check_fwd(q_off, k, v)
+    _check_dkv(q_off, k, v, _qkv(bh, n, d, dtype, seed=1)[0])
 
 
 def test_mha_gradients_on_the_card_come_from_the_kernels(cuda):

@@ -9,6 +9,7 @@ gradients at that package's 5e-4 / 1e-3 or tighter, as stated per test.
 """
 
 import math
+import re
 
 import numpy as np
 import pytest
@@ -86,6 +87,56 @@ def test_kernel_source_and_build_flags_target_hopper():
     bwd = port_flash.BWD_SOURCE.read_text()
     for name in port_flash._SIGNATURES[port_flash.BWD_SOURCE]:
         assert f'extern "C" int {name}(' in bwd or f'extern "C" const char* {name}(' in bwd
+
+
+_KEYWORDS = {"if", "for", "while", "switch", "return", "sizeof", "defined"}
+
+
+def _function_bodies(text: str) -> dict:
+    """name -> the bodies (brace-matched) of every function of that name
+    defined in a CUDA source; overloads and specialisations are joined."""
+    bodies = {}
+    params = r"[^;{}()]*(?:\([^;{}()]*\)[^;{}()]*)*"  # one level of nested parentheses
+    for m in re.finditer(r"\b(\w+)\s*\(" + params + r"\)\s*(?:const\s*)?\{", text):
+        if m.group(1) in _KEYWORDS:
+            continue
+        depth, i = 0, m.end() - 1
+        for j in range(i, len(text)):
+            depth += {"{": 1, "}": -1}.get(text[j], 0)
+            if depth == 0:
+                break
+        bodies[m.group(1)] = bodies.get(m.group(1), "") + text[i:j + 1]
+    return bodies
+
+
+def _reachable_text(source, kernel: str) -> str:
+    """The kernel's body and that of every function it reaches, in its
+    source and the headers beside it."""
+    text = source.read_text() + "".join(h.read_text() for h in sorted(source.parent.glob("*.cuh")))
+    bodies = _function_bodies(text)
+    seen, todo = set(), [kernel]
+    while todo:
+        name = todo.pop()
+        if name in seen or name not in bodies:
+            continue
+        seen.add(name)
+        todo += re.findall(r"\b\w+\b", bodies[name])
+    assert kernel in seen, kernel
+    return "".join(bodies[n] for n in seen)
+
+
+@pytest.mark.parametrize("source,kernel", [
+    (port_flash.SOURCE, "flash_fwd_kernel"),
+    (port_flash.BWD_SOURCE, "flash_bwd_dkv_kernel"),
+])
+def test_kernels_issue_tensor_core_products_and_async_copies(source, kernel):
+    """The forward and the dk/dv kernel run their products on the tensor
+    cores and take their tiles by asynchronous copies: a return to a loop of
+    CUDA-core FMAs would drop both from what the kernel reaches."""
+    body = _reachable_text(source, kernel)
+    assert "mma.sync" in body or "wgmma" in body
+    assert "cp.async" in body
+    assert "cvt.rna.tf32.f32" in body  # the fp32 instantiation's TF32 split
 
 
 # -- the backward ----------------------------------------------------------------
