@@ -16,12 +16,13 @@ Phases (any failure exits non-zero, and no result line is printed):
    pass, fp32 in three TF32 passes) against flash_attention_plain (TF32
    off) at the served shapes and a few others; timed at the three served
    sequence lengths (N 1024, 4096, 16384; D 96; bf16) and at the training
-   shape (2, 4096, 96) in fp32, each beside SDPA in the same dtype and the
-   bound (operations over the bf16 or the TF32 peak);
+   shape (2, 4096, 96) in fp32, each call alone (``ms``) and 5 in a row
+   (``ms_batched``), each beside SDPA timed the same two ways in the same
+   dtype and the bound (operations over the bf16 or the TF32 peak);
 4. backward kernels vs plain: flash_bwd_dq and flash_bwd_dkv against their
-   plain versions (TF32 off), timed at the same shapes beside SDPA's
-   backward in the same dtype (its device time under the profiler) and
-   their bounds;
+   plain versions (TF32 off), timed as in phase 3 at the same shapes
+   beside SDPA's backward in the same dtype (its device time under the
+   profiler) and their bounds;
 5. ln2d kernel vs plain at every SERVE_NAFNET stage shape of a 512² input
    (batch 1 and 2) and one ragged shape, fp32 and bf16, with timings and
    ``F.layer_norm`` on a channels-last copy as yardstick;
@@ -108,7 +109,10 @@ HBM_BYTES_PER_S = 3.35e12
 
 # (bh, n, d, dtype). The plain version runs in fp32 on the same (for bf16:
 # bf16-rounded) inputs, with TF32 off.
-FLASH_BATCH = 5  # flash kernels and SDPA's forward are timed over 5 calls in a row
+# Each flash kernel and SDPA's forward is timed twice: "ms" with events around
+# each call alone, as every kernel of the kernels line (the host's launch of
+# the call is inside), and "ms_batched" over 5 calls in a row, divided by 5.
+FLASH_BATCH = 5
 MAIN = (2, 4096, 96, torch.bfloat16)
 CASES = [
     MAIN,
@@ -254,10 +258,11 @@ def flash_bound(flops: float, nbytes: float, dtype) -> tuple:
 def flash_timings(rows: list) -> dict:
     """The kernels-line keys of the timed flash shapes: the times at the
     fp32 training shape (the one fp32 shape timed), and at every shape."""
-    keys = ("n", "dtype", "ms", "bound_ms", "bound_by", "library_ms")
+    keys = ("n", "dtype", "ms", "ms_batched", "bound_ms", "bound_by", "library_ms",
+            "library_ms_batched")
     fp32 = next(r for r in rows if r["dtype"] == "float32")
-    return {"fp32": {k: fp32[k] for k in ("ms", "bound_ms", "library_ms")},
-            "timings": [{k: r[k] for k in keys} for r in rows]}
+    return {"fp32": {k: fp32[k] for k in keys[2:] if k in fp32 and k != "bound_by"},
+            "timings": [{k: r[k] for k in keys if k in r} for r in rows]}
 
 
 def check_kernel(report: dict) -> dict:
@@ -285,10 +290,11 @@ def check_kernel(report: dict) -> dict:
         if d == 96:
             q4, k4, v4 = (t.view(1, bh, n, d) for t in (q, k, v))
             bound, by = flash_bound(4.0 * bh * n * n * d, 4 * bh * n * d * q.element_size() + bh * n * 4, dtype)
-            row.update({"ms": time_ms(lambda: fa.flash_attention(q, k, v), batch=FLASH_BATCH),
-                        "library_ms": time_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4),
-                                              batch=FLASH_BATCH),
-                        "bound_ms": bound, "bound_by": by})
+            for key, fn in (("ms", lambda: fa.flash_attention(q, k, v)),
+                            ("library_ms", lambda: F.scaled_dot_product_attention(q4, k4, v4))):
+                row[key] = time_ms(fn)
+                row[f"{key}_batched"] = time_ms(fn, batch=FLASH_BATCH)
+            row.update({"bound_ms": bound, "bound_by": by})
             timed.append(row)
         print(json.dumps(row), flush=True)
         rows.append(row)
@@ -383,16 +389,19 @@ def check_bwd(report: dict) -> list:
             row[name] = {"max_abs": max_ref, "max_abs_err": err, "tol": rel * max_ref}
             row["ok"] &= got.dtype == dtype and got.shape == q.shape and err <= rel * max_ref
         if d == 96:
-            ms = {"dq": time_ms(lambda: fa.flash_bwd_dq(q, k, v, do, lse, delta), batch=FLASH_BATCH),
-                  "dkv": time_ms(lambda: fa.flash_bwd_dkv(q, k, v, do, lse, delta), batch=FLASH_BATCH)}
+            calls = {"dq": lambda: fa.flash_bwd_dq(q, k, v, do, lse, delta),
+                     "dkv": lambda: fa.flash_bwd_dkv(q, k, v, do, lse, delta)}
+            ms = {key: time_ms(fn) for key, fn in calls.items()}
+            ms_batched = {key: time_ms(fn, batch=FLASH_BATCH) for key, fn in calls.items()}
             library_ms = sdpa_bwd_ms(q, k, v, do)
             in_bytes = 4 * bh * n * d * q.element_size() + 2 * bh * n * 4  # q, k, v, dO; lse, delta
             for key, products, outs in (("dq", 3, 1), ("dkv", 4, 2)):
                 bound, by = flash_bound(products * 2.0 * bh * n * n * d,
                                         in_bytes + outs * bh * n * d * q.element_size(), dtype)
-                timed[key].append({"n": n, "dtype": _dt(dtype), "ms": ms[key], "bound_ms": bound,
+                timed[key].append({"n": n, "dtype": _dt(dtype), "ms": ms[key],
+                                   "ms_batched": ms_batched[key], "bound_ms": bound,
                                    "bound_by": by, "library_ms": library_ms})
-            row["ms"] = ms
+            row.update({"ms": ms, "ms_batched": ms_batched})
         print(json.dumps(row), flush=True)
         rows.append(row)
         if not row["ok"]:

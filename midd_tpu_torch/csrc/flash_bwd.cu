@@ -50,16 +50,11 @@ namespace {
 constexpr int BQ = 64;        // query rows per tile
 constexpr int BK = 64;        // key rows per tile
 constexpr int THREADS = 256;  // 16 row groups x 16 column lanes
-constexpr float LOG2E = 1.4426950408889634f;
+using midd_mma::LOG2E;
+using midd_mma::from_float;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
 // A product operand as the TPU kernel sees it: rounded to the input dtype.
 template <typename T> __device__ __forceinline__ float round_in(float x);
@@ -215,7 +210,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int j = 0; j < NJ; ++j) {
       const int col = tx + 16 * j;
-      if (col < d) dq[base + (size_t)row * d + col] = from_f<T>(scale * acc[r][j]);
+      if (col < d) dq[base + (size_t)row * d + col] = from_float<T>(scale * acc[r][j]);
     }
   }
 }

@@ -89,40 +89,7 @@ def test_kernel_source_and_build_flags_target_hopper():
         assert f'extern "C" int {name}(' in bwd or f'extern "C" const char* {name}(' in bwd
 
 
-_KEYWORDS = {"if", "for", "while", "switch", "return", "sizeof", "defined"}
-
-
-def _function_bodies(text: str) -> dict:
-    """name -> the bodies (brace-matched) of every function of that name
-    defined in a CUDA source; overloads and specialisations are joined."""
-    bodies = {}
-    params = r"[^;{}()]*(?:\([^;{}()]*\)[^;{}()]*)*"  # one level of nested parentheses
-    for m in re.finditer(r"\b(\w+)\s*\(" + params + r"\)\s*(?:const\s*)?\{", text):
-        if m.group(1) in _KEYWORDS:
-            continue
-        depth, i = 0, m.end() - 1
-        for j in range(i, len(text)):
-            depth += {"{": 1, "}": -1}.get(text[j], 0)
-            if depth == 0:
-                break
-        bodies[m.group(1)] = bodies.get(m.group(1), "") + text[i:j + 1]
-    return bodies
-
-
-def _reachable_text(source, kernel: str) -> str:
-    """The kernel's body and that of every function it reaches, in its
-    source and the headers beside it."""
-    text = source.read_text() + "".join(h.read_text() for h in sorted(source.parent.glob("*.cuh")))
-    bodies = _function_bodies(text)
-    seen, todo = set(), [kernel]
-    while todo:
-        name = todo.pop()
-        if name in seen or name not in bodies:
-            continue
-        seen.add(name)
-        todo += re.findall(r"\b\w+\b", bodies[name])
-    assert kernel in seen, kernel
-    return "".join(bodies[n] for n in seen)
+_MMA_HELPERS = ("warp_gemm_nt", "warp_gemm_pv", "load_rows")
 
 
 @pytest.mark.parametrize("source,kernel", [
@@ -130,13 +97,19 @@ def _reachable_text(source, kernel: str) -> str:
     (port_flash.BWD_SOURCE, "flash_bwd_dkv_kernel"),
 ])
 def test_kernels_issue_tensor_core_products_and_async_copies(source, kernel):
-    """The forward and the dk/dv kernel run their products on the tensor
-    cores and take their tiles by asynchronous copies: a return to a loop of
-    CUDA-core FMAs would drop both from what the kernel reaches."""
-    body = _reachable_text(source, kernel)
-    assert "mma.sync" in body or "wgmma" in body
-    assert "cp.async" in body
-    assert "cvt.rna.tf32.f32" in body  # the fp32 instantiation's TF32 split
+    """The forward and the dk/dv kernel take their products and tiles from
+    the warp helpers of ``flash_mma.cuh``, which issue tensor-core products,
+    asynchronous copies and the fp32 path's TF32 split: a return to a loop
+    of CUDA-core FMAs would drop the helpers from the kernel's body."""
+    text = source.read_text()
+    start = text.index(f"\n{kernel}(")
+    body = text[start:text.index("\n}\n", start)]
+    header = (source.parent / "flash_mma.cuh").read_text()
+    for helper in _MMA_HELPERS:
+        assert f"{helper}<" in body, helper
+        assert re.search(rf"\b{helper}\(", header), helper
+    for instruction in ("mma.sync", "ldmatrix", "cp.async", "cvt.rna.tf32.f32"):
+        assert instruction in header, instruction
 
 
 # -- the backward ----------------------------------------------------------------
