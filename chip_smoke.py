@@ -24,8 +24,12 @@ Phases (any failure exits non-zero, and no result line is printed):
    beside SDPA's backward in the same dtype (its device time under the
    profiler) and their bounds;
 5. ln2d kernel vs plain at every SERVE_NAFNET stage shape of a 512² input
-   (batch 1 and 2) and one ragged shape, fp32 and bf16, with timings and
-   ``F.layer_norm`` on a channels-last copy as yardstick;
+   (batch 1 and 2) and one ragged shape, fp32 and bf16, with timings (as in
+   phase 3, and one call's device time under the profiler) and
+   ``F.layer_norm`` on a channels-last copy as yardstick, and
+   untimed at the channels-last kernel's edges (small P, C 1 and 7, a view
+   off 16-byte alignment); fp32 must equal the plain version bit for bit
+   where C is a power of 2;
 6. naf_ffn kernel vs plain at the same shapes, fp32 and bf16, with timings;
 7. fused NAFNet forward: ``nafnet_apply_fused`` at SERVE_NAFNET, 512², fp32,
    against the module's forward (TF32 off); exactly 30 naf_ffn launches;
@@ -97,6 +101,7 @@ from midd_tpu_torch.ops.naf_fast import nafnet_apply_fused
 from midd_tpu_torch.serve.engine import MODEL_NAMES, EngineConfig, InferenceEngine
 from midd_tpu_torch.serve.server import make_server
 from midd_tpu_torch.train import recipes
+from midd_tpu_torch.train.data import to_device
 from midd_tpu_torch.train.trainer import (Trainer, diffusion_draw, diffusion_loss_fn,
                                           nafnet_loss_fn, no_draw)
 
@@ -109,9 +114,10 @@ HBM_BYTES_PER_S = 3.35e12
 
 # (bh, n, d, dtype). The plain version runs in fp32 on the same (for bf16:
 # bf16-rounded) inputs, with TF32 off.
-# Each flash kernel and SDPA's forward is timed twice: "ms" with events around
-# each call alone, as every kernel of the kernels line (the host's launch of
-# the call is inside), and "ms_batched" over 5 calls in a row, divided by 5.
+# Each flash kernel and SDPA's forward (and in phase 5 ln2d and
+# F.layer_norm) is timed twice: "ms" with events around each call alone, as
+# every kernel of the kernels line (the host's launch of the call is inside),
+# and "ms_batched" over 5 calls in a row, divided by 5.
 FLASH_BATCH = 5
 MAIN = (2, 4096, 96, torch.bfloat16)
 CASES = [
@@ -148,12 +154,27 @@ CARD_VS_CPU_BOUND = 1e-3
 NAF_STAGES = [(32, 512), (64, 256), (128, 128), (256, 64), (512, 32)]
 NAF_BLOCKS = {32: 4, 64: 4, 128: 6, 256: 8, 512: 8}
 NAF_RAGGED = (48, 37, 29)  # (C, H, W): C not a multiple of 32, odd H*W
+# (b, c, h, w, dtype, layout): the staged channels-last kernel at its edges,
+# checked and not timed: small P (C 512 at 4x4: one and two blocks of 8
+# pixels), C 1 and C 7 (bf16: C * 2 not a multiple of 16, so scalar loads),
+# and a view one element into its storage (scalar loads)
+LN_EDGE_CASES = [
+    (1, 512, 4, 4, torch.float32, "channels_last"), (2, 512, 4, 4, torch.float32, "channels_last"),
+    (2, 512, 4, 4, torch.bfloat16, "channels_last"),
+    (2, 1, 9, 7, torch.float32, "channels_last"), (2, 7, 9, 7, torch.float32, "channels_last"),
+    (2, 7, 9, 7, torch.bfloat16, "channels_last"),
+    (2, 64, 9, 7, torch.float32, "channels_last_offset"),
+    (2, 64, 9, 7, torch.bfloat16, "channels_last_offset"),
+]
 # ln2d fp32: the kernel takes its sums in the plain version's order with
-# every step rounded as written, so the two should agree to the last bits;
-# 1e-5 of max|y| would still hold a summation in another order (about
-# sqrt(C) ulps of E[x^2], amplified by mean^2 / var ~ 7 at these inputs,
-# whose mean is 2.5x their spread), while a fault of one term in 10^4 would
-# not fit.
+# every step rounded as written and divides by C, as the CPU and JAX do. On
+# the card the plain version's division by a Python int is PyTorch's product
+# with 1/C, exact where C is a power of 2: there the two agree to the last
+# bit, which phase 5 requires (elsewhere they differ in the last bit of the
+# mean). 1e-5 of max|y| alone would still hold a summation in another order
+# (about sqrt(C) ulps of E[x^2], amplified by mean^2 / var ~ 7 at these
+# inputs, whose mean is 2.5x their spread), while a fault of one term in
+# 10^4 would not fit.
 LN_FP32_REL = 1e-5
 # bf16: both sides compute in fp32 from the same bf16 inputs and round once
 # to bf16; where the fp32 values straddle a rounding boundary they differ by
@@ -458,6 +479,13 @@ def _kernel_cases():
 
 
 def _in_layout(x: torch.Tensor, layout: str) -> torch.Tensor:
+    if layout == "channels_last_offset":  # channels-last strides, not 16-byte aligned
+        b, c, h, w = x.shape
+        flat = torch.empty(x.numel() + 1, device=x.device, dtype=x.dtype)
+        view = flat[1:].view(b, h, w, c).permute(0, 3, 1, 2)
+        view.copy_(x)
+        assert view.is_contiguous(memory_format=torch.channels_last) and view.data_ptr() % 16 != 0
+        return view
     return x.contiguous(memory_format=torch.channels_last) if layout == "channels_last" else x
 
 
@@ -476,7 +504,8 @@ def check_ln2d(report: dict) -> dict:
     set_tf32(False)
     gen = torch.Generator().manual_seed(2)
     rows, stage_rows = [], {"nchw": [], "channels_last": []}
-    for b, c, h, w, dtype, layout in _kernel_cases():
+    cases = [(*case, True) for case in _kernel_cases()] + [(*case, False) for case in LN_EDGE_CASES]
+    for b, c, h, w, dtype, layout, timed in cases:
         x = (2.5 + torch.randn(b, c, h, w, generator=gen)).to("cuda", dtype)  # mean 2.5x the spread
         x = _in_layout(x, layout)
         scale = (1 + 0.2 * torch.randn(c, generator=gen)).cuda()
@@ -489,17 +518,24 @@ def check_ln2d(report: dict) -> dict:
         err = (y.float() - ref.float()).abs().max().item()
         row = {"shape": [b, c, h, w], "dtype": _dt(dtype), "layout": layout, "max_abs_y": max_y,
                "max_abs_err": err, "tol": tol, "bitwise_equal": bool(torch.equal(y, ref)),
-               "ok": err <= tol and y.dtype == dtype and y.shape == x.shape and y.stride() == x.stride()}
-        if b == 1:  # the served batch: times, bound and yardstick
+               "ok": (err <= tol and y.dtype == dtype and y.shape == x.shape and y.stride() == x.stride()
+                      and (dtype != torch.float32 or c & (c - 1) != 0 or torch.equal(y, ref)))}
+        if timed and b == 1:  # the served batch: times, bound and yardstick
             p, elt = b * h * w, x.element_size()
             t_bytes = (2 * p * c * elt + 2 * c * 4) / HBM_BYTES_PER_S * 1e3
             t_ops = 8.0 * p * c / PEAK_FP32_FLOPS * 1e3
             xcl = x.permute(0, 2, 3, 1).reshape(-1, c).contiguous()  # made once, outside the timing
             sc, bi = scale.to(dtype), bias.to(dtype)
+            kernel = lambda: ln.ln2d(x, scale, bias)  # noqa: E731
+            library = lambda: F.layer_norm(xcl, (c,), sc, bi, 1e-6)  # noqa: E731
             row.update({
-                "ms": time_ms(lambda: ln.ln2d(x, scale, bias)),
+                "ms": time_ms(kernel), "ms_batched": time_ms(kernel, batch=FLASH_BATCH),
                 "plain_ms": time_ms(lambda: ln.ln2d_plain(x, scale, bias), reps=5, warmup=1),
-                "library_ms": time_ms(lambda: F.layer_norm(xcl, (c,), sc, bi, 1e-6)),
+                "library_ms": time_ms(library), "library_ms_batched": time_ms(library, batch=FLASH_BATCH),
+                # one call's kernels under the profiler: no host time, which
+                # sets both timings above at the narrow stages
+                "device_ms": sum(device_profile(kernel)[0].values()),
+                "library_device_ms": sum(device_profile(library)[0].values()),
                 "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                 "calls_per_forward": 2 * NAF_BLOCKS.get(c, 0),
             })
@@ -511,7 +547,8 @@ def check_ln2d(report: dict) -> dict:
             raise AssertionError(f"ln2d disagrees with its plain version: {row}")
     report["ln2d_cases"] = rows
     report["ln2d_sum_of_isolated_calls_per_forward"] = _isolated_sums(
-        stage_rows, ("ms", "plain_ms", "bound_ms", "library_ms"))
+        stage_rows, ("ms", "ms_batched", "device_ms", "plain_ms", "bound_ms", "library_ms",
+                     "library_ms_batched", "library_device_ms"))
     # C 32 at 512², batch 1, fp32, channels-last: the largest call, in the
     # layout of the served and trained NAFNet
     main = stage_rows["channels_last"][0]
@@ -523,6 +560,8 @@ def check_ln2d(report: dict) -> dict:
         "library_ms": main["library_ms"],
         "library": "F.layer_norm over the last dim of a pre-made (P, C) channels-last copy",
         "shape": main["shape"], "dtype": "float32", "layout": main["layout"],
+        "ms_batched": main["ms_batched"], "library_ms_batched": main["library_ms_batched"],
+        "device_ms": main["device_ms"], "library_device_ms": main["library_device_ms"],
     }
 
 
@@ -962,8 +1001,10 @@ def _kind(kernel: str) -> str:
         return "naf_ffn (port kernel)"
     if "flash_fwd" in n:
         return "flash_fwd (port kernel)"
-    if "flash_bwd" in n:
-        return "flash_bwd dq + dk/dv (port kernels)"
+    if "flash_bwd_dq" in n:
+        return "flash_bwd dq (port kernel)"
+    if "flash_bwd_dkv" in n:
+        return "flash_bwd dk/dv (port kernel)"
     if any(s in n for s in ("conv", "cudnn", "xmma", "implicit", "gemm", "sm90", "wgrad", "dgrad", "cutlass")):
         return "conv / gemm (cuDNN, cuBLAS)"
     if any(s in n for s in ("norm", "welford", "reduce", "mean")):
@@ -1070,19 +1111,27 @@ def _device_ms_by_kernel(prof) -> dict:
             continue
         if us > 0 and "cuda" in str(getattr(evt, "device_type", "")).lower():
             by_kernel[evt.key] = by_kernel.get(evt.key, 0.0) + us / 1e3
-    assert by_kernel, "the profiler recorded no device kernels"
     return by_kernel
 
 
 def device_profile(fn) -> tuple:
     """One call of ``fn`` under ``torch.profiler``: device ms by kernel, and
-    by kernel kind (largest first)."""
+    by kernel kind (largest first). A profile that recorded no device kernel
+    (seen once on the H100 machine, in phase 4) is taken again, up to 3
+    times; the launches of a discarded call are taken back from the counts."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    by_kernel = _device_ms_by_kernel(prof)
+    for _ in range(3):
+        before = counts()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        by_kernel = _device_ms_by_kernel(prof)
+        if by_kernel:
+            break
+        for name, counted in KERNEL_COUNTERS.items():
+            counted.launches = before[name]
+    assert by_kernel, "the profiler recorded no device kernels"
     kinds = {}
     for k, ms in by_kernel.items():
         kinds[_kind(k)] = kinds.get(_kind(k), 0.0) + ms
@@ -1093,12 +1142,14 @@ def profile_train_step(model: str) -> dict:
     """``--report`` only: where a full-width training step's time goes. One
     Trainer step at 512², fp32 (torch's TF32 defaults, as the CLI runs), at
     the CLI's defaults: SERVE_DIFFUSION at batch 1, or SERVE_NAFNET (the
-    reference CombinedLoss) at batch 2. Wall time (median of 5 after 2
-    warm-up steps) beside the device time of one further step under
-    ``torch.profiler``, by kernel kind."""
+    reference CombinedLoss) at batch 2, on a batch made as the CLI makes
+    its batches (``to_device`` of NHWC arrays, so the activations are
+    channels-last). Wall time (median of 5 after 2 warm-up steps) beside
+    the device time of one further step under ``torch.profiler``, by kernel
+    kind."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = True
-    x = torch.from_numpy(np.asarray(Image.open(io.BytesIO(xray_png(512, 512, 31))), np.float32) / 255)
+    x = np.asarray(Image.open(io.BytesIO(xray_png(512, 512, 31))), np.float32) / 255
     cfg = recipes.default_train_config(model)
     gen = torch.Generator().manual_seed(0)
     if model == "diffusion":
@@ -1108,8 +1159,8 @@ def profile_train_step(model: str) -> dict:
                           diffusion_draw(sched), device="cuda")
     else:
         trainer = Trainer(nafnet_loss_fn(), None, cfg, perturbed_nafnet(0), no_draw, device="cuda")
-    clean = x[None, None].expand(cfg.batch_size, 1, -1, -1).contiguous().cuda()
-    batch = (clean, 0.9 * clean)
+    nhwc = np.broadcast_to(x[None, :, :, None], (cfg.batch_size, *x.shape, 1))
+    batch = to_device((nhwc, 0.9 * nhwc), torch.device("cuda"))
     for _ in range(2):
         trainer.train_step(batch)
     walls = []

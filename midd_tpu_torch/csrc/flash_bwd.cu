@@ -1,5 +1,5 @@
-// Flash-attention backward for Hopper (sm_90a): dq on the CUDA cores in
-// fp32, dk/dv on the tensor cores.
+// Flash-attention backward for Hopper (sm_90a): dq and dk/dv, both on the
+// tensor cores.
 //
 // Replaces the two TPU kernels of midd_tpu/ops/flash_attention.py's
 // custom_vjp (_flash_padded_bwd):
@@ -28,16 +28,17 @@
 // 2*BH*N^2*D operations each (dk/dv recomputes s and dO v^T); at the
 // training shape (BH=2, N=4096, D=96) that is 19.3 and 25.8 GFLOP against
 // ~7.9 and ~9.5 MB of inputs and outputs (~20 and ~26 us at the dense bf16
-// tensor-core peak, twice that at the TF32 peak for fp32). The dq kernel
-// runs its products on the CUDA cores in fp32: it keeps every operand in
-// shared memory or registers (O(N) device-memory traffic per block) and
-// gives each thread 4x4 score tiles and 4 x NJ accumulator tiles, so each
-// shared-memory load feeds several FMAs. The dk/dv kernel runs all four
-// products on the tensor cores (flash_mma.cuh: one bf16 pass, or three TF32
-// passes for fp32), with P^T and dS^T kept in registers between products
-// (its note is below). Left for later: wgmma fed by a TMA producer warp, a
-// split of the queries across blocks (at BH 2, N 4096 the dk/dv grid is 128
-// blocks of 4 warps, under one wave on 132 SMs), and dq on the tensor cores.
+// tensor-core peak, twice that at the TF32 peak for fp32). Both kernels run
+// every product on the tensor cores (flash_mma.cuh: one bf16 pass, or three
+// TF32 passes for fp32, each k step's sum added on the CUDA cores), with the
+// score-shaped intermediates (P, dS, P^T, dS^T) kept in registers between
+// products, the tile they own arriving once, the other sequence streaming
+// through a two-stage cp.async ring whose barrier is the only block-wide one
+// in the loop, and the other sequence split over warp groups whose sums
+// meet in shared memory at the end (each kernel's note is above it). Left
+// for later: wgmma fed by a TMA producer warp, and a split of the other
+// sequence across blocks (at BH 2, N 4096 each grid is 128 blocks, under one
+// wave on 132 SMs; at N 1024, 32 blocks).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -47,172 +48,162 @@
 
 namespace {
 
-constexpr int BQ = 64;        // query rows per tile
-constexpr int BK = 64;        // key rows per tile
-constexpr int THREADS = 256;  // 16 row groups x 16 column lanes
-using midd_mma::LOG2E;
-using midd_mma::from_float;
+using namespace midd_mma;
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
+// dq for DQ_BQ = 64 query rows of one (b, h), on the tensor cores. Each warp
+// owns 16 query rows; the block's warps form groups of four, and group g
+// takes K/V tiles g, g + G, g + 2G, ... (G = 3 where three rings fit, else
+// 2, as in the forward). Per K/V tile a warp computes, in registers:
+//   S = Q_w K^T;  dP = dO_w V^T;
+//   P = exp2(S scale log2e - lse log2e)  (0 past N);  dS = P (dP - delta);
+//   dQ_w += dS K  (dS rounded to bf16 for bf16),
+// with lse and delta of the fragment's rows g and g + 8 in registers. Q and
+// dO arrive once, in the input dtype; K and V stream through the ring. K is
+// read both as B stored [n][k] (S, ldmatrix) and as B stored [k][n] (dS K;
+// bf16: ldmatrix.trans; fp32: plain loads, two-way bank conflicts at the
+// padding of 4 floats that ldmatrix needs), as the dk/dv kernel reads Q.
+// In fp32, S's and dP's B rows are read in nt_row order, so dS's C fragment
+// is the A fragment of dS K, whose K rows are then in plain key order. At
+// the end groups 1.. hand their dQ sums to group 0 through the idle ring (a
+// plain add: p comes from lse, so there is no state to rescale); dq is
+// scaled by `scale` at the store.
+// Budget at D 96 (nvcc -Xptxas -v, sm_90a): 384 threads (3 groups);
+// shared memory bf16 186,368 bytes (64-key tiles), fp32 204,800 bytes
+// (32-key tiles); registers per thread bf16 168 (the cap at 384 threads),
+// fp32 143; no spills. Spills elsewhere: bf16 12 bytes at D 97-112 and 8 at
+// D <= 16, fp32 112 bytes at D 17-32.
+constexpr int DQ_BQ = 64;  // query rows per block: 16 per warp of a group
 
-// A product operand as the TPU kernel sees it: rounded to the input dtype.
-template <typename T> __device__ __forceinline__ float round_in(float x);
-template <> __device__ __forceinline__ float round_in<float>(float x) { return x; }
-template <> __device__ __forceinline__ float round_in<__nv_bfloat16>(float x) {
-  return __bfloat162float(__float2bfloat16(x));
-}
-
-// Shared-memory layouts, in floats. Rows of the (tile, Dp) operands are
-// padded by 4 floats, and so are the rows of the transposed p / ds tiles, so
-// that 8 consecutive rows read or written with float4 fall in distinct banks.
-template <int NJ> struct DqSmem {
+template <typename T, int NJ> struct DqLayout {
   static constexpr int DP = NJ * 16;
-  static constexpr int RS = DP + 4;  // Q, dO, K, V row stride
-  static constexpr int TS = BQ + 4;  // ds^T row stride (one row per key)
-  static constexpr int Q_OFF = 0;
-  static constexpr int DO_OFF = Q_OFF + BQ * RS;
-  static constexpr int K_OFF = DO_OFF + BQ * RS;
-  static constexpr int V_OFF = K_OFF + BK * RS;
-  static constexpr int DS_OFF = V_OFF + BK * RS;
-  static constexpr int FLOATS = DS_OFF + BK * TS;
-  static constexpr size_t BYTES = sizeof(float) * FLOATS;
+  static constexpr int BK = sizeof(T) == 2 ? 64 : 32;  // keys per tile
+  static constexpr int S = DP + Mma<T>::PAD;  // row stride of every tile, elements
+  static constexpr int Q_BYTES = DQ_BQ * S * sizeof(T);  // Q, and again dO
+  static constexpr int K_BYTES = BK * S * sizeof(T);     // K, and again V
+  static constexpr int TILE = 2 * K_BYTES;
+  static constexpr int GROUPS = 2 * Q_BYTES + 6 * TILE <= SMEM_MAX ? 3 : 2;
+  static constexpr int THREADS = 128 * GROUPS;
+  static constexpr int STAGE = GROUPS * TILE;
+  static constexpr int BYTES = 2 * Q_BYTES + 2 * STAGE;
+  static constexpr int XCHG = DP / 2;  // floats a lane hands over: its dQ fragments
+  static_assert(BYTES <= SMEM_MAX, "ring does not fit shared memory");
+  static_assert((GROUPS - 1) * 128 * XCHG * 4 <= 2 * STAGE, "merge buffer does not fit the ring");
 };
 
-// Copy rows [row0, row0 + rows) x [0, d) of one (N, d) matrix into shared
-// memory with row stride `stride`, zero-filling rows >= n and columns >= d.
-template <typename T, int DP>
-__device__ __forceinline__ void load_tile(float* dst, int stride, const T* src,
-                                          int row0, int rows, int n, int d) {
-  for (int e = threadIdx.x; e < rows * DP; e += THREADS) {
-    const int r = e / DP;
-    const int c = e - r * DP;
-    const int gr = row0 + r;
-    float val = 0.f;
-    if (gr < n && c < d) val = to_f(src[(size_t)gr * d + c]);
-    dst[r * stride + c] = val;
-  }
-}
-
-// out[r][c] = a[ty*4 + r] . b[tx + 16*c] over DP columns (row stride RS).
-template <int DP, int RS>
-__device__ __forceinline__ void dot_tile(float (&out)[4][4], const float* a,
-                                         const float* b, int ty, int tx) {
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) out[r][c] = 0.f;
-#pragma unroll 4
-  for (int dd = 0; dd < DP; dd += 4) {
-    float4 av[4], bv[4];
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-      av[r] = *reinterpret_cast<const float4*>(a + (ty * 4 + r) * RS + dd);
-#pragma unroll
-    for (int c = 0; c < 4; ++c)
-      bv[c] = *reinterpret_cast<const float4*>(b + (tx + 16 * c) * RS + dd);
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        out[r][c] = fmaf(av[r].x, bv[c].x, out[r][c]);
-        out[r][c] = fmaf(av[r].y, bv[c].y, out[r][c]);
-        out[r][c] = fmaf(av[r].z, bv[c].z, out[r][c]);
-        out[r][c] = fmaf(av[r].w, bv[c].w, out[r][c]);
-      }
-  }
-}
-
-// dq for BQ query rows of one (b, h); K/V tiles stream.
 template <typename T, int NJ>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__((DqLayout<T, NJ>::THREADS))
 flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const T* __restrict__ dout,
                     const float* __restrict__ lse, const float* __restrict__ delta,
-                    T* __restrict__ dq, int n, int d, float scale) {
-  using S = DqSmem<NJ>;
-  constexpr int DP = S::DP;
-  extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  float* qs = smem + S::Q_OFF;
-  float* dos = smem + S::DO_OFF;
-  float* ks = smem + S::K_OFF;
-  float* vs = smem + S::V_OFF;
-  float* dst = smem + S::DS_OFF;
+                    T* __restrict__ dq, int n, int d, float scale, bool async) {
+  using Lay = DqLayout<T, NJ>;
+  using M = Mma<T>;
+  constexpr int DP = Lay::DP, S = Lay::S, BK = Lay::BK;
+  constexpr int GROUPS = Lay::GROUPS, THREADS = Lay::THREADS;
+  constexpr int ND = DP / 8;    // 8-column tiles of dQ
+  constexpr int NT = BK / 8;    // 8-key tiles of one K/V tile
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* qs = reinterpret_cast<T*>(smem);
+  T* dos = reinterpret_cast<T*>(smem + Lay::Q_BYTES);
+  auto k_tile = [&](int st, int g) {
+    return reinterpret_cast<T*>(smem + 2 * Lay::Q_BYTES + st * Lay::STAGE + g * Lay::TILE);
+  };
+  auto v_tile = [&](int st, int g) { return k_tile(st, g) + BK * S; };
 
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, t = lane & 3;
+  const int group = warp >> 2, wr = warp & 3;  // K/V group, 16-row group
   const int bh = blockIdx.y;
-  const int q0 = blockIdx.x * BQ;
-  const int tid = threadIdx.x;
-  const int ty = tid >> 4;  // query rows ty*4 .. ty*4+3
-  const int tx = tid & 15;  // keys tx + 16*c; dq columns tx + 16*j
+  const int q0 = blockIdx.x * DQ_BQ;
   const float scale_log2 = scale * LOG2E;
-
   const size_t base = (size_t)bh * n * d;
-  load_tile<T, DP>(qs, S::RS, q + base, q0, BQ, n, d);
-  load_tile<T, DP>(dos, S::RS, dout + base, q0, BQ, n, d);
-
-  // This thread's rows: lse in the log2 domain and delta. Rows past n read
-  // nothing; their results are never stored.
-  float lse2[4], dl[4], acc[4][NJ];
+  const int steps = ((n + BK - 1) / BK + GROUPS - 1) / GROUPS;
+  auto load_stage = [&](int st, int step) {
 #pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int row = q0 + ty * 4 + r;
+    for (int g = 0; g < GROUPS; ++g) {
+      const int k0 = (step * GROUPS + g) * BK;
+      load_rows<T, BK, DP, THREADS>(k_tile(st, g), S, k + base, k0, n, d, async);
+      load_rows<T, BK, DP, THREADS>(v_tile(st, g), S, v + base, k0, n, d, async);
+    }
+  };
+
+  load_rows<T, DQ_BQ, DP, THREADS>(qs, S, q + base, q0, n, d, async);
+  load_rows<T, DQ_BQ, DP, THREADS>(dos, S, dout + base, q0, n, d, async);
+  load_stage(0, 0);
+  cp_async_commit();
+
+  // rows g and g + 8 of this warp's 16: lse in the log2 domain and delta.
+  // Rows past n read nothing; their results are never stored.
+  const int row0 = q0 + wr * 16;
+  float lse2[2], dl[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + (lane >> 2) + 8 * r;
     lse2[r] = row < n ? lse[(size_t)bh * n + row] * LOG2E : 0.f;
     dl[r] = row < n ? delta[(size_t)bh * n + row] : 0.f;
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) acc[r][j] = 0.f;
   }
-
-  for (int k0 = 0; k0 < n; k0 += BK) {
-    __syncthreads();  // the previous tile's readers are done with ks/vs/dst
-    load_tile<T, DP>(ks, S::RS, k + base, k0, BK, n, d);
-    load_tile<T, DP>(vs, S::RS, v + base, k0, BK, n, d);
-    __syncthreads();
-
-    float s[4][4], dp[4][4];
-    dot_tile<DP, S::RS>(s, qs, ks, ty, tx);
-    dot_tile<DP, S::RS>(dp, dos, vs, ty, tx);
-
-    // ds^T into shared memory: key-major, this thread's 4 rows as one float4.
+  float acc[ND][4];
 #pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const bool valid = k0 + tx + 16 * c < n;
-      float dsv[4];
+  for (int j = 0; j < ND; ++j)
 #pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const float p = valid ? exp2f(fmaf(s[r][c], scale_log2, -lse2[r])) : 0.f;
-        dsv[r] = round_in<T>(p * (dp[r][c] - dl[r]));
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+  const T* qw = qs + wr * 16 * S;
+  const T* dow = dos + wr * 16 * S;
+
+  for (int step = 0; step < steps; ++step) {
+    cp_async_wait_all();
+    __syncthreads();  // stage `step` is in; every warp is done with the other stage
+    if (step + 1 < steps) {
+      load_stage((step + 1) & 1, step + 1);
+      cp_async_commit();
+    }
+    const int k0 = (step * GROUPS + group) * BK;
+    if (k0 >= n) continue;  // this group's tile lies past the keys
+    const T* kt = k_tile(step & 1, group);
+
+    float s[NT][4], dp[NT][4];
+#pragma unroll
+    for (int c = 0; c < NT; ++c)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[c][e] = dp[c][e] = 0.f;
+    warp_gemm_nt<T, NT, DP>(s, qw, S, kt, S, lane);
+    warp_gemm_nt<T, NT, DP>(dp, dow, S, v_tile(step & 1, group), S, lane);
+    // dS on the C fragments: a lane holds keys col(t, 0) and col(t, 1) of
+    // each 8-key tile for rows g (e = 0, 1) and g + 8 (e = 2, 3)
+#pragma unroll
+    for (int c = 0; c < NT; ++c)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const bool valid = k0 + c * 8 + M::col(t, e & 1) < n;
+        const float p = valid ? exp2f(fmaf(s[c][e], scale_log2, -lse2[e >> 1])) : 0.f;
+        s[c][e] = p * (dp[c][e] - dl[e >> 1]);
       }
-      *reinterpret_cast<float4*>(dst + (tx + 16 * c) * S::TS + ty * 4) =
-          make_float4(dsv[0], dsv[1], dsv[2], dsv[3]);
-    }
-    __syncthreads();
-
-    // acc += ds k for this thread's 4 rows x NJ columns.
-#pragma unroll 4
-    for (int kk = 0; kk < BK; ++kk) {
-      const float4 dv4 = *reinterpret_cast<const float4*>(dst + kk * S::TS + ty * 4);
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        const float kv = ks[kk * S::RS + tx + 16 * j];
-        acc[0][j] = fmaf(dv4.x, kv, acc[0][j]);
-        acc[1][j] = fmaf(dv4.y, kv, acc[1][j]);
-        acc[2][j] = fmaf(dv4.z, kv, acc[2][j]);
-        acc[3][j] = fmaf(dv4.w, kv, acc[3][j]);
-      }
-    }
+    warp_gemm_pv<T, NT, ND>(acc, s, kt, S, lane);
   }
 
+  // Groups 1.. hand their dQ sums to the warp of group 0 with the same rows
+  // through the idle ring (same lane, same fragment layout); group 0 adds
+  // them in group order and stores.
+  __syncthreads();  // the ring is idle: no copy is in flight after the last step
+  float* xchg = reinterpret_cast<float*>(smem + 2 * Lay::Q_BYTES) + (wr * 32 + lane) * Lay::XCHG;
+  if (group > 0) {
+    float* x = xchg + (group - 1) * 128 * Lay::XCHG;
 #pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int row = q0 + ty * 4 + r;
-    if (row >= n) continue;
+    for (int c = 0; c < ND; ++c)
 #pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      const int col = tx + 16 * j;
-      if (col < d) dq[base + (size_t)row * d + col] = from_float<T>(scale * acc[r][j]);
-    }
+      for (int e = 0; e < 4; ++e) x[c * 4 + e] = acc[c][e];
   }
+  __syncthreads();
+  if (group != 0) return;
+#pragma unroll
+  for (int g = 1; g < GROUPS; ++g) {
+    const float* x = xchg + (g - 1) * 128 * Lay::XCHG;
+#pragma unroll
+    for (int c = 0; c < ND; ++c)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[c][e] += x[c * 4 + e];
+  }
+  const float mul[2] = {scale, scale};
+  store_rows<T, ND>(dq + base, acc, mul, row0, n, d, lane);
 }
 
 // dk and dv for DKV_BK = 64 key rows of one (b, h), on the tensor cores
@@ -391,18 +382,27 @@ struct Args {
   cudaStream_t stream;
 };
 
+// Both kernels copy their tiles by 16-byte cp.async where every row is
+// 16-byte aligned, else by plain loads.
+template <typename T>
+bool async_rows(const Args& a) {
+  return (a.d * sizeof(T)) % 16 == 0 && aligned16(a.q) && aligned16(a.k) && aligned16(a.v) &&
+         aligned16(a.dout);
+}
+
 template <typename T, int NJ>
 cudaError_t launch_dq(const Args& a) {
-  constexpr size_t bytes = DqSmem<NJ>::BYTES;
+  using Lay = DqLayout<T, NJ>;
+  constexpr int bytes = Lay::BYTES;
   auto kern = flash_bwd_dq_kernel<T, NJ>;
   cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
-  const dim3 grid((a.n + BQ - 1) / BQ, a.bh);
-  kern<<<grid, THREADS, bytes, a.stream>>>(
+  const dim3 grid((a.n + DQ_BQ - 1) / DQ_BQ, a.bh);
+  kern<<<grid, Lay::THREADS, bytes, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), static_cast<const T*>(a.dout), a.lse, a.delta,
-      static_cast<T*>(a.out0), a.n, a.d, 1.0f / sqrtf((float)a.d));
+      static_cast<T*>(a.out0), a.n, a.d, 1.0f / sqrtf((float)a.d), async_rows<T>(a));
   return cudaGetLastError();
 }
 
@@ -413,15 +413,12 @@ cudaError_t launch_dkv(const Args& a) {
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
-  using midd_mma::aligned16;
-  const bool async = (a.d * sizeof(T)) % 16 == 0 && aligned16(a.q) && aligned16(a.k) &&
-                     aligned16(a.v) && aligned16(a.dout);
   const dim3 grid((a.n + DKV_BK - 1) / DKV_BK, a.bh);
   kern<<<grid, DKV_THREADS, bytes, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), static_cast<const T*>(a.dout), a.lse, a.delta,
       static_cast<T*>(a.out0), static_cast<T*>(a.out1), a.n, a.d,
-      1.0f / sqrtf((float)a.d), async);
+      1.0f / sqrtf((float)a.d), async_rows<T>(a));
   return cudaGetLastError();
 }
 

@@ -60,7 +60,6 @@ namespace {
 using namespace midd_mma;
 
 constexpr int BQ = 64;  // query rows per block: 16 per warp of a group
-constexpr int SMEM_MAX = 232448;  // bytes of shared memory a block can have
 
 // Warp groups and shared memory, in bytes. Each group of four warps takes
 // every GROUPS-th K/V tile: three groups where their ring fits, else two.

@@ -1,5 +1,5 @@
 // Warp-level tensor-core pieces shared by the flash-attention forward
-// (flash_fwd.cu) and the flash backward's dk/dv kernel (flash_bwd.cu):
+// (flash_fwd.cu) and the flash backward's dq and dk/dv kernels (flash_bwd.cu):
 // asynchronous copies, ldmatrix, mma.sync, the TF32 split and the two warp
 // products that the kernels are made of.
 //
@@ -32,6 +32,7 @@ namespace midd_mma {
 
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
+constexpr int SMEM_MAX = 232448;  // bytes of shared memory a block can have
 
 template <typename T> __device__ __forceinline__ T from_float(float x);
 template <> __device__ __forceinline__ float from_float<float>(float x) { return x; }

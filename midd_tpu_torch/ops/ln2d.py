@@ -4,7 +4,8 @@ tensor (counterpart of ``midd_tpu/ops/ln2d.py``).
 On CUDA tensors ``ln2d`` launches the hand-written Hopper kernel in
 ``csrc/ln2d.cu``, which replaces both TPU kernels of the JAX module
 (``_kernel_native`` for C < 128 and ``_kernel`` for C % 128 == 0) with one
-kernel for any C. On CPU tensors it runs ``ln2d_plain``, a plain PyTorch
+kernel per layout (NCHW; dense channels-last, staged through shared
+memory), each for any C. On CPU tensors it runs ``ln2d_plain``, a plain PyTorch
 version of the same function. It never falls back from the kernel to the
 plain version: a tensor the kernel does not take, a failed build or a failed
 launch raises.
@@ -40,7 +41,7 @@ def _normalise(xf, u, m2, scale, bias, eps):
 
 
 CHUNK = 32  # channels summed in sequence before their partial sums meet
-MAX_CHANNELS = 6144  # the kernel's partial sums fill at most 48 KB of shared memory
+MAX_CHANNELS = 6144  # the NCHW kernel's partial sums fill at most 48 KB of shared memory
 
 
 def ln2d_plain(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,

@@ -1,7 +1,8 @@
 """The hand-written kernels on the card (flash-attention forward; backward dq
 and dk/dv; LayerNorm2d; the fused NAFBlock FFN half): agreement with their
-plain versions (the tensor-core forward and dk/dv kernels also at their tile
-and ring edges, by plain loads and off 16-byte alignment), the launch
+plain versions (the tensor-core flash kernels also at their tile and ring
+edges, by plain loads and off 16-byte alignment; LayerNorm2d in both
+layouts, at every served stage and at its edges), the launch
 counts, gradients through ``mha`` and through ``LayerNorm2d``, and the
 wrappers' refusals. Marked ``cuda``;
 skipped where there is no GPU. This file imports no JAX, so on a machine
@@ -101,7 +102,7 @@ def test_bwd_kernels_match_plain(cuda, bh, n, d, dtype):
         assert (a.float() - b.float()).abs().max().item() <= rel * b.float().abs().max().item()
 
 
-# -- the tensor-core forward and dk/dv kernels at the tile and ring edges ----------
+# -- the tensor-core flash kernels at the tile and ring edges ----------------------
 # N around the 16-row warp tiles and the 64-row block and ring tiles, D around
 # the 16-column k steps, BH 1 and 3, both dtypes; each against its plain
 # version at the bounds above.
@@ -137,6 +138,29 @@ def _check_dkv(q, k, v, do):
         assert (got.float() - want.float()).abs().max().item() <= rel * top
 
 
+def _check_dq(q, k, v, do):
+    bh, n, d = q.shape
+    o, lse = fa.flash_attention(q, k, v)
+    delta = fa._delta(o, do)
+    before = fa.flash_bwd_dq.launches
+    dq = fa.flash_bwd_dq(q, k, v, do, lse, delta)
+    torch.cuda.synchronize()
+    assert fa.flash_bwd_dq.launches == before + 1
+    want = fa.bwd_dq_plain(q, k, v, do, lse, delta)
+    rel = 2.0 ** -7 if q.dtype == torch.bfloat16 else 1e-5
+    top = want.float().abs().max().item()
+    if n == 1:
+        # One key: ds = p (dO.v - delta) is 0 in exact arithmetic (as for dk
+        # in _check_dkv), so dq of either version is rounding noise. Hold the
+        # kernel's to rel of the size of those sums' terms, scale * p (|dO|
+        # |v| + |delta|) |k|.
+        p, scale = fa._recompute_p(q, k, lse)
+        terms = p * (do.float().abs() @ v.float().abs().transpose(-1, -2) + delta.abs()[..., None])
+        top = (scale * terms @ k.float().abs()).max().item()
+    assert dq.dtype == q.dtype and dq.shape == q.shape
+    assert (dq.float() - want.float()).abs().max().item() <= rel * top
+
+
 @pytest.mark.parametrize("bh,n,d,dtype", EDGE)
 def test_fwd_kernel_edges_match_plain(cuda, bh, n, d, dtype):
     _check_fwd(*_qkv(bh, n, d, dtype))
@@ -147,11 +171,18 @@ def test_dkv_kernel_edges_match_plain(cuda, bh, n, d, dtype):
     _check_dkv(*_qkv(bh, n, d, dtype), _qkv(bh, n, d, dtype, seed=1)[0])
 
 
+@pytest.mark.parametrize("bh,n,d,dtype", EDGE)
+def test_dq_kernel_edges_match_plain(cuda, bh, n, d, dtype):
+    _check_dq(*_qkv(bh, n, d, dtype), _qkv(bh, n, d, dtype, seed=1)[0])
+
+
 @pytest.mark.parametrize("bh,n,d,dtype", PLAIN_LOADS)
 def test_kernels_load_rows_without_async_copies(cuda, bh, n, d, dtype):
     q, k, v = _qkv(bh, n, d, dtype)
+    do = _qkv(bh, n, d, dtype, seed=1)[0]
     _check_fwd(q, k, v)
-    _check_dkv(q, k, v, _qkv(bh, n, d, dtype, seed=1)[0])
+    _check_dkv(q, k, v, do)
+    _check_dq(q, k, v, do)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -164,8 +195,10 @@ def test_kernels_take_operands_off_16_byte_alignment(cuda, dtype):
     q_off = flat[1:].view(bh, n, d)
     q_off.copy_(q)
     assert q_off.is_contiguous() and q_off.data_ptr() % 16 != 0
+    do = _qkv(bh, n, d, dtype, seed=1)[0]
     _check_fwd(q_off, k, v)
-    _check_dkv(q_off, k, v, _qkv(bh, n, d, dtype, seed=1)[0])
+    _check_dkv(q_off, k, v, do)
+    _check_dq(q_off, k, v, do)
 
 
 def test_mha_gradients_on_the_card_come_from_the_kernels(cuda):
@@ -215,11 +248,36 @@ LAYOUT_CASES = [
 ]
 
 
+# LayerNorm2d also in channels-last at every SERVE_NAFNET stage of a 512²
+# input past C 32 (the staged kernel's pixels per block fall from 64 to 8),
+# at small P (C 512 at 4x4: one and two blocks), at C 1 and C 7 (scalar
+# loads in bf16), and on a view one element into its storage (scalar loads)
+_FP, _BF = torch.float32, torch.bfloat16
+LN_CASES = LAYOUT_CASES + [
+    (1, 64, 256, 256, _FP, "channels_last"), (1, 128, 128, 128, _FP, "channels_last"),
+    (1, 256, 64, 64, _FP, "channels_last"), (1, 512, 32, 32, _FP, "channels_last"),
+    (2, 128, 128, 128, _BF, "channels_last"), (2, 512, 32, 32, _BF, "channels_last"),
+    (1, 512, 4, 4, _FP, "channels_last"), (2, 512, 4, 4, _FP, "channels_last"),
+    (2, 512, 4, 4, _BF, "channels_last"),
+    (2, 1, 9, 7, _FP, "channels_last"), (2, 7, 9, 7, _FP, "channels_last"),
+    (2, 7, 9, 7, _BF, "channels_last"),
+    (2, 64, 9, 7, _FP, "channels_last_offset"), (2, 64, 9, 7, _BF, "channels_last_offset"),
+]
+
+
 def _layout(x, layout):
+    if layout == "channels_last_offset":
+        # channels-last strides, one element into its storage: not 16-byte aligned
+        b, c, h, w = x.shape
+        flat = torch.empty(x.numel() + 1, device=x.device, dtype=x.dtype)
+        view = flat[1:].view(b, h, w, c).permute(0, 3, 1, 2)
+        view.copy_(x)
+        assert view.is_contiguous(memory_format=torch.channels_last) and view.data_ptr() % 16 != 0
+        return view
     return x.contiguous(memory_format=torch.channels_last) if layout == "channels_last" else x
 
 
-@pytest.mark.parametrize("b,c,h,w,dtype,layout", LAYOUT_CASES)
+@pytest.mark.parametrize("b,c,h,w,dtype,layout", LN_CASES)
 def test_ln2d_kernel_matches_plain(cuda, b, c, h, w, dtype, layout):
     from midd_tpu_torch.ops import ln2d as ln
 
@@ -230,10 +288,13 @@ def test_ln2d_kernel_matches_plain(cuda, b, c, h, w, dtype, layout):
     torch.cuda.synchronize()
     assert ln.ln2d.launches == before + 1 and y.dtype == dtype and y.stride() == x.stride()
     ref = ln.ln2d_plain(x, scale, bias).float()
-    # fp32: the same summation order, so summation noise only (reasons in
-    # chip_smoke.py); bf16: two bf16 ulps of the largest output
+    # fp32: the same summation order with every step rounded as written, so
+    # summation noise at most, and the same bits where C is a power of 2
+    # (reasons in chip_smoke.py); bf16: two bf16 ulps of the largest output
     rel = 2.0 ** -7 if dtype == torch.bfloat16 else 1e-5
     assert (y.float() - ref).abs().max().item() <= rel * ref.abs().max().item()
+    if dtype == torch.float32 and c & (c - 1) == 0:
+        assert torch.equal(y, ref)
 
 
 def test_layernorm2d_gradients_on_the_card(cuda):

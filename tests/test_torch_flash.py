@@ -94,10 +94,11 @@ _MMA_HELPERS = ("warp_gemm_nt", "warp_gemm_pv", "load_rows")
 
 @pytest.mark.parametrize("source,kernel", [
     (port_flash.SOURCE, "flash_fwd_kernel"),
+    (port_flash.BWD_SOURCE, "flash_bwd_dq_kernel"),
     (port_flash.BWD_SOURCE, "flash_bwd_dkv_kernel"),
 ])
 def test_kernels_issue_tensor_core_products_and_async_copies(source, kernel):
-    """The forward and the dk/dv kernel take their products and tiles from
+    """The forward, dq and dk/dv kernels take their products and tiles from
     the warp helpers of ``flash_mma.cuh``, which issue tensor-core products,
     asynchronous copies and the fp32 path's TF32 split: a return to a loop
     of CUDA-core FMAs would drop the helpers from the kernel's body."""
