@@ -85,14 +85,34 @@ class GroupNorm32(nn.GroupNorm):
 
 
 class BatchNorm2d(nn.BatchNorm2d):
-    """Eval-mode ``nn.BatchNorm2d`` (running statistics, eps 1e-5) in fp32,
-    cast back to the input dtype."""
+    """``nn.BatchNorm2d`` (eps 1e-5) in fp32, cast back to the input dtype,
+    with the statistics of flax's ``nn.BatchNorm(momentum=0.9)``.
+
+    In eval mode it normalises with the running statistics. In train mode it
+    normalises with the batch mean and flax's fast variance, E[x²] − E[x]²
+    over (N, H, W), biased and clamped at 0, and moves each running buffer a
+    tenth of the way to the batch's value, the variance too biased.
+    ``F.batch_norm(training=True)`` would write torch's unbiased variance
+    into ``running_var`` (and take the variance in two passes), so the
+    statistics are computed here."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.batch_norm(
-            x.float(), self.running_mean, self.running_var, self.weight,
-            self.bias, False, 0.0, self.eps,
-        ).to(x.dtype)
+        xf = x.float()
+        if not self.training:
+            return F.batch_norm(
+                xf, self.running_mean, self.running_var, self.weight,
+                self.bias, False, 0.0, self.eps,
+            ).to(x.dtype)
+        mean = xf.mean(dim=(0, 2, 3))
+        var = (xf.square().mean(dim=(0, 2, 3)) - mean.square()).clamp_min(0.0)
+        with torch.no_grad():
+            m = self.momentum
+            self.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
+            self.running_var.mul_(1.0 - m).add_(var, alpha=m)
+            self.num_batches_tracked += 1
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        y = (xf - mean[None, :, None, None]) * mul[None, :, None, None] + self.bias[None, :, None, None]
+        return y.to(x.dtype)
 
 
 class LayerNorm2d(nn.Module):

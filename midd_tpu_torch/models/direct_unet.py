@@ -1,7 +1,9 @@
-"""ExpertDenoiser, the single-shot UNet, in eval mode (counterpart of
+"""ExpertDenoiser, the single-shot UNet (counterpart of
 ``midd_tpu/models/direct_unet.py``): double-conv (Conv+BN+ReLU) blocks, two
 max-pool downs, x8 bottleneck, transposed-conv ups with skip concat, final
-refine + 1x1 out. BatchNorm uses its running statistics (eps 1e-5)."""
+refine + 1x1 out. Its BatchNorm follows ``module.training``, as the JAX
+module follows ``train``: batch statistics that move the running buffers in
+train mode, the running statistics in eval mode (eps 1e-5)."""
 
 from __future__ import annotations
 

@@ -1,5 +1,6 @@
 """Hybrid routing components and the hybrid graph (counterpart of
-``midd_tpu/models/hybrid.py``, reference hybrid3diffusionspeed.py:470-628)."""
+``midd_tpu/models/hybrid.py``, reference hybrid3diffusionspeed.py:470-628),
+for serving and for training the router and the fusion on frozen backends."""
 
 from __future__ import annotations
 
@@ -88,6 +89,18 @@ class FusionModule(nn.Module):
         return self.out_conv(x)
 
 
+class RouterFusion(nn.Module):
+    """The hybrid's trainable part, the router and the fusion: its
+    ``state_dict`` holds the ``router.*`` and ``fusion.*`` keys of a hybrid
+    checkpoint, which the engine serves beside its standalone backends."""
+
+    def __init__(self, router_cfg: RouterConfig = RouterConfig(),
+                 fusion_cfg: FusionConfig = FusionConfig()):
+        super().__init__()
+        self.router = NoiseAnalyzer(router_cfg)
+        self.fusion = FusionModule(fusion_cfg)
+
+
 def _sanitize(x: torch.Tensor) -> torch.Tensor:
     """nan_to_num(nan=0, posinf=1, neginf=0) + clamp [0, 1]
     (hybrid3diffusionspeed.py:613-624)."""
@@ -103,11 +116,14 @@ def hybrid_forward(
     expert_apply: Optional[Callable] = None,
 ) -> torch.Tensor:
     """The hybrid graph: fusion(sanitized NAFNet, sanitized rollout,
-    sanitized router mask[, sanitized expert]). Inference only: the
-    reference's frozen-backend gradient stops have no counterpart here."""
-    fast = _sanitize(nafnet_apply(noisy))
-    hq = _sanitize(denoise_fn(noisy))
-    exp = _sanitize(expert_apply(noisy)) if expert_apply is not None else None
+    sanitized router mask[, sanitized expert]). The backends (NAFNet,
+    rollout, expert) run under ``torch.no_grad()``, the reference's frozen
+    backends (hybrid3diffusionspeed.py:613-620,669): in training, gradients
+    reach the router and the fusion only."""
+    with torch.no_grad():
+        fast = _sanitize(nafnet_apply(noisy))
+        hq = _sanitize(denoise_fn(noisy))
+        exp = _sanitize(expert_apply(noisy)) if expert_apply is not None else None
     mask = _sanitize(router_apply(noisy))
     if exp is not None:
         return fusion_apply(fast, hq, mask, exp)

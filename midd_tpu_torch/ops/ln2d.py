@@ -69,7 +69,10 @@ def ln2d_plain(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     s, q = sums[0]
     for s_k, q_k in sums[1:]:
         s, q = s + s_k, q + q_k
-    n = xf.shape[1]
+    # divide by a tensor on x's device: on CUDA, PyTorch turns a division by
+    # a Python number into a product with its reciprocal, which is off in the
+    # last bit where C is not a power of 2; the kernel, the CPU and JAX divide
+    n = torch.full_like(s, xf.shape[1])
     return _normalise(xf, s / n, q / n, scale, bias, eps).to(x.dtype)
 
 

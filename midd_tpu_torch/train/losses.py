@@ -1,19 +1,30 @@
 """The losses of the ported trainers (counterpart of the parts of
-``midd_tpu/train/losses.py`` that ``train_diffusion`` and ``train_nafnet``
-call): the diffusion loss, MSE on the clamped eps prediction plus 0.2 x the
-Sobel-edge L1 on the clamped x0 reconstruction (DDIM/DDIMModel.py:356-375),
-and the NAFNet CombinedLoss, 1 mse + 0.5 l1 + 0.3 frequency + 0.2 edge
-(NafNet/NafnetModel.py:349-386). Single-channel NCHW tensors.
+``midd_tpu/train/losses.py`` that the diffusion, NAFNet, expert and hybrid
+trainers call):
 
-The expert, hybrid and tiny loss suites are ROADMAP.md queue 1 item 11.
+- the diffusion loss, MSE on the clamped eps prediction plus 0.2 x the
+  Sobel-edge L1 on the clamped x0 reconstruction (DDIM/DDIMModel.py:356-375);
+- the NAFNet CombinedLoss, 1 mse + 0.5 l1 + 0.3 frequency + 0.2 edge
+  (NafNet/NafnetModel.py:349-386);
+- the expert HybridLoss, L1 + 0.4 (1 - SSIM) + 0.3 x a random-feature
+  perceptual distance (DirectUNet/DirectUNetModel.py:257-268);
+- the hybrid PerceptualLoss, mse + 0.5 l1 + 0.3 multi-scale L1
+  (hybrid3diffusionspeed.py:421-445).
+
+Single-channel NCHW tensors. The tiny family's losses (``edge_loss_xy``,
+``combined_loss_tiny``) are ROADMAP.md queue 1 item 11.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+import functools
+from typing import Dict, List, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
+
+from midd_tpu_torch.train.metrics import ssim
 
 SOBEL_X = ((-1.0, 0.0, 1.0), (-2.0, 0.0, 2.0), (-1.0, 0.0, 1.0))
 SOBEL_Y = ((-1.0, -2.0, -1.0), (0.0, 0.0, 0.0), (1.0, 2.0, 1.0))
@@ -81,3 +92,74 @@ def combined_loss_nafnet(pred: torch.Tensor, target: torch.Tensor
     }
     total = 1.0 * parts["mse"] + 0.5 * parts["l1"] + 0.3 * parts["freq"] + 0.2 * parts["edge"]
     return total, parts
+
+
+def _avg_pool(x: torch.Tensor, k: int) -> torch.Tensor:
+    """k x k mean over non-overlapping windows; a ragged edge is dropped
+    (VALID), as in the JAX package."""
+    return F.avg_pool2d(x, k)
+
+
+def perceptual_loss_hybrid(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    """The hybrid trainer's loss: mse + 0.5 l1 + 0.3 x the mean L1 at scales
+    1, 2 and 4."""
+    loss_ms = 0.0
+    for scale in (1, 2, 4):
+        p = pred if scale == 1 else _avg_pool(pred, scale)
+        t = target if scale == 1 else _avg_pool(target, scale)
+        loss_ms = loss_ms + l1(p, t)
+    return mse(pred, target) + 0.5 * l1(pred, target) + 0.3 * (loss_ms / 3.0)
+
+
+def ssim_loss(pred: torch.Tensor, target: torch.Tensor, dead_grad: bool = False) -> torch.Tensor:
+    """1 - mean SSIM (the skimage-exact metric, differentiable).
+    ``dead_grad=True`` detaches it, as the reference's numpy SSIM term
+    carries no gradient (DirectUNet:17-23,266)."""
+    loss = 1.0 - ssim(pred, target).mean()
+    return loss.detach() if dead_grad else loss
+
+
+def _feature_params(seed: int = 1234, in_ch: int = 1, widths=(16, 32, 64)) -> List[np.ndarray]:
+    """The fixed random 3x3 conv stack that stands in for VGG19
+    features[:16] (no pretrained weights offline), drawn as the JAX package
+    draws it: He-normal HWIO kernels from ``numpy.random.default_rng(seed)``,
+    here transposed to OIHW."""
+    rng = np.random.default_rng(seed)
+    params, c = [], in_ch
+    for w in widths:
+        k = rng.standard_normal((3, 3, c, w)).astype(np.float32) * (2.0 / (9 * c)) ** 0.5
+        params.append(np.ascontiguousarray(k.transpose(3, 2, 0, 1)))
+        c = w
+    return params
+
+
+@functools.lru_cache(maxsize=None)
+def _feature_weights(device: torch.device) -> Tuple[torch.Tensor, ...]:
+    """The feature stack as fp32 constants on ``device``, built once per device."""
+    return tuple(torch.from_numpy(k).to(device) for k in _feature_params())
+
+
+def feature_loss(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    """L1 between the random-feature maps of pred and target: conv + ReLU,
+    with a 2x average pool between layers, in fp32."""
+    weights = _feature_weights(pred.device)
+
+    def feats(x):
+        h = x.float()
+        for i, w in enumerate(weights):
+            h = F.relu(F.conv2d(h, w, padding=1))
+            if i < len(weights) - 1:
+                h = _avg_pool(h, 2)
+        return h
+
+    return l1(feats(pred), feats(target))
+
+
+def hybrid_loss_expert(pred: torch.Tensor, target: torch.Tensor, dead_grad_ssim: bool = False,
+                       perceptual_weight: float = 0.3) -> torch.Tensor:
+    """The expert trainer's loss: L1 + 0.4 (1 - SSIM) + perceptual_weight x
+    the feature distance (dropped at weight 0)."""
+    out = l1(pred, target) + 0.4 * ssim_loss(pred, target, dead_grad=dead_grad_ssim)
+    if perceptual_weight:
+        out = out + perceptual_weight * feature_loss(pred, target)
+    return out

@@ -1,36 +1,53 @@
 """Training recipes of the port (counterpart of ``midd_tpu/train/recipes.py``).
 
-Ported: ``train_diffusion`` (DDIM/DDIMModel.py:302-468: epochs 30, bs 1,
-lr 2e-4, cosine to lr/100, eps-MSE + 0.2 edge-on-x0), ``train_nafnet``
-(NafNet/NafnetModel.py: epochs 50, bs 2, lr 2e-4, wd 1e-4, 5 warmup epochs,
-CombinedLoss or pure MSE) and their CLI. The other recipes (cddpm, expert,
-hybrid, tiny) are ROADMAP.md queue 1 item 13; asking for them exits
-non-zero.
+Ported, with the reference's hyperparameters and their CLI:
+
+- ``train_diffusion`` (DDIM/DDIMModel.py:302-468: epochs 30, bs 1, lr 2e-4,
+  cosine to lr/100, eps-MSE + 0.2 edge-on-x0);
+- ``train_nafnet`` (NafNet/NafnetModel.py: epochs 50, bs 2, lr 2e-4, wd 1e-4,
+  5 warmup epochs, CombinedLoss or pure MSE);
+- ``train_expert`` (DirectUNet/DirectUNetModel.py:281-421: epochs 70, bs 4,
+  lr 1e-4, wd 1e-5, 5 warmup epochs, HybridLoss or pure MSE, BatchNorm
+  statistics);
+- ``train_hybrid`` (hybrid3diffusionspeed.py:631-876: epochs 50, bs 6,
+  lr 4e-4, cosine to lr/50, PerceptualLoss or pure MSE, frozen NAFNet and
+  diffusion backends (and the expert where the fusion sees it), patience 20,
+  5 validation samples).
+
+The cddpm and tiny recipes are ROADMAP.md queue 1 item 13; asking for them
+exits non-zero.
 
 Fresh weights come from the port's seeded ``init_weights`` (flax's
 initialisers cannot be reproduced bit for bit). The best checkpoint is
 ``<ckpt_dir>/<model>.pth`` in the reference's format, with the flattened
-arch fields (and ``noise_steps`` for the diffusion UNet), which the port's
-serving engine reads.
+arch fields (and ``noise_steps`` for the diffusion UNet), or for the hybrid
+the nested ``nafnet_params``, ``diffusion_params``, ``router_params``,
+``fusion_params`` (and ``expert_params``) and only the router and fusion
+weights; the port's serving engine reads each of them.
 
 CLI:
-    python -m midd_tpu_torch.train.recipes --model diffusion|nafnet \\
-        --clear-dir data/clean --noisy-dirs data/noisy [--device cuda|cpu] ...
+    python -m midd_tpu_torch.train.recipes --model diffusion|nafnet|expert|hybrid \\
+        --clear-dir data/clean --noisy-dirs data/noisy [--device cuda|cpu] \\
+        [--nafnet-ckpt N.pth --diffusion-ckpt D.pth] ...
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.nn as nn
 
 from midd_tpu_torch import config
 from midd_tpu_torch.diffusion.sampler import denoise
 from midd_tpu_torch.diffusion.schedule import make_schedule
 from midd_tpu_torch.models.blocks import init_weights
+from midd_tpu_torch.models.direct_unet import ExpertDenoiser
+from midd_tpu_torch.models.hybrid import RouterFusion
 from midd_tpu_torch.models.nafnet import EnhancedNAFNet
 from midd_tpu_torch.models.unet_diffusion import UNetDiffusion
 from midd_tpu_torch.train.data import PairedXRayDataset
@@ -40,6 +57,9 @@ from midd_tpu_torch.train.trainer import (
     TrainerState,
     diffusion_draw,
     diffusion_loss_fn,
+    expert_loss_fn,
+    hybrid_apply,
+    hybrid_loss_fn,
     nafnet_loss_fn,
     no_draw,
     plot_training_curves,
@@ -47,11 +67,21 @@ from midd_tpu_torch.train.trainer import (
 from midd_tpu_torch.utils.checkpoint import load_checkpoint
 
 MODELS = ("nafnet", "diffusion", "cddpm", "expert", "hybrid", "tiny")
-PORTED = ("nafnet", "diffusion")
+PORTED = ("nafnet", "diffusion", "expert", "hybrid")
 # the JAX CLI's --preset tiny
 TINY_UNET = dict(model_channels=8, channel_mult=(1, 2), num_res_blocks=1,
                  attention_resolutions=(1,), time_emb_dim=16)
 TINY_NAFNET = config.NAFNetConfig(width=8, middle_blk_num=1, enc_blk_nums=(1, 1), dec_blk_nums=(1, 1))
+TINY_EXPERT = config.ExpertConfig(base_channels=8)
+TINY_HYBRID = config.HybridConfig(
+    nafnet=TINY_NAFNET,
+    diffusion=config.DiffusionUNetConfig(**TINY_UNET),
+    router=config.RouterConfig(base_c=8),
+    fusion=config.FusionConfig(base_c=16),
+    training_diffusion_steps=3,
+    inference_diffusion_steps=3,
+)
+BACKEND_SEED = 7  # a backend with no checkpoint: seeded weights, as JAX's PRNGKey(7)
 
 
 def _val_samples(dataset, n: int) -> List[Tuple[np.ndarray, np.ndarray]]:
@@ -59,13 +89,39 @@ def _val_samples(dataset, n: int) -> List[Tuple[np.ndarray, np.ndarray]]:
     return [dataset[i] for i in range(min(n, len(dataset)))]
 
 
+_DEFAULTS = {
+    "nafnet": dict(epochs=50, batch_size=2, lr=2e-4, weight_decay=1e-4, warmup_epochs=5),
+    "diffusion": dict(epochs=30, batch_size=1, lr=2e-4, weight_decay=1e-4),
+    "expert": dict(epochs=70, batch_size=4, lr=1e-4, weight_decay=1e-5, warmup_epochs=5),
+    "hybrid": dict(epochs=50, batch_size=6, lr=4e-4, weight_decay=1e-4, eta_min_factor=0.02,
+                   patience=20),
+}
+
+
 def default_train_config(model: str = "diffusion") -> TrainConfig:
-    """The JAX CLI's defaults for a recipe (``recipes.py:511-514``)."""
-    if model == "nafnet":
-        return TrainConfig(epochs=50, batch_size=2, lr=2e-4, weight_decay=1e-4,
-                           warmup_epochs=5, ckpt_name="nafnet")
-    return TrainConfig(epochs=30, batch_size=1, lr=2e-4, weight_decay=1e-4,
-                       ckpt_name="diffusion")
+    """The JAX CLI's defaults for a recipe (``recipes.py:510-525``)."""
+    return TrainConfig(**_DEFAULTS[model], ckpt_name=model)
+
+
+def _load_backend(ckpt: Optional[str], model: nn.Module, name: str, seeded: List[str]) -> nn.Module:
+    """A frozen backend's weights: a port (or reference) ``.pth`` loads
+    strictly; no path, or a path that does not exist, gives seeded weights,
+    as the JAX package falls back to a seeded init: that is printed and
+    ``name`` joins ``seeded``. An orbax directory raises (ROADMAP.md queue 1
+    item 9)."""
+    if ckpt and os.path.isdir(ckpt):
+        raise NotImplementedError(
+            f"{ckpt!r} is an orbax checkpoint directory; the port reads .pth files "
+            f"only (orbax I/O: ROADMAP.md queue 1 item 9)"
+        )
+    if ckpt and (os.path.exists(ckpt) or os.path.exists(ckpt + ".pth")):
+        state = load_checkpoint(ckpt)
+        model.load_state_dict(state.get("model_state_dict", state), strict=True)
+        return model
+    print(f"{name} backend: no checkpoint at {ckpt!r}; seeded random weights (seed {BACKEND_SEED})",
+          flush=True)
+    seeded.append(name)
+    return init_weights(model, torch.Generator().manual_seed(BACKEND_SEED))
 
 
 def train_nafnet(
@@ -135,6 +191,103 @@ def train_diffusion(
     return state
 
 
+def train_expert(
+    dataset,
+    model_cfg: config.ExpertConfig = config.SERVE_EXPERT,
+    train_cfg: Optional[TrainConfig] = None,
+    resume: Optional[str] = None,
+    dead_grad_ssim: bool = False,
+    perceptual_weight: float = 0.3,
+    loss_variant: str = "reference",
+    init_from: Optional[str] = None,
+    device: str = "cuda",
+) -> TrainerState:
+    """``loss_variant``: "reference" (HybridLoss: L1 + 0.4 (1 - SSIM) +
+    ``perceptual_weight`` x the random-feature distance; ``dead_grad_ssim``
+    detaches the SSIM term, as the reference's numpy SSIM) or "l2" (pure
+    MSE). ``init_from``: a port ``.pth`` to take the parameters and the
+    BatchNorm statistics from, with a fresh optimizer, epoch and schedule."""
+    cfg = train_cfg or default_train_config("expert")
+    model = init_weights(ExpertDenoiser(model_cfg), torch.Generator().manual_seed(cfg.seed))
+    if init_from:
+        model.load_state_dict(load_checkpoint(init_from)["model_state_dict"], strict=True)
+    trainer = Trainer(
+        loss_fn=expert_loss_fn(dead_grad_ssim, perceptual_weight, loss_variant),
+        eval_fn=lambda model, extra, clean, noisy: model(noisy),
+        cfg=cfg,
+        model=model,
+        draw_fn=no_draw,
+        has_batch_stats=True,
+        device=device,
+    )
+    if resume:
+        trainer.resume(resume)
+    state = trainer.fit(dataset, _val_samples(dataset, 1), metadata=dataclasses.asdict(model_cfg))
+    plot_training_curves(state.history, "expert_training_curves.png")
+    return state
+
+
+def train_hybrid(
+    dataset,
+    nafnet_ckpt: Optional[str],
+    diffusion_ckpt: Optional[str],
+    hybrid_cfg: config.HybridConfig = config.HybridConfig(),
+    train_cfg: Optional[TrainConfig] = None,
+    resume: Optional[str] = None,
+    expert_ckpt: Optional[str] = None,
+    loss_variant: str = "reference",
+    device: str = "cuda",
+) -> TrainerState:
+    """The router and the fusion train on frozen backends: the NAFNet and
+    the diffusion UNet from their checkpoints (``_load_backend``), and the
+    ``ExpertDenoiser`` from ``expert_ckpt`` where
+    ``hybrid_cfg.fusion.sees_expert``. Training rolls out
+    ``training_diffusion_steps`` steps, validation
+    ``inference_diffusion_steps``, every one fresh, in fp32. The checkpoint
+    holds the router and fusion weights and says in its metadata which
+    branches it has and which backends had no checkpoint and were seeded
+    (``seeded_backends``)."""
+    cfg = train_cfg or default_train_config("hybrid")
+    sees_expert = hybrid_cfg.fusion.sees_expert
+    seeded: List[str] = []
+    frozen = {
+        "nafnet": _load_backend(nafnet_ckpt, EnhancedNAFNet(hybrid_cfg.nafnet), "nafnet", seeded),
+        "unet": _load_backend(diffusion_ckpt, UNetDiffusion(hybrid_cfg.diffusion), "diffusion", seeded),
+    }
+    if sees_expert:
+        frozen["expert"] = _load_backend(expert_ckpt, ExpertDenoiser(hybrid_cfg.expert), "expert", seeded)
+    model = init_weights(RouterFusion(hybrid_cfg.router, hybrid_cfg.fusion),
+                         torch.Generator().manual_seed(cfg.seed))
+    schedule = make_schedule(hybrid_cfg.schedule, device)
+
+    def eval_fn(model, extra, clean, noisy, frozen):
+        return hybrid_apply(model, frozen, noisy, schedule, hybrid_cfg.inference_diffusion_steps)
+
+    trainer = Trainer(
+        loss_fn=hybrid_loss_fn(schedule, hybrid_cfg.training_diffusion_steps, loss_variant),
+        eval_fn=eval_fn,
+        cfg=cfg,
+        model=model,
+        draw_fn=no_draw,
+        frozen=frozen,
+        device=device,
+    )
+    if resume:
+        trainer.resume(resume)
+    metadata = {
+        "nafnet_params": dataclasses.asdict(hybrid_cfg.nafnet),
+        "diffusion_params": {**dataclasses.asdict(hybrid_cfg.diffusion),
+                             "noise_steps": hybrid_cfg.schedule.noise_steps},
+        "router_params": dataclasses.asdict(hybrid_cfg.router),
+        "fusion_params": dataclasses.asdict(hybrid_cfg.fusion),
+        **({"expert_params": dataclasses.asdict(hybrid_cfg.expert)} if sees_expert else {}),
+        "seeded_backends": seeded,  # backends trained on with seeded weights, not a checkpoint
+    }
+    state = trainer.fit(dataset, _val_samples(dataset, 5), metadata=metadata)  # hybrid:740-744
+    plot_training_curves(state.history, "hybrid_training_curves.png")
+    return state
+
+
 def main(argv: Optional[Sequence[str]] = None) -> TrainerState:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--model", required=True, choices=MODELS)
@@ -146,24 +299,36 @@ def main(argv: Optional[Sequence[str]] = None) -> TrainerState:
     ap.add_argument("--batch-size", type=int, default=None)
     ap.add_argument("--lr", type=float, default=None)
     ap.add_argument("--resume", default=None)
+    ap.add_argument("--nafnet-ckpt", default=None, help="hybrid: the frozen NAFNet's .pth")
+    ap.add_argument("--diffusion-ckpt", default=None, help="hybrid: the frozen UNet's .pth")
     ap.add_argument("--loss-variant", choices=["reference", "l2"], default="reference",
-                    help="nafnet: the reference CombinedLoss or pure MSE")
+                    help="nafnet/expert/hybrid: the reference loss suite or pure MSE")
     ap.add_argument("--preset", choices=["full", "tiny"], default="full",
                     help="tiny = smoke-test widths")
     ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
     args = ap.parse_args(argv)
     if args.model not in PORTED:
-        ap.error(f"--model {args.model}: only the {' and '.join(PORTED)} recipes are "
+        ap.error(f"--model {args.model}: only the {', '.join(PORTED)} recipes are "
                  f"ported; the others are ROADMAP.md queue 1 item 13")
 
     dataset = PairedXRayDataset(args.clear_dir, args.noisy_dirs, img_size=args.img_size,
-                                max_samples=args.max_samples)
+                                max_samples=args.max_samples,
+                                substring_glob=args.model == "hybrid")
     overrides = {k: v for k, v in (("epochs", args.epochs), ("batch_size", args.batch_size),
                                    ("lr", args.lr)) if v}
     cfg = dataclasses.replace(default_train_config(args.model), **overrides)
     tiny = args.preset == "tiny"
     if args.model == "nafnet":
         return train_nafnet(dataset, model_cfg=TINY_NAFNET if tiny else config.SERVE_NAFNET,
+                            train_cfg=cfg, resume=args.resume, loss_variant=args.loss_variant,
+                            device=args.device)
+    if args.model == "expert":
+        return train_expert(dataset, model_cfg=TINY_EXPERT if tiny else config.SERVE_EXPERT,
+                            train_cfg=cfg, resume=args.resume, loss_variant=args.loss_variant,
+                            device=args.device)
+    if args.model == "hybrid":
+        return train_hybrid(dataset, nafnet_ckpt=args.nafnet_ckpt, diffusion_ckpt=args.diffusion_ckpt,
+                            hybrid_cfg=TINY_HYBRID if tiny else config.HybridConfig(),
                             train_cfg=cfg, resume=args.resume, loss_variant=args.loss_variant,
                             device=args.device)
     mc = config.DiffusionUNetConfig(**TINY_UNET) if tiny else config.SERVE_DIFFUSION

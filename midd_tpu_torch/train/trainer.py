@@ -11,16 +11,23 @@
   and the step count untouched (DDIM:377-378, hybrid:776-777);
 - best-validation-PSNR checkpoints in the reference's ``.pth`` format, full
   resume, early stopping;
-- per-epoch PSNR/SSIM validation with the canonical metrics.
+- per-epoch PSNR/SSIM validation with the canonical metrics;
+- BatchNorm statistics (the expert trainer, ``has_batch_stats``): the
+  model's running buffers, which every train-mode forward moves, a skipped
+  batch's too, as the JAX step returns them unconditionally; validation and
+  the saved ``.pth`` use them;
+- frozen modules (the hybrid trainer's backends, ``frozen``): on the device
+  in eval mode with no gradient, outside the optimizer, the clip and the
+  saved ``state_dict``, passed to the loss and eval functions as their last
+  argument.
 
 The random draws of a step (the diffusion trainer's t and eps) come from a
 ``torch.Generator`` on the training device, seeded from ``cfg.seed``,
 through a draw function of their own, so that a test can feed the JAX
 package's draws instead.
 
-Not ported yet: frozen runtime arguments and BatchNorm statistics (the
-hybrid and expert trainers, ROADMAP.md queue 1 item 13), rematerialisation
-and multi-device meshes (queue 1 item 15).
+Not ported yet: rematerialisation and multi-device meshes (ROADMAP.md
+queue 1 item 15).
 """
 
 from __future__ import annotations
@@ -35,8 +42,9 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-from midd_tpu_torch.diffusion.sampler import noise_images, sample_timesteps
+from midd_tpu_torch.diffusion.sampler import denoise, noise_images, sample_timesteps
 from midd_tpu_torch.diffusion.schedule import Schedule
+from midd_tpu_torch.models.hybrid import hybrid_forward
 from midd_tpu_torch.train import losses
 from midd_tpu_torch.train.data import batches, prefetch_to_device, to_device
 from midd_tpu_torch.train.metrics import compute_metrics
@@ -190,6 +198,67 @@ def nafnet_loss_fn(loss_variant: str = "reference") -> Callable:
 
 
 # ---------------------------------------------------------------------------
+# The expert and the hybrid router: losses on the direct prediction
+# ---------------------------------------------------------------------------
+
+
+def expert_loss_fn(dead_grad_ssim: bool = False, perceptual_weight: float = 0.3,
+                   loss_variant: str = "reference") -> Callable:
+    """loss(model, batch, draw) -> (loss, parts) on the clamped train-mode
+    prediction (DirectUNet:339): "reference" is the HybridLoss
+    (``losses.hybrid_loss_expert``), "l2" pure MSE. The forward moves the
+    BatchNorm running statistics."""
+    if loss_variant not in ("reference", "l2"):
+        raise ValueError(f"loss_variant must be 'reference' or 'l2', got {loss_variant!r}")
+
+    def fn(model: nn.Module, batch, draw):
+        clean, noisy = batch
+        pred = model(noisy).clamp(0.0, 1.0)
+        if loss_variant == "l2":
+            return losses.mse(pred, clean), {}
+        return losses.hybrid_loss_expert(pred, clean, dead_grad_ssim=dead_grad_ssim,
+                                         perceptual_weight=perceptual_weight), {}
+
+    return fn
+
+
+def hybrid_apply(model: nn.Module, frozen: Dict[str, nn.Module], noisy: torch.Tensor,
+                 schedule: Schedule, diffusion_steps: int) -> torch.Tensor:
+    """The hybrid graph of a ``RouterFusion`` ``model`` on the ``frozen``
+    backends {"nafnet", "unet"[, "expert"]}: the rollout runs
+    ``diffusion_steps`` steps, every one fresh, in the UNet's dtype."""
+    unet = frozen["unet"]
+    return hybrid_forward(
+        frozen["nafnet"],
+        lambda x: denoise(unet, x, schedule, diffusion_steps),
+        model.router,
+        model.fusion,
+        noisy,
+        expert_apply=frozen.get("expert"),
+    )
+
+
+def hybrid_loss_fn(schedule: Schedule, diffusion_steps: int,
+                   loss_variant: str = "reference") -> Callable:
+    """loss(model, batch, draw, frozen) -> (loss, parts) of the hybrid
+    (hybrid3diffusionspeed.py:613-620,669): the frozen backends run without
+    gradient, the router and the fusion of ``model`` carry it. "reference"
+    is the PerceptualLoss (``losses.perceptual_loss_hybrid``), "l2" pure
+    MSE."""
+    if loss_variant not in ("reference", "l2"):
+        raise ValueError(f"loss_variant must be 'reference' or 'l2', got {loss_variant!r}")
+
+    def fn(model: nn.Module, batch, draw, frozen):
+        clean, noisy = batch
+        pred = hybrid_apply(model, frozen, noisy, schedule.to(noisy.device), diffusion_steps)
+        if loss_variant == "l2":
+            return losses.mse(pred, clean), {}
+        return losses.perceptual_loss_hybrid(pred, clean), {}
+
+    return fn
+
+
+# ---------------------------------------------------------------------------
 # The training engine
 # ---------------------------------------------------------------------------
 
@@ -200,7 +269,16 @@ class Trainer:
 
     ``loss_fn(model, batch, draw) -> (loss, parts)``, ``draw_fn(batch,
     generator) -> draw`` and ``eval_fn(model, extra, clean, noisy) -> pred``
-    take NCHW tensors on ``device``."""
+    take NCHW tensors on ``device``.
+
+    ``has_batch_stats``: the model carries BatchNorm running statistics (its
+    buffers, saved with it). The buffers move in every train-mode forward
+    whatever the flag says, so the flag must say whether the model holds a
+    BatchNorm, and a model that disagrees is refused. ``frozen``: a dict of
+    modules that the loss and eval functions take as their last argument,
+    ``loss_fn(model, batch, draw, frozen)`` and ``eval_fn(model, extra,
+    clean, noisy, frozen)``; they stay in eval mode with no gradient and are
+    not saved. The two are mutually exclusive, as in the JAX package."""
 
     def __init__(
         self,
@@ -214,16 +292,12 @@ class Trainer:
         frozen: Optional[Any] = None,
         device: str = "cuda",
     ):
-        if frozen is not None:
-            raise NotImplementedError(
-                "frozen runtime arguments (the hybrid trainer) are not ported "
-                "yet: ROADMAP.md queue 1 item 13"
-            )
-        if has_batch_stats:
-            raise NotImplementedError(
-                "BatchNorm statistics in training (the expert trainer) are not "
-                "ported yet: ROADMAP.md queue 1 item 13"
-            )
+        if frozen is not None and has_batch_stats:
+            raise ValueError("frozen and has_batch_stats are mutually exclusive")
+        has_bn = any(isinstance(m, nn.modules.batchnorm._BatchNorm) for m in model.modules())
+        if has_bn != has_batch_stats:
+            raise ValueError(f"has_batch_stats={has_batch_stats}, but the model "
+                             f"{'holds' if has_bn else 'holds no'} BatchNorm statistics")
         if cfg.remat or cfg.mesh_shape is not None:
             raise NotImplementedError(
                 "remat and mesh_shape are not ported yet: ROADMAP.md queue 1 item 15"
@@ -237,6 +311,10 @@ class Trainer:
         self.cfg = cfg
         self.loss_fn, self.eval_fn, self.draw_fn = loss_fn, eval_fn, draw_fn
         model = model.to(self.device)
+        self.frozen = None if frozen is None else {
+            k: m.to(self.device).eval().requires_grad_(False) for k, m in frozen.items()
+        }
+        self._frozen_args = () if frozen is None else (self.frozen,)
         self.params = [p for p in model.parameters() if p.requires_grad]
         self.state = TrainerState(model=model, optimizer=make_optimizer(cfg, self.params),
                                   extra=extra or {})
@@ -245,11 +323,12 @@ class Trainer:
 
     def train_step(self, batch: Tuple[torch.Tensor, torch.Tensor]) -> float:
         """One update on a device batch; returns the loss (NaN/inf for a
-        skipped batch)."""
+        skipped batch, whose forward still moved any BatchNorm statistics)."""
         st = self.state
         st.model.train()
         st.optimizer.zero_grad(set_to_none=True)
-        loss, _ = self.loss_fn(st.model, batch, self.draw_fn(batch, self.generator))
+        loss, _ = self.loss_fn(st.model, batch, self.draw_fn(batch, self.generator),
+                               *self._frozen_args)
         loss.backward()
         finite_update(loss, self.params, st.optimizer, self.cfg.grad_clip)
         return float(loss.detach())
@@ -263,7 +342,7 @@ class Trainer:
         psnrs, ssims = [], []
         for vc, vn in val_samples:
             clean, noisy = to_device((vc[None], vn[None]), self.device)
-            pred = self.eval_fn(st.model, st.extra, clean, noisy)
+            pred = self.eval_fn(st.model, st.extra, clean, noisy, *self._frozen_args)
             p, s = compute_metrics(pred.clamp(0.0, 1.0), clean)
             if math.isfinite(float(p)):
                 psnrs.append(float(p))

@@ -10,8 +10,9 @@
 (f) the data pipeline's arrays against ``midd_tpu.train.data``;
 (g) the ``.pth`` checkpoint: save -> resume, and the port's engine serving
     what the port's trainer wrote;
-(h) the CLI refuses the recipes that are not ported (the NAFNet recipe:
-    tests/test_torch_nafnet_train.py).
+(h) the CLI refuses the recipes that are not ported (the NAFNet, expert
+    and hybrid recipes: tests/test_torch_nafnet_train.py,
+    test_torch_expert_train.py, test_torch_hybrid_train.py).
 """
 
 import dataclasses
@@ -290,12 +291,9 @@ def test_two_train_steps_match_the_jax_trainer(rng, tmp_path):
 def test_trainer_refuses_what_is_not_ported():
     m = torch.nn.Linear(2, 2)
     args = (lambda *a: None, lambda *a: None)
-    for kw, cfg in ((dict(frozen={}), ttrainer.TrainConfig()),
-                    (dict(has_batch_stats=True), ttrainer.TrainConfig()),
-                    ({}, ttrainer.TrainConfig(remat=True)),
-                    ({}, ttrainer.TrainConfig(mesh_shape=(2, 1, 1)))):
+    for cfg in (ttrainer.TrainConfig(remat=True), ttrainer.TrainConfig(mesh_shape=(2, 1, 1))):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ttrainer.Trainer(*args, cfg, m, lambda *a: None, device="cpu", **kw)
+            ttrainer.Trainer(*args, cfg, m, lambda *a: None, device="cpu")
 
 
 # -- (f) data pipeline -----------------------------------------------------------
@@ -446,7 +444,7 @@ def test_engine_serves_a_checkpoint_the_trainer_wrote(rng, tmp_path, monkeypatch
 # -- (h) the CLI -----------------------------------------------------------------
 
 
-@pytest.mark.parametrize("model", ["cddpm", "expert", "hybrid", "tiny"])
+@pytest.mark.parametrize("model", ["cddpm", "tiny"])
 def test_cli_refuses_recipes_not_ported(model, capsys):
     with pytest.raises(SystemExit) as exc:
         trecipes.main(["--model", model, "--clear-dir", "c", "--noisy-dirs", "n"])
