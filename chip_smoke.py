@@ -2,10 +2,11 @@
 kernels from this checkout and holds each against its plain PyTorch version,
 serves full-width 512² /denoise requests through the port's HTTP server,
 runs the kernel-fused NAFNet forward, trains the full-width diffusion UNet,
-NAFNet, Expert UNet and hybrid router (on the NAFNet and UNet it trained)
-through the port's training CLI and serves the checkpoints they wrote, and
-checks the card against the CPU on one exact rollout, one NAFNet forward
-and one training step of each model.
+NAFNet, Expert UNet, hybrid router (on the NAFNet and UNet it trained),
+cddpm UNet and TinyUNet through the port's training CLI and serves the
+checkpoints they wrote, and checks the card against the CPU on one exact
+rollout, one ancestral cddpm rollout, one DDPM rollout of the TinyUNet, one
+NAFNet forward and one training step of each model.
 
     python3 chip_smoke.py [--report FILE]
 
@@ -41,15 +42,20 @@ Phases (any failure exits non-zero, and no result line is printed):
    PNGs each, exactly 48 flash forward, 120 ln2d (the nafnet path and the
    hybrid's NAFNet backend) and no backward launches per request;
 9. card vs CPU: one exact fp32 diffusion rollout and one fp32 NAFNet forward
-   at 256² on both devices;
+   at 256² on both devices, one CDDPM_UNET ancestral rollout at 256² (8
+   inference steps, 9 scan steps of 4 flash forward launches, no eps clamp)
+   and one 12-step DDPMScheduler rollout of TINY_UNET at 256², each on one
+   shared ``noise_seq``;
 10. one training step, card vs CPU, of each model at 128², fp32, TF32 off,
    same weights and batch: SERVE_DIFFUSION (6 forward, 6 dq and 6 dk/dv
    launches), SERVE_NAFNET (60 ln2d launches; every LayerNorm2d weight
    and bias gets a gradient), SERVE_EXPERT at batch 2 (train-mode
    BatchNorm; both running buffers of every BatchNorm compared too) and
    the HybridConfig() router and fusion at batch 2 on seeded frozen
-   backends (60 ln2d and 6 x 10 flash forward launches, none backward);
-   loss and every trained parameter's gradient compared;
+   backends (60 ln2d and 6 x 10 flash forward launches, none backward),
+   CDDPM_UNET at batch 1 (4 forward, 4 dq and 4 dk/dv launches) and
+   TINY_UNET at batch 2 (no port kernel); loss and every trained
+   parameter's gradient compared;
 11. training slices: ``recipes.main`` --model diffusion (512², 1 epoch, 4
    seeded synthetic pairs, batch 1 = 4 train steps of 6/6/6 launches and a
    validation rollout of 17 evals), --model nafnet (512², 1 epoch, 8
@@ -58,10 +64,16 @@ Phases (any failure exits non-zero, and no result line is printed):
    validation forward, no port kernel) and --model hybrid (12 pairs, batch
    6 = 2 train steps of 60 ln2d and 60 flash forward launches and 5
    validation forwards, on the .pth files of the diffusion and nafnet
-   runs); finite losses, moved parameters (and, for the expert, moved
-   running statistics), a .pth with its metadata (the hybrid's with only
-   router and fusion weights); then an InferenceEngine on each checkpoint
-   answers one 512² request (the hybrid's beside its two backends).
+   runs), --model cddpm (4 pairs, batch 1 = 4 train steps of 4/4/4
+   launches and an ancestral validation rollout of 17 evals of 4 flash
+   forwards) and --model tiny (8 pairs, batch 4 = 2 train steps and one
+   12-step DDPM validation rollout, no port kernel); finite losses, moved
+   parameters (and, for the expert, moved running statistics), a .pth with
+   its metadata (the hybrid's with only router and fusion weights, the
+   cddpm's with ``skip_mode``); then an InferenceEngine on each checkpoint
+   answers one 512² request (the hybrid's beside its two backends, the
+   cddpm's served as the diffusion model: 32 flash forward launches), and a
+   TinyUNetDenoiser on the tiny checkpoint denoises one PNG at 256².
 Where ``torch.profiler`` records no device kernel three times running, it
 is off for the rest of the run and device times are taken by CUDA events
 behind a sleep kernel instead (``device_ms_events``). A profile that holds
@@ -85,7 +97,8 @@ one ``nafnet_apply_fused`` call and one module forward at 512², the sums
 over one NAFNet forward of the ln2d and naf_ffn per-call times of phases 5
 and 6 (computed from isolated calls, not measured in a forward), and the
 same wall/device breakdown and the peak memory for one 512² training step
-of each model (diffusion, NAFNet, expert, hybrid) at its CLI batch.
+of each model (diffusion, NAFNet, expert, hybrid, cddpm, tiny) at its CLI
+batch.
 """
 
 from __future__ import annotations
@@ -111,11 +124,14 @@ import torch.nn.functional as F
 from PIL import Image
 
 from midd_tpu_torch import config
+from midd_tpu_torch.diffusion.ddpm_scheduler import DDPMScheduler, TinyUNetDenoiser
+from midd_tpu_torch.diffusion.sampler import denoise
 from midd_tpu_torch.diffusion.schedule import make_schedule, timestep_sequence
 from midd_tpu_torch.models.blocks import BatchNorm2d, GroupNorm32, LayerNorm2d, init_weights
 from midd_tpu_torch.models.direct_unet import ExpertDenoiser
 from midd_tpu_torch.models.hybrid import RouterFusion
 from midd_tpu_torch.models.nafnet import EnhancedNAFNet
+from midd_tpu_torch.models.tiny_unet import TinyUNet
 from midd_tpu_torch.models.unet_diffusion import UNetDiffusion
 from midd_tpu_torch.ops import _build
 from midd_tpu_torch.ops import flash_attention as fa
@@ -126,8 +142,9 @@ from midd_tpu_torch.serve.engine import MODEL_NAMES, EngineConfig, InferenceEngi
 from midd_tpu_torch.serve.server import make_server
 from midd_tpu_torch.train import recipes
 from midd_tpu_torch.train.data import to_device
-from midd_tpu_torch.train.trainer import (Trainer, diffusion_draw, diffusion_loss_fn,
-                                          expert_loss_fn, hybrid_loss_fn, nafnet_loss_fn, no_draw)
+from midd_tpu_torch.train.trainer import (Trainer, cddpm_loss_fn, diffusion_draw, diffusion_loss_fn,
+                                          expert_loss_fn, hybrid_loss_fn, nafnet_loss_fn, no_draw,
+                                          tiny_draw, tiny_loss_fn)
 
 # H100 SXM data sheet (dense): bf16 and TF32 tensor-core peaks, fp32
 # CUDA-core peak and HBM3 rate
@@ -170,6 +187,11 @@ PER_REQUEST = {
     "ln2d": 120,  # (nafnet path + the hybrid's NAFNet backend) x 30 NAFBlocks x 2 norms
     "naf_ffn": 0,  # no engine path runs the fused functional forward
 }
+# A request to an engine whose diffusion checkpoint is the cddpm UNet (phase
+# 11e): 4 AttentionBlocks an eval (2 down, 1 mid, 1 up) in place of 6, in the
+# diffusion path's 4 evals and in the hybrid's 4, whose seeded UNet takes the
+# served diffusion architecture when there is no hybrid checkpoint.
+CDDPM_PER_REQUEST = {**PER_REQUEST, "flash_fwd": 32}
 CARD_VS_CPU_BOUND = 1e-3
 
 # SERVE_NAFNET at 512²: (C, H = W) of each stage, and the LayerNorm2d calls
@@ -281,6 +303,10 @@ EXPERT_TRAIN_PAIRS = 16  # 4 steps at the CLI's batch of 4
 HYBRID_BATCH = 6  # the hybrid CLI's batch
 HYBRID_TRAIN_PAIRS = 12  # 2 steps at the CLI's batch of 6
 HYBRID_VAL_SAMPLES = 5  # the hybrid recipe validates on 5 samples
+CDDPM_ATTENTION = 4  # AttentionBlocks per CDDPM_UNET eval: 2 down, 1 mid, 1 up
+TINY_BATCH = 4  # the tiny CLI's batch
+TINY_TRAIN_PAIRS = 8  # 2 steps at the CLI's batch of 4
+TINY_STEPS = 12  # the DDPMScheduler rollout of the tiny recipe and its denoiser
 NO_LAUNCHES = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0, "ln2d": 0, "naf_ffn": 0}
 
 
@@ -795,26 +821,18 @@ def nafnet_step_card_vs_cpu(report: dict) -> None:
     assert worst <= STEP_GRAD_REL, res
 
 
-def train_step_card_vs_cpu(report: dict) -> None:
-    """Phase 10a: one diffusion training step's loss and gradients on both
-    devices."""
+def _step_card_vs_cpu(key: str, build, loss_fn, batch: tuple, draw: tuple, want: dict, report: dict) -> None:
+    """One training step's loss and every gradient on both devices: the
+    model from ``build()`` (seeded, on the CPU), the NCHW numpy ``batch``
+    and ``draw`` (t as int64, the rest fp32) moved to each device."""
     set_tf32(False)
-    size = 128
-    rng = np.random.default_rng(5)
-    clean = np.asarray(Image.open(io.BytesIO(xray_png(size, size, 11))), np.float32) / 255
-    noisy = np.clip(clean + 0.1 * rng.standard_normal(clean.shape), 0, 1).astype(np.float32)
-    eps = rng.standard_normal(clean.shape).astype(np.float32)
-    t = torch.tensor([23])
-    sched = make_schedule(config.SERVE_SCHEDULE)
-    ah = sched.alpha_hat[t].item()
-    x_t = np.sqrt(ah) * clean + np.sqrt(1 - ah) * eps
     out = {}
     for dev in ("cuda", "cpu"):
-        model = init_weights(UNetDiffusion(config.SERVE_DIFFUSION), torch.Generator().manual_seed(0)).to(dev)
-        c, nz, e, xt = (torch.from_numpy(np.ascontiguousarray(a, np.float32))[None, None].to(dev)
-                        for a in (clean, noisy, eps, x_t))
+        model = build().to(dev)
+        b = tuple(torch.from_numpy(a).to(dev) for a in batch)
+        d = tuple(torch.from_numpy(a).to(dev) for a in draw)
         zero_counts()
-        loss, _ = diffusion_loss_fn(sched.to(dev))(model, (c, nz), (t.to(dev), xt, e))
+        loss, _ = loss_fn(model, b, d)
         loss.backward()
         launched = counts()
         out[dev] = (loss.item(), {n: p.grad.detach().cpu() for n, p in model.named_parameters()}, launched)
@@ -822,12 +840,31 @@ def train_step_card_vs_cpu(report: dict) -> None:
     worst, worst_name = worst_grad_ratio(g_gpu, g_cpu)
     res = {"loss_card": l_gpu, "loss_cpu": l_cpu, "loss_rel_diff": abs(l_gpu - l_cpu) / abs(l_cpu),
            "worst_grad_ratio": worst, "worst_param": worst_name, "grad_bound": STEP_GRAD_REL,
-           "n_params": len(g_cpu), "launches": launched}
-    report["train_step_card_vs_cpu"] = res
-    print(json.dumps({"train_step_card_vs_cpu": res}), flush=True)
-    assert launched == {**NO_LAUNCHES, "flash_fwd": 6, "flash_bwd_dq": 6, "flash_bwd_dkv": 6}, launched
+           "n_params": len(g_cpu), "launches": launched, "expected_launches": want}
+    report[key] = res
+    print(json.dumps({key: res}), flush=True)
+    assert launched == want, res
     assert np.isfinite(l_gpu) and res["loss_rel_diff"] <= STEP_LOSS_REL, res
     assert worst <= STEP_GRAD_REL, res
+
+
+def train_step_card_vs_cpu(report: dict) -> None:
+    """Phase 10a: one diffusion training step's loss and gradients on both
+    devices, on a fixed draw: 6 flash forward, 6 dq and 6 dk/dv launches."""
+    size = 128
+    rng = np.random.default_rng(5)
+    clean = np.asarray(Image.open(io.BytesIO(xray_png(size, size, 11))), np.float32)[None, None] / 255
+    noisy = np.clip(clean + 0.1 * rng.standard_normal(clean.shape), 0, 1).astype(np.float32)
+    eps = rng.standard_normal(clean.shape).astype(np.float32)
+    t = np.array([23])
+    sched = make_schedule(config.SERVE_SCHEDULE)
+    ah = sched.alpha_hat[t].item()
+    x_t = (np.sqrt(ah) * clean + np.sqrt(1 - ah) * eps).astype(np.float32)
+    _step_card_vs_cpu(
+        "train_step_card_vs_cpu",
+        lambda: init_weights(UNetDiffusion(config.SERVE_DIFFUSION), torch.Generator().manual_seed(0)),
+        diffusion_loss_fn(sched), (clean, noisy), (t, x_t, eps),
+        {**NO_LAUNCHES, "flash_fwd": 6, "flash_bwd_dq": 6, "flash_bwd_dkv": 6}, report)
 
 
 def _step_batch(seed: int, size: int = 128, b: int = 2):
@@ -932,6 +969,40 @@ def hybrid_step_card_vs_cpu(report: dict) -> None:
     assert worst <= STEP_GRAD_REL, res
 
 
+def cddpm_step_card_vs_cpu(report: dict) -> None:
+    """Phase 10e: one cddpm training step (CDDPM_UNET, plain eps-MSE) at
+    128², batch 1, on a fixed draw: 4 flash forward, 4 dq and 4 dk/dv
+    launches."""
+    clean, noisy = _step_batch(70, b=1)
+    rng = np.random.default_rng(70)
+    t = np.array([29])
+    eps = rng.standard_normal(clean.shape).astype(np.float32)
+    ah = make_schedule(config.SERVE_SCHEDULE).alpha_hat[t].numpy()[:, None, None, None]
+    x_t = (np.sqrt(ah) * clean + np.sqrt(1 - ah) * eps).astype(np.float32)
+    n = CDDPM_ATTENTION
+    _step_card_vs_cpu(
+        "cddpm_step_card_vs_cpu",
+        lambda: init_weights(UNetDiffusion(config.CDDPM_UNET), torch.Generator().manual_seed(41)),
+        cddpm_loss_fn(), (clean, noisy), (t, x_t, eps),
+        {**NO_LAUNCHES, "flash_fwd": n, "flash_bwd_dq": n, "flash_bwd_dkv": n}, report)
+
+
+def tiny_step_card_vs_cpu(report: dict) -> None:
+    """Phase 10f: one TinyUNet training step (TINY_UNET, the loss against
+    the noise in [-1, 1]) at 128², batch 2, on a fixed draw on the 1000-step
+    schedule: no port kernel."""
+    clean, noisy = _step_batch(80)
+    rng = np.random.default_rng(80)
+    t = np.array([17, 801])
+    eps = rng.standard_normal(clean.shape).astype(np.float32)
+    ah = make_schedule(config.ScheduleConfig(noise_steps=1000)).alpha_hat[t].numpy()[:, None, None, None]
+    x_t = (np.sqrt(ah) * (clean * 2 - 1) + np.sqrt(1 - ah) * eps).astype(np.float32)
+    _step_card_vs_cpu(
+        "tiny_step_card_vs_cpu",
+        lambda: init_weights(TinyUNet(config.TINY_UNET), torch.Generator().manual_seed(43)),
+        tiny_loss_fn(), (clean, noisy), (t, x_t, eps), NO_LAUNCHES, report)
+
+
 def write_pairs(root: str, n: int, size: int):
     """n seeded synthetic clean/noisy radiograph pairs as PNG files under
     root/clean and root/noisy (same file names)."""
@@ -1005,9 +1076,10 @@ def cli_run(model: str, n_pairs: int, *extra: str):
         yield run, state, os.path.join(tmp, "checkpoints")
 
 
-def serve_checkpoint(ckpt_dir: str, name: str) -> tuple:
-    """An InferenceEngine on a trained checkpoint answers one 512² request;
-    returns its launches and the checkpoint's metadata as the engine read it."""
+def serve_checkpoint(ckpt_dir: str, name: str, per_request: dict = PER_REQUEST) -> tuple:
+    """An InferenceEngine on a trained checkpoint answers one 512² request
+    with ``per_request`` launches; returns them and the checkpoint's metadata
+    as the engine read it."""
     engine = InferenceEngine(EngineConfig(ckpt_dir=ckpt_dir))
     try:
         meta = engine.meta[name]
@@ -1019,7 +1091,7 @@ def serve_checkpoint(ckpt_dir: str, name: str) -> tuple:
     finally:
         engine.close()
     assert all(outs[n] is not None for n in MODEL_NAMES), [n for n in MODEL_NAMES if outs[n] is None]
-    assert served == PER_REQUEST, served
+    assert served == per_request, served
     return served, meta
 
 
@@ -1171,6 +1243,83 @@ def hybrid_train_slice(report: dict, smi: str, keep_dir: str) -> dict:
         report["hybrid_train_slice"]["served_launches"] = served
         print(json.dumps({"served_trained_checkpoint": {"model": "hybrid", "launches": served,
                                                         "meta_epoch": meta["epoch"]}}), flush=True)
+    torch.cuda.empty_cache()
+    return run["launches"]
+
+
+def cddpm_train_slice(report: dict, smi: str) -> dict:
+    """Phase 11e: the cddpm training CLI at full width and its default batch
+    of 1 (4 steps of 4/4/4 flash launches and one ancestral validation
+    rollout of 17 evals), then an engine serving its checkpoint as the
+    diffusion model (a copy named ``diffusion.pth``). Returns the launches of
+    the training run."""
+    n = CDDPM_ATTENTION
+    with cli_run("cddpm", TRAIN_PAIRS) as (run, state, ckpt_dir):
+        ckpt = torch.load(os.path.join(ckpt_dir, "cddpm.pth"), map_location="cpu", weights_only=True)
+        fresh = init_weights(UNetDiffusion(config.CDDPM_UNET), torch.Generator().manual_seed(42)).state_dict()
+        moved = moved_tensors(ckpt, fresh)
+        res = {"card": smi, "batch_size": 1, **run, "tensors_moved": moved,
+               "tensors": len(ckpt["model_state_dict"])}
+        report["cddpm_train_slice"] = res
+        print(json.dumps({"cddpm_train_slice": res}), flush=True)
+        assert run["steps"] == TRAIN_PAIRS, res
+        assert all(np.isfinite(loss) for loss in run["losses"]), res
+        per_step = {**NO_LAUNCHES, "flash_fwd": n, "flash_bwd_dq": n, "flash_bwd_dkv": n}
+        assert all(k == per_step for k in run["launches_per_step"]), res
+        assert run["validation_launches"] == [{**NO_LAUNCHES, "flash_fwd": n * VAL_EVALS}], res
+        assert moved >= 0.9 * len(fresh), res
+        meta_keys = {"epoch", "best_psnr", "best_ssim", "losses", "psnrs", "ssims", "in_channels",
+                     "model_channels", "channel_mult", "num_res_blocks", "attention_resolutions",
+                     "time_emb_dim", "skip_mode", "noise_steps", "optimizer_state_dict"}
+        assert meta_keys <= set(ckpt), sorted(ckpt)
+        assert ckpt["skip_mode"] == "cddpm" and ckpt["epoch"] == 0, (ckpt["skip_mode"], ckpt["epoch"])
+
+        with tempfile.TemporaryDirectory() as serve_dir:
+            shutil.copy(os.path.join(ckpt_dir, "cddpm.pth"), os.path.join(serve_dir, "diffusion.pth"))
+            served, meta = serve_checkpoint(serve_dir, "diffusion", CDDPM_PER_REQUEST)
+        assert meta["skip_mode"] == "cddpm", meta
+        report["cddpm_train_slice"]["served_launches"] = served
+        print(json.dumps({"served_trained_checkpoint": {"model": "cddpm as diffusion", "launches": served,
+                                                        "meta_epoch": meta["epoch"]}}), flush=True)
+    torch.cuda.empty_cache()
+    return run["launches"]
+
+
+def tiny_train_slice(report: dict, smi: str) -> dict:
+    """Phase 11f: the tiny training CLI at full width and its default batch
+    of 4 (2 steps and one 12-step DDPM validation rollout, no port kernel),
+    then a ``TinyUNetDenoiser`` on its checkpoint denoising one 256² PNG on
+    the card. Returns the launches of the training run."""
+    with cli_run("tiny", TINY_TRAIN_PAIRS) as (run, state, ckpt_dir):
+        ckpt = torch.load(os.path.join(ckpt_dir, "tiny.pth"), map_location="cpu", weights_only=True)
+        fresh = init_weights(TinyUNet(config.TINY_UNET), torch.Generator().manual_seed(42)).state_dict()
+        moved = moved_tensors(ckpt, fresh)
+        res = {"card": smi, "batch_size": TINY_BATCH, **run, "tensors_moved": moved,
+               "tensors": len(ckpt["model_state_dict"])}
+        report["tiny_train_slice"] = res
+        print(json.dumps({"tiny_train_slice": res}), flush=True)
+        assert run["steps"] == TINY_TRAIN_PAIRS // TINY_BATCH, res
+        assert all(np.isfinite(loss) for loss in run["losses"]), res
+        assert all(k == NO_LAUNCHES for k in run["launches_per_step"]), res
+        assert run["validation_launches"] == [NO_LAUNCHES], res
+        assert moved >= 0.9 * len(fresh), res
+        meta_keys = {"epoch", "best_psnr", "best_ssim", "losses", "psnrs", "ssims", "in_ch", "base_ch",
+                     "time_dim", "optimizer_state_dict"}
+        assert meta_keys <= set(ckpt), sorted(ckpt)
+        assert (ckpt["in_ch"], ckpt["base_ch"], ckpt["time_dim"]) == (2, 32, 64) and ckpt["epoch"] == 0, ckpt
+
+        denoiser = TinyUNetDenoiser(ckpt["model_state_dict"])
+        assert next(denoiser.model.parameters()).is_cuda
+        zero_counts()
+        t = time.perf_counter()
+        img = denoiser.denoise(xray_png(300, 280, 23))
+        denoise_ms = (time.perf_counter() - t) * 1e3
+        assert counts() == NO_LAUNCHES
+        arr = np.asarray(img)
+        assert img.mode == "L" and img.size == (256, 256) and 0 < arr.std(), (img.mode, img.size)
+        report["tiny_train_slice"]["denoiser"] = {"size": list(img.size), "ms": denoise_ms,
+                                                  "mean": float(arr.mean()), "std": float(arr.std())}
+        print(json.dumps({"tiny_denoiser": report["tiny_train_slice"]["denoiser"]}), flush=True)
     torch.cuda.empty_cache()
     return run["launches"]
 
@@ -1562,8 +1711,9 @@ def profile_train_step(model: str) -> dict:
     Trainer step at 512², fp32 (torch's TF32 defaults, as the CLI runs), at
     the CLI's defaults: SERVE_DIFFUSION at batch 1, SERVE_NAFNET (the
     reference CombinedLoss) at batch 2, SERVE_EXPERT (HybridLoss) at batch
-    4, or the HybridConfig() router and fusion on seeded frozen backends
-    (PerceptualLoss) at batch 6, on a batch made as the CLI makes its
+    4, the HybridConfig() router and fusion on seeded frozen backends
+    (PerceptualLoss) at batch 6, CDDPM_UNET (eps-MSE) at batch 1 or
+    TINY_UNET (the loss against the noise) at batch 4, on a batch made as the CLI makes its
     batches (``to_device`` of NHWC arrays, so the activations are
     channels-last). Wall time (median of 5 after 2 warm-up steps) and peak
     memory beside the device time of one further step under
@@ -1583,6 +1733,15 @@ def profile_train_step(model: str) -> dict:
     elif model == "expert":
         trainer = Trainer(expert_loss_fn(), None, cfg, init_weights(ExpertDenoiser(config.SERVE_EXPERT), gen),
                           no_draw, has_batch_stats=True, device="cuda")
+    elif model == "cddpm":
+        sched = make_schedule(config.SERVE_SCHEDULE, "cuda")
+        trainer = Trainer(cddpm_loss_fn(), None, cfg,
+                          init_weights(UNetDiffusion(config.CDDPM_UNET), gen),
+                          diffusion_draw(sched), device="cuda")
+    elif model == "tiny":
+        trainer = Trainer(tiny_loss_fn(), None, cfg, init_weights(TinyUNet(config.TINY_UNET), gen),
+                          tiny_draw(make_schedule(config.ScheduleConfig(noise_steps=1000), "cuda")),
+                          device="cuda")
     else:
         hc = config.HybridConfig()
         trainer = Trainer(hybrid_loss_fn(make_schedule(hc.schedule, "cuda"), hc.training_diffusion_steps),
@@ -1692,6 +1851,65 @@ def card_vs_cpu(report: dict) -> None:
     assert diff <= CARD_VS_CPU_BOUND, f"card vs CPU rollout differs by {diff}"
 
 
+def _seeded_image(size: int, seed: int) -> torch.Tensor:
+    """A seeded 1x1xHxW radiograph in [0, 1], fp32, on the CPU."""
+    x = np.asarray(Image.open(io.BytesIO(xray_png(size, size, seed))), np.float32) / 255
+    return torch.from_numpy(x)[None, None]
+
+
+def cddpm_rollout_card_vs_cpu(report: dict) -> None:
+    """Phase 9c: one CDDPM_UNET ancestral rollout at 256², fp32 (8 inference
+    steps: 9 scan steps, no eps clamp, 0.5-scaled posterior noise), on the
+    card and on the CPU, same seeded weights, input and ``noise_seq`` (the
+    two devices' generators draw differently, so nothing else compares)."""
+    set_tf32(False)
+    x = _seeded_image(256, 5)
+    n_steps = len(timestep_sequence(config.SERVE_SCHEDULE.noise_steps, 8))
+    seq = torch.randn((n_steps, *x.shape), generator=torch.Generator().manual_seed(8))
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        model = init_weights(UNetDiffusion(config.CDDPM_UNET), torch.Generator().manual_seed(3)).to(dev).eval()
+        with torch.inference_mode():
+            zero_counts()
+            outs[dev] = denoise(model, x.to(dev), make_schedule(config.SERVE_SCHEDULE, dev), 8,
+                                stochastic=True, clamp_eps=False, noise_seq=seq.to(dev)).cpu()
+            launched = counts()
+        if dev == "cuda":
+            card_launches = launched
+    diff = (outs["cuda"] - outs["cpu"]).abs().max().item()
+    res = {"max_abs_diff": diff, "bound": CARD_VS_CPU_BOUND, "scan_steps": n_steps, "launches": card_launches}
+    report["cddpm_rollout_card_vs_cpu"] = res
+    print(json.dumps({"cddpm_rollout_card_vs_cpu": res}), flush=True)
+    assert card_launches == {**NO_LAUNCHES, "flash_fwd": CDDPM_ATTENTION * n_steps}, res
+    assert torch.isfinite(outs["cuda"]).all() and outs["cuda"].shape == x.shape
+    assert diff <= CARD_VS_CPU_BOUND, res
+
+
+def tiny_sample_card_vs_cpu(report: dict) -> None:
+    """Phase 9d: one 12-step ``DDPMScheduler.sample`` of a seeded TINY_UNET
+    at 256², fp32, from the image in [-1, 1], on the card and on the CPU with
+    one shared ``noise_seq``; no port kernel runs."""
+    set_tf32(False)
+    cond = _seeded_image(256, 6) * 2 - 1
+    seq = torch.randn((TINY_STEPS, *cond.shape), generator=torch.Generator().manual_seed(9))
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        model = init_weights(TinyUNet(config.TINY_UNET), torch.Generator().manual_seed(4)).to(dev).eval()
+        with torch.inference_mode():
+            zero_counts()
+            outs[dev] = DDPMScheduler().sample(model, cond.to(dev), TINY_STEPS, noise_seq=seq.to(dev)).cpu()
+            launched = counts()
+        if dev == "cuda":
+            card_launches = launched
+    diff = (outs["cuda"] - outs["cpu"]).abs().max().item()
+    res = {"max_abs_diff": diff, "bound": CARD_VS_CPU_BOUND, "steps": TINY_STEPS, "launches": card_launches}
+    report["tiny_sample_card_vs_cpu"] = res
+    print(json.dumps({"tiny_sample_card_vs_cpu": res}), flush=True)
+    assert card_launches == NO_LAUNCHES, res
+    assert torch.isfinite(outs["cuda"]).all() and outs["cuda"].shape == cond.shape
+    assert diff <= CARD_VS_CPU_BOUND, res
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -1748,12 +1966,16 @@ def main(argv=None) -> int:
     phase("card vs CPU")
     card_vs_cpu(report)
     nafnet_card_vs_cpu(report)
+    cddpm_rollout_card_vs_cpu(report)
+    tiny_sample_card_vs_cpu(report)
 
     phase("one training step, card vs CPU")
     train_step_card_vs_cpu(report)
     nafnet_step_card_vs_cpu(report)
     expert_step_card_vs_cpu(report)
     hybrid_step_card_vs_cpu(report)
+    cddpm_step_card_vs_cpu(report)
+    tiny_step_card_vs_cpu(report)
 
     phase("slice: training through recipes.main at 512², then serving its checkpoint")
     with tempfile.TemporaryDirectory() as keep_dir:  # the hybrid's backends
@@ -1761,11 +1983,15 @@ def main(argv=None) -> int:
         paths["train_nafnet"] = nafnet_train_slice(report, smi, keep_dir)
         paths["train_expert"] = expert_train_slice(report, smi)
         paths["train_hybrid"] = hybrid_train_slice(report, smi, keep_dir)
+    paths["train_cddpm"] = cddpm_train_slice(report, smi)
+    paths["train_tiny"] = tiny_train_slice(report, smi)
     if args.report:
         report["train_step_profile"] = profile_train_step("diffusion")
         report["nafnet_train_step_profile"] = profile_train_step("nafnet")
         report["expert_train_step_profile"] = profile_train_step("expert")
         report["hybrid_train_step_profile"] = profile_train_step("hybrid")
+        report["cddpm_train_step_profile"] = profile_train_step("cddpm")
+        report["tiny_train_step_profile"] = profile_train_step("tiny")
 
     for entry in entries:
         by_path = {p: launched[entry["name"]] for p, launched in paths.items()}

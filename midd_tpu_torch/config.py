@@ -1,10 +1,10 @@
 """Configuration dataclasses and serving presets of the port.
 
-A copy of the parts of ``midd_tpu/config.py`` that the serving path needs (the
-port imports nothing of ``midd_tpu``). The presets are the literals the
-reference service hard-codes (run.py:34-74). Fields of variants the port does
-not run yet (the NAFNet multiscale-intro/additive-skip variant) are absent, so
-asking for them fails.
+A copy of the parts of ``midd_tpu/config.py`` that the port runs (the port
+imports nothing of ``midd_tpu``). The presets are the literals the reference
+service hard-codes (run.py:34-74). Fields of variants the port does not run
+yet (the NAFNet multiscale-intro/additive-skip variant) are absent, so asking
+for them fails.
 """
 
 from __future__ import annotations
@@ -15,8 +15,10 @@ from typing import Tuple
 
 @dataclass(frozen=True)
 class DiffusionUNetConfig:
-    """Conditional epsilon-prediction UNet (DDIM/DDIMModel.py:168-217).
-    The port runs ``skip_mode="ddim"`` only."""
+    """Conditional epsilon-prediction UNet (DDIM/DDIMModel.py:168-217 and the
+    cddpm variant cddpm/cddpmModels.py:176-230). ``skip_mode``: "ddim" puts
+    attention after every ResBlock at the attention resolutions, "cddpm"
+    only after the first up-ResBlock of each of them."""
 
     in_channels: int = 1
     model_channels: int = 48
@@ -25,7 +27,7 @@ class DiffusionUNetConfig:
     attention_resolutions: Tuple[int, ...] = (3,)
     dropout: float = 0.0
     time_emb_dim: int = 192
-    skip_mode: str = "ddim"
+    skip_mode: str = "ddim"  # "ddim" | "cddpm"
 
 
 @dataclass(frozen=True)
@@ -84,6 +86,15 @@ class ScheduleConfig:
 
 
 @dataclass(frozen=True)
+class TinyUNetConfig:
+    """TinyUNet fast experimental model (newfastmodel/modelfunctions.py:111-164)."""
+
+    in_ch: int = 2
+    base_ch: int = 32
+    time_dim: int = 64
+
+
+@dataclass(frozen=True)
 class HybridConfig:
     """HybridDenoisingRouter composition (hybrid3diffusionspeed.py:560-628)."""
 
@@ -112,3 +123,7 @@ TPU_HYBRID = HybridConfig(
     training_diffusion_steps=8,
     inference_diffusion_steps=8,
 )
+
+# Secondary model families.
+CDDPM_UNET = DiffusionUNetConfig(skip_mode="cddpm")
+TINY_UNET = TinyUNetConfig()

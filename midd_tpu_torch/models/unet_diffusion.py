@@ -1,5 +1,9 @@
-"""Conditional epsilon-prediction diffusion UNet, ``skip_mode="ddim"``
-(counterpart of ``midd_tpu/models/unet_diffusion.py``).
+"""Conditional epsilon-prediction diffusion UNet, in both skip modes
+(counterpart of ``midd_tpu/models/unet_diffusion.py``): "ddim" puts attention
+after every ResBlock at the attention resolutions, "cddpm" after the first
+up-ResBlock of each resolution only (cddpm/cddpmModels.py:213-224). Each
+up-ResBlock takes its true input width, the working channels plus the popped
+skip's, in both modes.
 
 The reference's skip bookkeeping is kept exactly: the downs push 13 skips and
 the ups pop 12 (the first skip is never consumed), and each popped skip sets
@@ -69,10 +73,10 @@ def _build_specs(cfg: DiffusionUNetConfig) -> Tuple[List, List, int]:
     ups: List[Tuple[str, int]] = []
     for i in reversed(range(n_res)):
         out_ch = cfg.model_channels * cfg.channel_mult[i]
-        for _ in range(cfg.num_res_blocks + 1):
+        for j in range(cfg.num_res_blocks + 1):
             ups.append(("res", out_ch))
             ch = out_ch
-            if i in cfg.attention_resolutions:
+            if i in cfg.attention_resolutions and (cfg.skip_mode == "ddim" or j == 0):
                 ups.append(("attn", ch))
         if i != 0:
             ups.append(("up", ch))
@@ -83,11 +87,8 @@ class UNetDiffusion(nn.Module):
     def __init__(self, cfg: DiffusionUNetConfig = DiffusionUNetConfig(),
                  fuse_updown: bool = True):
         super().__init__()
-        if cfg.skip_mode != "ddim":
-            raise NotImplementedError(
-                f"skip_mode={cfg.skip_mode!r}: the port runs the ddim UNet only "
-                f"(cddpm is in ROADMAP.md queue 1)"
-            )
+        if cfg.skip_mode not in ("ddim", "cddpm"):
+            raise ValueError(f"skip_mode must be 'ddim' or 'cddpm', got {cfg.skip_mode!r}")
         self.cfg = cfg
         self.fuse_updown = fuse_updown
         self.compute_dtype: Optional[torch.dtype] = None

@@ -9,10 +9,11 @@ trainers call):
 - the expert HybridLoss, L1 + 0.4 (1 - SSIM) + 0.3 x a random-feature
   perceptual distance (DirectUNet/DirectUNetModel.py:257-268);
 - the hybrid PerceptualLoss, mse + 0.5 l1 + 0.3 multi-scale L1
-  (hybrid3diffusionspeed.py:421-445).
+  (hybrid3diffusionspeed.py:421-445);
+- the TinyUNet loss against the noise, 0.5 mse + 0.3 l1 + 0.2 per-direction
+  Sobel L1 (newfastmodel/modelfunctions.py:176-191).
 
-Single-channel NCHW tensors. The tiny family's losses (``edge_loss_xy``,
-``combined_loss_tiny``) are ROADMAP.md queue 1 item 11.
+Single-channel NCHW tensors. The cddpm trainer's loss is plain ``mse``.
 """
 
 from __future__ import annotations
@@ -52,6 +53,13 @@ def sobel_magnitude(x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
 
 def edge_loss(pred: torch.Tensor, target: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     return l1(sobel_magnitude(pred, eps), sobel_magnitude(target, eps))
+
+
+def edge_loss_xy(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    """The TinyUNet's edge loss: the L1 of each Sobel direction, without the
+    magnitude (newfastmodel/modelfunctions.py:176-181)."""
+    return (l1(_conv3x3(pred, SOBEL_X), _conv3x3(target, SOBEL_X))
+            + l1(_conv3x3(pred, SOBEL_Y), _conv3x3(target, SOBEL_Y)))
 
 
 def diffusion_loss(
@@ -163,3 +171,8 @@ def hybrid_loss_expert(pred: torch.Tensor, target: torch.Tensor, dead_grad_ssim:
     if perceptual_weight:
         out = out + perceptual_weight * feature_loss(pred, target)
     return out
+
+
+def combined_loss_tiny(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    """The TinyUNet loss against the noise target (modelfunctions.py:184-191)."""
+    return 0.5 * mse(pred, target) + 0.3 * l1(pred, target) + 0.2 * edge_loss_xy(pred, target)

@@ -12,10 +12,13 @@ Ported, with the reference's hyperparameters and their CLI:
 - ``train_hybrid`` (hybrid3diffusionspeed.py:631-876: epochs 50, bs 6,
   lr 4e-4, cosine to lr/50, PerceptualLoss or pure MSE, frozen NAFNet and
   diffusion backends (and the expert where the fusion sees it), patience 20,
-  5 validation samples).
-
-The cddpm and tiny recipes are ROADMAP.md queue 1 item 13; asking for them
-exits non-zero.
+  5 validation samples);
+- ``train_cddpm`` (cddpm/cddpmModels.py:321-468: epochs 30, bs 1, lr 2e-4,
+  wd 1e-4, the cddpm-mode UNet, plain eps-MSE, validated by the ancestral
+  rollout);
+- ``train_tiny`` (newfastmodel/fastmodeltraining.py:23-79: epochs 18, bs 4,
+  lr 1.5e-4, wd 1e-6, the TinyUNet on the 1000-step schedule, loss against
+  the noise, validated by the 12-step DDPM rollout).
 
 Fresh weights come from the port's seeded ``init_weights`` (flax's
 initialisers cannot be reproduced bit for bit). The best checkpoint is
@@ -26,7 +29,7 @@ the nested ``nafnet_params``, ``diffusion_params``, ``router_params``,
 weights; the port's serving engine reads each of them.
 
 CLI:
-    python -m midd_tpu_torch.train.recipes --model diffusion|nafnet|expert|hybrid \\
+    python -m midd_tpu_torch.train.recipes --model diffusion|nafnet|expert|hybrid|cddpm|tiny \\
         --clear-dir data/clean --noisy-dirs data/noisy [--device cuda|cpu] \\
         [--nafnet-ckpt N.pth --diffusion-ckpt D.pth] ...
 """
@@ -43,18 +46,21 @@ import torch
 import torch.nn as nn
 
 from midd_tpu_torch import config
+from midd_tpu_torch.diffusion.ddpm_scheduler import DDPMScheduler
 from midd_tpu_torch.diffusion.sampler import denoise
 from midd_tpu_torch.diffusion.schedule import make_schedule
 from midd_tpu_torch.models.blocks import init_weights
 from midd_tpu_torch.models.direct_unet import ExpertDenoiser
 from midd_tpu_torch.models.hybrid import RouterFusion
 from midd_tpu_torch.models.nafnet import EnhancedNAFNet
+from midd_tpu_torch.models.tiny_unet import TinyUNet
 from midd_tpu_torch.models.unet_diffusion import UNetDiffusion
 from midd_tpu_torch.train.data import PairedXRayDataset
 from midd_tpu_torch.train.trainer import (
     TrainConfig,
     Trainer,
     TrainerState,
+    cddpm_loss_fn,
     diffusion_draw,
     diffusion_loss_fn,
     expert_loss_fn,
@@ -63,11 +69,12 @@ from midd_tpu_torch.train.trainer import (
     nafnet_loss_fn,
     no_draw,
     plot_training_curves,
+    tiny_draw,
+    tiny_loss_fn,
 )
 from midd_tpu_torch.utils.checkpoint import load_checkpoint
 
 MODELS = ("nafnet", "diffusion", "cddpm", "expert", "hybrid", "tiny")
-PORTED = ("nafnet", "diffusion", "expert", "hybrid")
 # the JAX CLI's --preset tiny
 TINY_UNET = dict(model_channels=8, channel_mult=(1, 2), num_res_blocks=1,
                  attention_resolutions=(1,), time_emb_dim=16)
@@ -95,6 +102,8 @@ _DEFAULTS = {
     "expert": dict(epochs=70, batch_size=4, lr=1e-4, weight_decay=1e-5, warmup_epochs=5),
     "hybrid": dict(epochs=50, batch_size=6, lr=4e-4, weight_decay=1e-4, eta_min_factor=0.02,
                    patience=20),
+    "cddpm": dict(epochs=30, batch_size=1, lr=2e-4, weight_decay=1e-4),
+    "tiny": dict(epochs=18, batch_size=4, lr=1.5e-4, weight_decay=1e-6),
 }
 
 
@@ -288,6 +297,73 @@ def train_hybrid(
     return state
 
 
+def train_cddpm(
+    dataset,
+    model_cfg: config.DiffusionUNetConfig = config.CDDPM_UNET,
+    schedule_cfg: config.ScheduleConfig = config.SERVE_SCHEDULE,
+    train_cfg: Optional[TrainConfig] = None,
+    resume: Optional[str] = None,
+    val_inference_steps: int = 15,
+    device: str = "cuda",
+) -> TrainerState:
+    """The cddpm UNet on plain eps-MSE; validation runs the ancestral rollout
+    (no eps clamp, 0.5-scaled posterior noise) from a generator seeded 0 on
+    the device afresh at each validation, as the JAX recipe uses
+    ``PRNGKey(0)`` each time, so it never advances the trainer's own."""
+    cfg = train_cfg or default_train_config("cddpm")
+    model = init_weights(UNetDiffusion(model_cfg), torch.Generator().manual_seed(cfg.seed))
+    schedule = make_schedule(schedule_cfg, device)
+
+    def eval_fn(model, extra, clean, noisy):
+        gen = torch.Generator(device=noisy.device).manual_seed(0)
+        return denoise(model, noisy, schedule, val_inference_steps, stochastic=True,
+                       clamp_eps=False, generator=gen)
+
+    trainer = Trainer(
+        loss_fn=cddpm_loss_fn(),
+        eval_fn=eval_fn,
+        cfg=cfg,
+        model=model,
+        draw_fn=diffusion_draw(schedule),
+        device=device,
+    )
+    if resume:
+        trainer.resume(resume)
+    return trainer.fit(dataset, _val_samples(dataset, 1),
+                       metadata={**dataclasses.asdict(model_cfg),
+                                 "noise_steps": schedule_cfg.noise_steps})
+
+
+def train_tiny(
+    dataset,
+    model_cfg: config.TinyUNetConfig = config.TINY_UNET,
+    train_cfg: Optional[TrainConfig] = None,
+    device: str = "cuda",
+) -> TrainerState:
+    """The TinyUNet on the 1000-step schedule (``make_schedule``), its loss
+    against the noise in [-1, 1]; validation runs ``DDPMScheduler``'s 12-step
+    rollout from the noisy image in [-1, 1] with a generator seeded 0 on the
+    device afresh at each validation. No resume, as in the JAX recipe."""
+    cfg = train_cfg or default_train_config("tiny")
+    model = init_weights(TinyUNet(model_cfg), torch.Generator().manual_seed(cfg.seed))
+    schedule_1000 = make_schedule(config.ScheduleConfig(noise_steps=1000), device)
+    scheduler = DDPMScheduler()
+
+    def eval_fn(model, extra, clean, noisy):
+        gen = torch.Generator(device=noisy.device).manual_seed(0)
+        return (scheduler.sample(model, noisy * 2.0 - 1.0, steps=12, generator=gen) + 1.0) / 2.0
+
+    trainer = Trainer(
+        loss_fn=tiny_loss_fn(),
+        eval_fn=eval_fn,
+        cfg=cfg,
+        model=model,
+        draw_fn=tiny_draw(schedule_1000),
+        device=device,
+    )
+    return trainer.fit(dataset, _val_samples(dataset, 1), metadata=dataclasses.asdict(model_cfg))
+
+
 def main(argv: Optional[Sequence[str]] = None) -> TrainerState:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--model", required=True, choices=MODELS)
@@ -307,9 +383,8 @@ def main(argv: Optional[Sequence[str]] = None) -> TrainerState:
                     help="tiny = smoke-test widths")
     ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
     args = ap.parse_args(argv)
-    if args.model not in PORTED:
-        ap.error(f"--model {args.model}: only the {', '.join(PORTED)} recipes are "
-                 f"ported; the others are ROADMAP.md queue 1 item 13")
+    if args.model == "tiny" and args.resume:
+        ap.error("--model tiny: the tiny recipe takes no --resume")
 
     dataset = PairedXRayDataset(args.clear_dir, args.noisy_dirs, img_size=args.img_size,
                                 max_samples=args.max_samples,
@@ -331,6 +406,13 @@ def main(argv: Optional[Sequence[str]] = None) -> TrainerState:
                             hybrid_cfg=TINY_HYBRID if tiny else config.HybridConfig(),
                             train_cfg=cfg, resume=args.resume, loss_variant=args.loss_variant,
                             device=args.device)
+    if args.model == "cddpm":
+        mc = config.DiffusionUNetConfig(skip_mode="cddpm", **TINY_UNET) if tiny else config.CDDPM_UNET
+        return train_cddpm(dataset, model_cfg=mc, train_cfg=cfg, resume=args.resume,
+                           device=args.device)
+    if args.model == "tiny":
+        mc = config.TinyUNetConfig(base_ch=8, time_dim=16) if tiny else config.TINY_UNET
+        return train_tiny(dataset, model_cfg=mc, train_cfg=cfg, device=args.device)
     mc = config.DiffusionUNetConfig(**TINY_UNET) if tiny else config.SERVE_DIFFUSION
     return train_diffusion(dataset, model_cfg=mc, train_cfg=cfg, resume=args.resume,
                            device=args.device)

@@ -21,7 +21,7 @@
   saved ``state_dict``, passed to the loss and eval functions as their last
   argument.
 
-The random draws of a step (the diffusion trainer's t and eps) come from a
+The random draws of a step (the diffusion trainers' t and eps) come from a
 ``torch.Generator`` on the training device, seeded from ``cfg.seed``,
 through a draw function of their own, so that a test can feed the JAX
 package's draws instead.
@@ -166,6 +166,47 @@ def diffusion_loss_fn(schedule: Schedule) -> Callable:
         eps_pred = model(x_t, noisy, t)
         return losses.diffusion_loss(eps_pred, eps, x_t, clean,
                                      schedule.to(clean.device).alpha_hat[t])
+
+    return fn
+
+
+def cddpm_loss_fn() -> Callable:
+    """loss(model, batch, draw) -> (loss, parts) of the cddpm trainer
+    (cddpm/cddpmModels.py:372-374): plain MSE between the predicted and the
+    drawn eps, with no clamp and no edge term; its draw is
+    ``diffusion_draw``'s."""
+
+    def fn(model: nn.Module, batch, draw):
+        t, x_t, eps = draw
+        return losses.mse(model(x_t, batch[1], t), eps), {}
+
+    return fn
+
+
+def tiny_draw(schedule_1000: Schedule) -> Callable:
+    """draw(batch, generator) -> (t, x_t, eps) of the TinyUNet trainer: t
+    uniform in [0, noise_steps) and the clean image, moved to [-1, 1],
+    forward-noised on the 1000-step schedule (fastmodeltraining.py:27-49)."""
+
+    def draw(batch, generator: torch.Generator):
+        clean = batch[0] * 2.0 - 1.0
+        t = torch.randint(0, schedule_1000.noise_steps, (clean.shape[0],), generator=generator,
+                          device=generator.device)
+        x_t, eps = noise_images(clean, t, schedule_1000, generator)
+        return t, x_t, eps
+
+    return draw
+
+
+def tiny_loss_fn() -> Callable:
+    """loss(model, batch, draw) -> (loss, parts) of the TinyUNet trainer: the
+    prediction ``model(x_t, t, noisy)``, with the noisy image in [-1, 1],
+    against the drawn noise (``losses.combined_loss_tiny``)."""
+
+    def fn(model: nn.Module, batch, draw):
+        noisy = batch[1] * 2.0 - 1.0
+        t, x_t, eps = draw
+        return losses.combined_loss_tiny(model(x_t, t, noisy), eps), {}
 
     return fn
 

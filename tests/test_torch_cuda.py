@@ -404,3 +404,74 @@ def test_nafnet_apply_fused_on_the_card(cuda):
         assert ffn.naf_ffn_fused.launches == before + 6  # one per NAFBlock
         want = model(x)
     assert (got - want).abs().max().item() <= 1e-4 * want.abs().max().item()
+
+
+# -- the cddpm slice, card vs CPU (chip_smoke.py phases 9c and 10e) -----------------
+
+
+def _cddpm_unet(seed):
+    from midd_tpu_torch import config
+    from midd_tpu_torch.models.blocks import init_weights
+    from midd_tpu_torch.models.unet_diffusion import UNetDiffusion
+
+    return init_weights(UNetDiffusion(config.CDDPM_UNET), torch.Generator().manual_seed(seed))
+
+
+def test_cddpm_train_step_card_vs_cpu(cuda):
+    """One cddpm step (CDDPM_UNET, eps-MSE) at 128², batch 1, fp32: 4 flash
+    forward, 4 dq and 4 dk/dv launches; the loss to 1e-5 relative and each
+    gradient to 1e-4 of its largest entry (floored at 1e-3 of the model's
+    largest: the key biases' gradients are zero in exact arithmetic)."""
+    from midd_tpu_torch import config
+    from midd_tpu_torch.diffusion.schedule import make_schedule
+    from midd_tpu_torch.train.trainer import cddpm_loss_fn
+
+    gen = torch.Generator().manual_seed(5)
+    clean = torch.rand(1, 1, 128, 128, generator=gen)
+    noisy = (clean + 0.1 * torch.randn(clean.shape, generator=gen)).clamp(0, 1)
+    eps = torch.randn(clean.shape, generator=gen)
+    t = torch.tensor([29])
+    sched = make_schedule(config.SERVE_SCHEDULE)
+    ah = sched.alpha_hat[t]
+    x_t = ah.sqrt() * clean + (1 - ah).sqrt() * eps
+    out = {}
+    for dev in ("cuda", "cpu"):
+        model = _cddpm_unet(41).to(dev)
+        before = (fa.flash_attention.launches, fa.flash_bwd_dq.launches, fa.flash_bwd_dkv.launches)
+        loss, _ = cddpm_loss_fn()(model, (clean.to(dev), noisy.to(dev)),
+                                               (t.to(dev), x_t.to(dev), eps.to(dev)))
+        loss.backward()
+        after = (fa.flash_attention.launches, fa.flash_bwd_dq.launches, fa.flash_bwd_dkv.launches)
+        out[dev] = (loss.item(), {n: p.grad.cpu() for n, p in model.named_parameters()},
+                    tuple(a - b for a, b in zip(after, before)))
+    (l_gpu, g_gpu, launched), (l_cpu, g_cpu, _) = out["cuda"], out["cpu"]
+    assert launched == (4, 4, 4)
+    assert abs(l_gpu - l_cpu) <= 1e-5 * abs(l_cpu)
+    top = max(g.abs().max().item() for g in g_cpu.values())
+    for name, g in g_cpu.items():
+        scale = max(g.abs().max().item(), 1e-3 * top)
+        assert (g_gpu[name] - g).abs().max().item() <= 1e-4 * scale, name
+
+
+def test_cddpm_stochastic_rollout_card_vs_cpu(cuda):
+    """An ancestral CDDPM_UNET rollout at 256², 8 inference steps (9 scan
+    steps of 4 flash forwards), no eps clamp, fp32, both devices fed one
+    ``noise_seq``: to 1e-3, the exact rollout's bound."""
+    from midd_tpu_torch import config
+    from midd_tpu_torch.diffusion.sampler import denoise
+    from midd_tpu_torch.diffusion.schedule import make_schedule
+
+    gen = torch.Generator().manual_seed(6)
+    x = torch.rand(1, 1, 256, 256, generator=gen)
+    seq = torch.randn((9, *x.shape), generator=gen)
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        model = _cddpm_unet(3).to(dev).eval()
+        before = fa.flash_attention.launches
+        with torch.inference_mode():
+            outs[dev] = denoise(model, x.to(dev), make_schedule(config.SERVE_SCHEDULE, dev), 8,
+                                stochastic=True, clamp_eps=False, noise_seq=seq.to(dev)).cpu()
+        if dev == "cuda":
+            assert fa.flash_attention.launches - before == 9 * 4
+    assert torch.isfinite(outs["cuda"]).all()
+    assert (outs["cuda"] - outs["cpu"]).abs().max().item() <= 1e-3

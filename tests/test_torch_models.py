@@ -57,9 +57,9 @@ def test_unet_three_levels_odd_ping_pong(rng):
     np.testing.assert_allclose(got, want, atol=5e-4)
 
 
-def test_unet_refuses_cddpm():
-    with pytest.raises(NotImplementedError, match="cddpm"):
-        UNetDiffusion(tcfg.DiffusionUNetConfig(skip_mode="cddpm"))
+def test_cddpm_unet_param_count():
+    model = UNetDiffusion(tcfg.CDDPM_UNET)
+    assert sum(p.numel() for p in model.parameters()) == 12_526_273  # cddpm/cddpmModels.py:176
 
 
 def test_nafnet_odd_size(rng):

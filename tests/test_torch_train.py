@@ -10,9 +10,10 @@
 (f) the data pipeline's arrays against ``midd_tpu.train.data``;
 (g) the ``.pth`` checkpoint: save -> resume, and the port's engine serving
     what the port's trainer wrote;
-(h) the CLI refuses the recipes that are not ported (the NAFNet, expert
-    and hybrid recipes: tests/test_torch_nafnet_train.py,
-    test_torch_expert_train.py, test_torch_hybrid_train.py).
+(h) the CLI trains the diffusion, cddpm and tiny recipes at the tiny preset
+    (the NAFNet, expert and hybrid recipes: tests/test_torch_nafnet_train.py,
+    test_torch_expert_train.py, test_torch_hybrid_train.py; the cddpm and
+    tiny slices in depth: test_torch_cddpm.py, test_torch_tiny.py).
 """
 
 import dataclasses
@@ -444,12 +445,18 @@ def test_engine_serves_a_checkpoint_the_trainer_wrote(rng, tmp_path, monkeypatch
 # -- (h) the CLI -----------------------------------------------------------------
 
 
-@pytest.mark.parametrize("model", ["cddpm", "tiny"])
-def test_cli_refuses_recipes_not_ported(model, capsys):
-    with pytest.raises(SystemExit) as exc:
-        trecipes.main(["--model", model, "--clear-dir", "c", "--noisy-dirs", "n"])
-    assert exc.value.code != 0
-    assert "ROADMAP.md queue 1 item 13" in capsys.readouterr().err
+@pytest.mark.parametrize("model,arch", [
+    ("cddpm", {"model_channels": 8, "time_emb_dim": 16, "skip_mode": "cddpm", "noise_steps": 50}),
+    ("tiny", {"in_ch": 2, "base_ch": 8, "time_dim": 16}),
+])
+def test_cli_trains_the_cddpm_and_tiny_recipes(model, arch, rng, tmp_path, monkeypatch):
+    clean_dir, noisy_dir = _write_pngs(tmp_path, rng, n=4)
+    monkeypatch.chdir(tmp_path)
+    st = trecipes.main(["--model", model, "--clear-dir", clean_dir, "--noisy-dirs", noisy_dir,
+                        "--img-size", "16", "--epochs", "1", "--preset", "tiny", "--device", "cpu"])
+    assert len(st.history["losses"]) == 1 and np.isfinite(st.history["losses"][0])
+    ckpt = load_checkpoint(str(tmp_path / "checkpoints" / f"{model}.pth"))
+    assert {k: ckpt[k] for k in arch} == arch and ckpt["epoch"] == 0
 
 
 def test_cli_trains_the_tiny_preset(rng, tmp_path, monkeypatch):
