@@ -1,7 +1,8 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU: builds the hand-written
 kernels from this checkout and holds each against its plain PyTorch version,
 serves full-width 512² /denoise requests through the port's HTTP server,
-runs the kernel-fused NAFNet forward, trains the full-width diffusion UNet,
+batched at 256², adaptive and bounded at 512² and fused, runs the inference
+and evaluate CLIs, runs the kernel-fused NAFNet forward, trains the full-width diffusion UNet,
 NAFNet, Expert UNet, hybrid router (on the NAFNet and UNet it trained),
 cddpm UNet and TinyUNet through the port's training CLI and serves the
 checkpoints they wrote, and checks the card against the CPU on one exact
@@ -19,7 +20,8 @@ Phases (any failure exits non-zero, and no result line is printed):
    off) at the served shapes, the hybrid trainer's rollout shape (12, 4096,
    96) in fp32, and a few others; timed at the three served sequence
    lengths (N 1024, 4096, 16384; D 96; bf16) and at the training shapes
-   (2 and 12, 4096, 96) in fp32, each call alone (``ms``) and 5 in a row
+   (2 and 12, 4096, 96) in fp32 and at a bucket-8 batch at 256² (16, 1024,
+   96) in both dtypes, each call alone (``ms``) and 5 in a row
    (``ms_batched``), each beside SDPA timed the same two ways in the same
    dtype and the bound (operations over the bf16 or the TF32 peak);
 4. backward kernels vs plain: flash_bwd_dq and flash_bwd_dkv against their
@@ -28,7 +30,10 @@ Phases (any failure exits non-zero, and no result line is printed):
    profiler) and their bounds;
 5. ln2d kernel vs plain at every SERVE_NAFNET stage shape of a 512² input
    (batch 1 and 2, fp32 and bf16; the hybrid trainer's batch 6, fp32, in
-   both layouts) and one ragged shape, fp32 and bf16, with timings (as in
+   both layouts), at every stage of a bucket-8 batch at 256² (fp32 and
+   bf16, untimed) in each layout the engine feeds it there (found by
+   running the NAFNet on such a batch: cuDNN picks each convolution's
+   output layout), and one ragged shape, fp32 and bf16, with timings (as in
    phase 3, and one call's device time under the profiler) and
    ``F.layer_norm`` on a channels-last copy as yardstick, and
    untimed at the channels-last kernel's edges (small P, C 1 and 7, a view
@@ -41,6 +46,24 @@ Phases (any failure exits non-zero, and no result line is printed):
    weights behind the stdlib server; 3 multipart requests, four non-null
    PNGs each, exactly 48 flash forward, 120 ln2d (the nafnet path and the
    hybrid's NAFNet backend) and no backward launches per request;
+8b. batched, adaptive and fused serving and the CLIs, each engine at the
+   SERVE_* presets with seeded demo weights behind the stdlib server,
+   distinct PNGs: (a) 256², batching, auto buckets (1, 2, 4, 8): 8 clients
+   x 2 requests, four PNGs each, fewer batches than requests, one of more
+   than 1, exactly 48 flash forward and 120 ln2d launches a batch; then an
+   exact fp32 engine's one bucket-8 batch of 8 images against each served
+   alone (1e-4); (b) 512², buckets (1,), adaptive turbo from a queue of 3,
+   at most 6 waiting: 12 clients at once, every refusal a 503 with
+   Retry-After and counted in the batcher's ``rejected``, turbo and exact
+   batches both run, 48 flash forward launches an exact batch and 36 a
+   turbo one ((0, 2, 7) on both rollouts), fused requests on (no fused
+   failure; nothing shared with demo weights); (c) 512², fused requests on a
+   router+fusion-only hybrid.pth (backends and rollout shared): 24 flash
+   forward and 60 ln2d launches a request, no fused failure, fused equal to
+   per-path (1e-6), ``GET /ui`` a page; (d) ``inference.main`` --model
+   nafnet --tta on a 512² PNG (240 ln2d launches) and ``evaluate.main``
+   --model hybrid over 4 seeded 512² pairs (reference-exact: 216 flash
+   forward and 240 ln2d launches; finite PSNR and SSIM);
 9. card vs CPU: one exact fp32 diffusion rollout and one fp32 NAFNet forward
    at 256² on both devices, one CDDPM_UNET ancestral rollout at 256² (8
    inference steps, 9 scan steps of 4 flash forward launches, no eps clamp)
@@ -98,7 +121,11 @@ over one NAFNet forward of the ln2d and naf_ffn per-call times of phases 5
 and 6 (computed from isolated calls, not measured in a forward), and the
 same wall/device breakdown and the peak memory for one 512² training step
 of each model (diffusion, NAFNet, expert, hybrid, cddpm, tiny) at its CLI
-batch.
+batch; and, for batched serving, request rate and wall p50 / p95 under 8
+closed-loop clients of 4 requests each, at 256² with buckets (1,) against
+(1, 2, 4, 8) and at 512² with (1,) against (1, 2), in turns (A, B, B, A),
+and one fused 512² request's wall and device time against the per-path
+request's.
 """
 
 from __future__ import annotations
@@ -123,7 +150,7 @@ import torch
 import torch.nn.functional as F
 from PIL import Image
 
-from midd_tpu_torch import config
+from midd_tpu_torch import config, evaluate, inference
 from midd_tpu_torch.diffusion.ddpm_scheduler import DDPMScheduler, TinyUNetDenoiser
 from midd_tpu_torch.diffusion.sampler import denoise
 from midd_tpu_torch.diffusion.schedule import make_schedule, timestep_sequence
@@ -167,6 +194,9 @@ CASES = [
     (12, 4096, 96, torch.float32),  # the hybrid trainer's rollout: batch 6 x 2 heads at 512²
     (2, 1024, 96, torch.bfloat16),
     (2, 16384, 96, torch.bfloat16),
+    # a bucket-8 batch at 256² (phase 8b): 8 images x 2 heads in one launch
+    (16, 1024, 96, torch.bfloat16),
+    (16, 1024, 96, torch.float32),
     (2, 1000, 64, torch.float32),
     (2, 1000, 64, torch.bfloat16),
     (2, 64, 8, torch.float32),
@@ -201,6 +231,9 @@ CARD_VS_CPU_BOUND = 1e-3
 NAF_STAGES = [(32, 512), (64, 256), (128, 128), (256, 64), (512, 32)]
 NAF_BLOCKS = {32: 4, 64: 4, 128: 6, 256: 8, 512: 8}
 NAF_RAGGED = (48, 37, 29)  # (C, H, W): C not a multiple of 32, odd H*W
+# the largest auto bucket at 256² (phase 8b): its NAFNet stages at batch 8
+SERVE_BUCKET = 8
+NAF_STAGES_256 = [(c, s // 2) for c, s in NAF_STAGES]
 # (b, c, h, w, dtype, layout): the staged channels-last kernel at its edges,
 # checked and not timed: small P (C 512 at 4x4: one and two blocks of 8
 # pixels), C 1 and C 7 (bf16: C * 2 not a multiple of 16, so scalar loads),
@@ -308,6 +341,22 @@ TINY_BATCH = 4  # the tiny CLI's batch
 TINY_TRAIN_PAIRS = 8  # 2 steps at the CLI's batch of 4
 TINY_STEPS = 12  # the DDPMScheduler rollout of the tiny recipe and its denoiser
 NO_LAUNCHES = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0, "ln2d": 0, "naf_ffn": 0}
+BATCH_CLIENTS, BATCH_REQUESTS = 8, 2  # phase 8b (a): 8 clients, 2 requests each
+ADAPTIVE_CLIENTS, ADAPTIVE_MAX_QUEUE = 12, 6  # phase 8b (b)
+FUSED_REQUESTS = 3  # phase 8b (c)
+CLI_PAIRS = 4  # phase 8b (d)
+REPORT_CLIENTS, REPORT_REQUESTS = 8, 4  # --report: 8 clients, 4 requests each
+# A bucket-8 batch against each of its images served alone, exact fp32 with
+# TF32 off: the same layers, but cuDNN may pick another algorithm for
+# another batch, so convolution sums run in another order (~1e-6 relative
+# per layer) through the 9-step rollouts; the card-vs-CPU rollout of phase 9
+# reads ~1e-6 under the same conditions. 1e-4 leaves a margin while a path
+# run at reduced precision (TF32 at 2^-11) would not fit.
+BATCH_VS_SINGLE_BOUND = 1e-4
+# fused against per-path: the same modules on the same inputs, on one
+# thread, so the same kernels in the same order; only a computation that
+# differs (another eval precision or schedule) would show.
+FUSED_BOUND = 1e-6
 
 
 def phase(name: str) -> None:
@@ -330,6 +379,13 @@ def time_ms(fn, reps: int = 20, warmup: int = 3, batch: int = 1) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b) / batch)
     return statistics.median(times)
+
+
+def default_tf32() -> None:
+    """torch's defaults, as the server and the trainer run: fp32 matmuls
+    exact, convolutions in TF32."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = True
 
 
 def set_tf32(on: bool) -> None:
@@ -573,13 +629,44 @@ def _isolated_sums(stage_rows: dict, keys: tuple) -> dict:
             for layout, rows in stage_rows.items()}
 
 
+def served_ln2d_layouts() -> dict:
+    """The layouts of the LayerNorm2d inputs of SERVE_NAFNET on a bucket-8
+    batch at 256², fed as the engine feeds it (its NHWC arrays permuted to
+    NCHW): {(C, H): sorted layouts seen there, "channels_last" or "nchw"}.
+    cuDNN picks each convolution's output layout, so both can occur."""
+    model = EnhancedNAFNet(config.SERVE_NAFNET)
+    init_weights(model, torch.Generator().manual_seed(0))
+    model = model.cuda().eval()
+    seen = {}
+
+    def record(mod, args):
+        x = args[0]
+        cl = x.is_contiguous(memory_format=torch.channels_last) and not x.is_contiguous()
+        seen.setdefault((x.shape[1], x.shape[2]), set()).add("channels_last" if cl else "nchw")
+
+    hooks = [m.register_forward_pre_hook(record) for m in model.modules() if isinstance(m, LayerNorm2d)]
+    x = torch.from_numpy(np.zeros((SERVE_BUCKET, 256, 256, 1), np.float32)).permute(0, 3, 1, 2).cuda()
+    with torch.inference_mode():
+        model(x)
+    for h in hooks:
+        h.remove()
+    assert set(seen) == set(NAF_STAGES_256), sorted(seen)
+    return {stage: sorted(layouts) for stage, layouts in seen.items()}
+
+
 def check_ln2d(report: dict) -> dict:
     """Phase 5: the LayerNorm2d kernel against its plain version; returns its
     kernels-line entry (launches filled in from the main paths)."""
     set_tf32(False)
     gen = torch.Generator().manual_seed(2)
     rows, stage_rows = [], {"nchw": [], "channels_last": []}
-    cases = [(*case, True) for case in _kernel_cases()] + [(*case, False) for case in LN_EDGE_CASES]
+    served = served_ln2d_layouts()
+    report["ln2d_layouts_bucket8_256"] = {f"C{c}@{h}": layouts for (c, h), layouts in served.items()}
+    print(json.dumps({"ln2d_layouts_bucket8_256": report["ln2d_layouts_bucket8_256"]}), flush=True)
+    bucket8 = [(SERVE_BUCKET, c, s, s, dtype, layout) for c, s in NAF_STAGES_256
+               for layout in served[(c, s)] for dtype in (torch.float32, torch.bfloat16)]
+    cases = ([(*case, True) for case in _kernel_cases()]
+             + [(*case, False) for case in LN_EDGE_CASES + bucket8])
     for b, c, h, w, dtype, layout, timed in cases:
         x = (2.5 + torch.randn(b, c, h, w, generator=gen)).to("cuda", dtype)  # mean 2.5x the spread
         x = _in_layout(x, layout)
@@ -1027,9 +1114,7 @@ def cli_run(model: str, n_pairs: int, *extra: str):
     synthetic pairs in a temporary working directory, with every Trainer
     step timed and counted and every validation counted. Yields the run's
     record, the TrainerState and the checkpoint directory (deleted on exit)."""
-    # torch's defaults, as a training process runs: fp32 matmuls exact, convs TF32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = True
+    default_tf32()
     steps, vals = [], []
     orig_step, orig_validate = Trainer.train_step, Trainer.validate
 
@@ -1346,23 +1431,38 @@ def http_json(addr, method, path, body=None, headers=None):
         conn.close()
 
 
-def post_denoise(addr, png: bytes, size) -> float:
-    """One multipart POST /denoise; checks four non-null PNGs of ``size`` and
-    returns the request's wall ms."""
+def post_status(addr, png: bytes, size) -> dict:
+    """One multipart POST /denoise: its status, Retry-After header, wall ms
+    and, unless it answered 200, its body. A 200 must hold four non-null
+    PNGs of ``size``."""
     boundary = "smokeboundary"
     body = (f"--{boundary}\r\nContent-Disposition: form-data; name=\"file\"; "
             f"filename=\"x.png\"\r\nContent-Type: image/png\r\n\r\n").encode()
     body += png + f"\r\n--{boundary}--\r\n".encode()
-    t = time.perf_counter()
-    status, out = http_json(addr, "POST", "/denoise", body,
-                            {"Content-Type": f"multipart/form-data; boundary={boundary}"})
-    ms = (time.perf_counter() - t) * 1e3
-    assert status == 200, out
-    for name in MODEL_NAMES:
-        assert out.get(name) is not None, f"path {name} answered null"
-        img = Image.open(io.BytesIO(base64.b64decode(out[name])))
-        assert img.size == size and img.mode == "L", (name, img.size)
-    return ms
+    conn = http.client.HTTPConnection(*addr, timeout=600)
+    try:
+        t = time.perf_counter()
+        conn.request("POST", "/denoise", body, {"Content-Type": f"multipart/form-data; boundary={boundary}"})
+        resp = conn.getresponse()
+        out = json.loads(resp.read())
+        ms = (time.perf_counter() - t) * 1e3
+    finally:
+        conn.close()
+    if resp.status == 200:
+        for name in MODEL_NAMES:
+            assert out.get(name) is not None, f"path {name} answered null"
+            img = Image.open(io.BytesIO(base64.b64decode(out[name])))
+            assert img.size == size and img.mode == "L", (name, img.size)
+    return {"status": resp.status, "retry_after": resp.getheader("Retry-After"), "ms": ms,
+            "body": None if resp.status == 200 else out}
+
+
+def post_denoise(addr, png: bytes, size) -> float:
+    """One multipart POST /denoise; checks four non-null PNGs of ``size`` and
+    returns the request's wall ms."""
+    answer = post_status(addr, png, size)
+    assert answer["status"] == 200, answer
+    return answer["ms"]
 
 
 def _device_us(evt) -> float:
@@ -1718,8 +1818,7 @@ def profile_train_step(model: str) -> dict:
     channels-last). Wall time (median of 5 after 2 warm-up steps) and peak
     memory beside the device time of one further step under
     ``torch.profiler``, by kernel kind."""
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = True
+    default_tf32()
     x = np.asarray(Image.open(io.BytesIO(xray_png(512, 512, 31))), np.float32) / 255
     cfg = recipes.default_train_config(model)
     gen = torch.Generator().manual_seed(0)
@@ -1777,9 +1876,7 @@ def profile_train_step(model: str) -> dict:
 def serve_slice(report: dict, profile: bool) -> dict:
     """Phase 8: full-width serving through the port's server; returns the
     kernel launches of the requests."""
-    # torch's defaults, as a served process runs: fp32 matmuls exact, convs TF32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = True
+    default_tf32()
     t = time.time()
     engine = InferenceEngine(EngineConfig())
     report["engine_build_s"] = time.time() - t
@@ -1829,6 +1926,248 @@ def serve_slice(report: dict, profile: bool) -> dict:
     del engine
     torch.cuda.empty_cache()
     return launches
+
+
+@contextlib.contextmanager
+def serving(engine):
+    """The port's server around ``engine`` on a free port; yields its address
+    and stops it on leaving."""
+    srv = make_server("127.0.0.1", 0, engine=engine)
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    try:
+        yield srv.server_address
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        thread.join(timeout=30)
+
+
+def client_load(addr, pngs_per_client: list, size) -> dict:
+    """Clients that start at once, each posting its PNGs in turn (a closed
+    loop); request rate, wall p50 and p95 of the answered requests."""
+    def client(pngs):
+        return [post_status(addr, png, size) for png in pngs]
+
+    t = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=len(pngs_per_client)) as pool:
+        answers = [a for per_client in pool.map(client, pngs_per_client) for a in per_client]
+    wall = time.perf_counter() - t
+    ms = [a["ms"] for a in answers if a["status"] == 200]
+    return {"answers": answers, "wall_s": wall, "n": len(answers), "n_ok": len(ms),
+            "req_per_s": len(ms) / wall, "p50_ms": statistics.median(ms),
+            "p95_ms": float(np.percentile(ms, 95))}
+
+
+def _load_summary(load: dict, stats: dict, wait_ms) -> dict:
+    return {**{k: v for k, v in load.items() if k != "answers"}, **stats,
+            "mean_batch": stats["requests"] / max(stats["batches"], 1),
+            "queue_wait_p50_ms": statistics.median(wait_ms) if wait_ms else None}
+
+
+def _png_array(png: bytes) -> np.ndarray:
+    return np.asarray(Image.open(io.BytesIO(png)), np.float32)[None, :, :, None] / 255
+
+
+def _launches(flash_fwd: int = 0, ln2d: int = 0) -> dict:
+    return {**NO_LAUNCHES, "flash_fwd": flash_fwd, "ln2d": ln2d}
+
+
+def batched_serving(report: dict) -> dict:
+    """Phase 8b (a): 8 clients x 2 distinct 256² requests through a batching
+    server (auto buckets (1, 2, 4, 8)); one launch of each kernel serves a
+    whole batch. Then an exact engine's bucket-8 batch against each image
+    served alone. Returns the requests' launches."""
+    default_tf32()
+    engine = InferenceEngine(EngineConfig(img_size=256, batching=True))
+    try:
+        assert engine.batcher.buckets == [1, 2, 4, 8], engine.batcher.buckets
+        assert engine.serving_mode()["batching"] is True
+        pngs = [[xray_png(256, 256, seed=1000 + 10 * c + r) for r in range(BATCH_REQUESTS)]
+                for c in range(BATCH_CLIENTS)]
+        with serving(engine) as addr:
+            zero_counts()
+            load = client_load(addr, pngs, (256, 256))
+            launched = counts()
+        stats = engine.batcher.stats
+        summary = _load_summary(load, stats, list(engine.batcher.wait_ms))
+    finally:
+        engine.close()
+    report["serve_batched"] = summary
+    print(json.dumps({"serve_batched": summary}), flush=True)
+    assert all(a["status"] == 200 for a in load["answers"]), load["answers"]
+    assert stats["requests"] == BATCH_CLIENTS * BATCH_REQUESTS, stats
+    assert stats["batches"] < stats["requests"] and stats["max_batch"] > 1, stats
+    assert launched == _launches(48 * stats["batches"], 120 * stats["batches"]), launched
+
+    # exact fp32 (TF32 off): a bucket-8 batch against each image served alone
+    set_tf32(False)
+    exact = InferenceEngine(EngineConfig(img_size=256, batching=True, warmup=False, batch_max_wait_ms=500.0,
+                                         turbo_eps_reuse=1, hybrid_turbo_eps_reuse=1,
+                                         diffusion_eval_bf16=False, hybrid_rollout_bf16=False))
+    try:
+        xs = [_png_array(xray_png(256, 256, seed=1100 + i)) for i in range(SERVE_BUCKET)]
+        futs = [exact.batcher.submit(x) for x in xs]
+        outs = [f.result(timeout=600) for f in futs]
+        stats = exact.batcher.stats
+        err = max(float(np.abs(out[name] - exact.fns[name](x)).max())
+                  for x, out in zip(xs, outs) for name in MODEL_NAMES)
+    finally:
+        exact.close()
+    report["serve_batched"]["exact_bucket8_vs_single"] = {"max_abs_diff": err, "bound": BATCH_VS_SINGLE_BOUND,
+                                                          "batches": stats["batches"]}
+    print(json.dumps({"exact_bucket8_vs_single": report["serve_batched"]["exact_bucket8_vs_single"]}),
+          flush=True)
+    assert stats["batches"] == 1 and stats["max_batch"] == SERVE_BUCKET, stats
+    assert err <= BATCH_VS_SINGLE_BOUND, f"a batch of 8 differs from its images served alone by {err}"
+    return launched
+
+
+def adaptive_serving(report: dict) -> dict:
+    """Phase 8b (b): 12 clients at once at 512², buckets (1,), adaptive turbo
+    from a queue of 3, admission bounded at 6 waiting requests, and fused
+    requests: with seeded demo weights the hybrid has its own backends, so
+    an exact batch's fused call makes the per-path launches (a turbo batch
+    runs the per-path functions)."""
+    default_tf32()
+    engine = InferenceEngine(EngineConfig(batching=True, adaptive_turbo=True, adaptive_queue_depth=3,
+                                          max_queue_depth=ADAPTIVE_MAX_QUEUE, fused_request=True))
+    try:
+        assert engine.batcher.buckets == [1] and set(engine.turbo_fns) == {"diffusion", "hybrid"}
+        assert engine.shares == {"backends": False, "rollout": False}, engine.shares
+        pngs = [[xray_png(512, 512, seed=2000 + c)] for c in range(ADAPTIVE_CLIENTS)]
+        with serving(engine) as addr:
+            zero_counts()
+            load = client_load(addr, pngs, (512, 512))
+            launched = counts()
+        stats = engine.batcher.stats
+        summary = _load_summary(load, stats, list(engine.batcher.wait_ms))
+    finally:
+        engine.close()
+    report["serve_adaptive"] = summary
+    print(json.dumps({"serve_adaptive": summary}), flush=True)
+    refused = [a for a in load["answers"] if a["status"] == 503]
+    assert all(a["status"] in (200, 503) for a in load["answers"]), load["answers"]
+    assert all(a["retry_after"] == "1" and "detail" in a["body"] for a in refused), refused
+    assert len(refused) == stats["rejected"] and stats["requests"] == load["n_ok"], (len(refused), stats)
+    turbo, exact = stats["turbo_batches"], stats["batches"] - stats["turbo_batches"]
+    assert turbo > 0 and exact > 0 and stats["fused_failures"] == 0, stats
+    # a turbo batch: both rollouts at (0, 2, 7), 3 evals x 6 blocks each
+    assert launched == _launches(48 * exact + 36 * turbo, 120 * stats["batches"]), launched
+    return launched
+
+
+def fused_serving(report: dict, profile: bool) -> dict:
+    """Phase 8b (c): fused requests at 512² on a hybrid checkpoint of router
+    and fusion alone, so the NAFNet forward and the rollout are shared; and
+    GET /ui."""
+    default_tf32()
+    with tempfile.TemporaryDirectory() as ckpt_dir:
+        rf = init_weights(RouterFusion(), torch.Generator().manual_seed(11))
+        torch.save({"model_state_dict": rf.state_dict(), "epoch": 0}, os.path.join(ckpt_dir, "hybrid.pth"))
+        engine = InferenceEngine(EngineConfig(ckpt_dir=ckpt_dir, fused_request=True))
+    try:
+        assert engine.shares == {"backends": True, "rollout": True}, engine.shares
+        assert engine.serving_mode()["fused_request"] is True
+        with serving(engine) as addr:
+            conn = http.client.HTTPConnection(*addr, timeout=60)
+            conn.request("GET", "/ui")
+            resp = conn.getresponse()
+            page = resp.read()
+            conn.close()
+            assert resp.status == 200 and resp.getheader("Content-Type").startswith("text/html"), resp.status
+            assert b"/denoise" in page
+            per_request, walls = [], []
+            zero_counts()
+            for i in range(FUSED_REQUESTS):
+                before = counts()
+                walls.append(post_denoise(addr, xray_png(512, 512, seed=3000 + i), (512, 512)))
+                per_request.append(since(before))
+            launched = counts()
+        assert all(r == _launches(24, 60) for r in per_request), per_request
+        assert engine.fused_failures == 0, engine.fused_failures
+        x = _png_array(xray_png(512, 512, seed=3100))
+        fused = engine.fused(x)
+        err = max(float(np.abs(fused[name] - engine.fns[name](x)).max()) for name in MODEL_NAMES)
+        summary = {"request_ms": walls, "launches_per_request": per_request[0],
+                   "fused_vs_per_path_max_abs_diff": err, "bound": FUSED_BOUND,
+                   "fused_failures": engine.fused_failures}
+        if profile:
+            summary["device"] = {}
+            for key, fn in (("fused", lambda: engine.fused(x)),
+                            ("per_path", lambda: engine._on_device_thread(engine._run_all, x))):
+                wall = []
+                for _ in range(5):
+                    t = time.perf_counter()
+                    fn()
+                    wall.append((time.perf_counter() - t) * 1e3)
+                by_kernel, kinds = device_profile(fn)
+                summary["device"][key] = {"wall_p50_ms": statistics.median(wall),
+                                          "device_ms": sum(by_kernel.values()), "device_ms_by_kind": kinds}
+    finally:
+        engine.close()
+    report["serve_fused"] = summary
+    print(json.dumps({"serve_fused": summary}), flush=True)
+    assert err <= FUSED_BOUND, f"fused outputs differ from the per-path ones by {err}"
+    return launched
+
+
+def cli_slice(report: dict) -> dict:
+    """Phase 8b (d): the inference CLI with TTA on one 512² PNG (4 NAFNet
+    forwards) and ``evaluate`` of the hybrid over 4 seeded 512² pairs
+    (reference-exact: 9 fp32 UNet evals an image)."""
+    with tempfile.TemporaryDirectory() as root:
+        none = os.path.join(root, "no_checkpoints")  # seeded demo weights
+        src, out = os.path.join(root, "x.png"), os.path.join(root, "out.png")
+        with open(src, "wb") as f:
+            f.write(xray_png(512, 512, seed=4000))
+        zero_counts()
+        inference.main(["--model", "nafnet", "--image", src, "--out", out, "--tta", "--ckpt-dir", none])
+        inferred = counts()
+        assert Image.open(out).size == (512, 512)
+        for sub in ("clean", "noisy"):
+            os.makedirs(os.path.join(root, sub))
+        for i in range(CLI_PAIRS):
+            clean = _png_array(xray_png(512, 512, seed=4100 + i))[0, :, :, 0]
+            noisy = clean + 0.05 * np.random.default_rng(4200 + i).standard_normal(clean.shape)
+            for sub, arr in (("clean", clean), ("noisy", noisy)):
+                Image.fromarray((np.clip(arr, 0, 1) * 255).astype(np.uint8), mode="L").save(
+                    os.path.join(root, sub, f"img{i}.png"))
+        result = evaluate.main(["--model", "hybrid", "--clear-dir", os.path.join(root, "clean"),
+                                "--noisy-dirs", os.path.join(root, "noisy"), "--ckpt-dir", none])
+        launched = counts()
+    evaluated = {k: launched[k] - inferred[k] for k in launched}
+    report["cli"] = {"inference_launches": inferred, "evaluate_launches": evaluated, "evaluate": result}
+    print(json.dumps({"cli": report["cli"]}), flush=True)
+    assert inferred == _launches(0, 4 * 60), inferred
+    steps = len(timestep_sequence(config.SERVE_SCHEDULE.noise_steps, 8))
+    assert evaluated == _launches(CLI_PAIRS * steps * 6, CLI_PAIRS * 60), evaluated
+    assert result["n"] == CLI_PAIRS and np.isfinite(result["psnr"]) and np.isfinite(result["ssim"]), result
+    return launched
+
+
+def batching_report() -> dict:
+    """``--report`` only: request rate and wall p50 / p95 under 8 closed-loop
+    clients, each bucket set against the other in turns (A, B, B, A): 256²
+    with buckets (1,) and (1, 2, 4, 8), 512² with (1,) and (1, 2)."""
+    default_tf32()
+    out = {}
+    for size, a, b in ((256, (1,), (1, 2, 4, 8)), (512, (1,), (1, 2))):
+        for turn, buckets in enumerate((a, b, b, a)):
+            engine = InferenceEngine(EngineConfig(img_size=size, batching=True, batch_buckets=buckets))
+            try:
+                pngs = [[xray_png(size, size, seed=5000 + 100 * turn + 10 * c + r) for r in range(REPORT_REQUESTS)]
+                        for c in range(REPORT_CLIENTS)]
+                with serving(engine) as addr:
+                    load = client_load(addr, pngs, (size, size))
+                summary = _load_summary(load, engine.batcher.stats, list(engine.batcher.wait_ms))
+            finally:
+                engine.close()
+            assert load["n_ok"] == load["n"], load["answers"]
+            key = f"{size}_buckets_{'-'.join(map(str, buckets))}"
+            out.setdefault(key, []).append(summary)
+            print(json.dumps({"batching_report": key, **summary}), flush=True)
+    return out
 
 
 def card_vs_cpu(report: dict) -> None:
@@ -1962,6 +2301,17 @@ def main(argv=None) -> int:
 
     phase("slice: 512² /denoise through the port's server")
     paths["serve"] = serve_slice(report, profile=args.report is not None)
+
+    phase("slice: batched, adaptive and fused serving, and the inference and evaluate CLIs")
+    t = time.time()
+    paths["serve_batched"] = batched_serving(report)
+    paths["serve_adaptive"] = adaptive_serving(report)
+    paths["serve_fused"] = fused_serving(report, profile=args.report is not None)
+    paths["cli"] = cli_slice(report)
+    report["phase_8b_s"] = time.time() - t
+    print(json.dumps({"phase_8b_s": report["phase_8b_s"]}), flush=True)
+    if args.report:
+        report["batching_report"] = batching_report()
 
     phase("card vs CPU")
     card_vs_cpu(report)

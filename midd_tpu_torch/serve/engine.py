@@ -1,16 +1,22 @@
-"""Serving engine of the port (counterpart of ``midd_tpu/serve/engine.py``,
-default configuration only): loads the four model families, answers a
-request on all four paths with per-path failure isolation, and records
-per-path latency.
+"""Serving engine of the port (counterpart of ``midd_tpu/serve/engine.py``):
+loads the four model families, answers a request on all four paths with
+per-path failure isolation, and records per-path latency. Optionally it
+coalesces concurrent requests into batches (``batching``, with bounded
+admission and load-adaptive turbo tiers: ``serve/batching.py``) and computes
+all four paths of a request in one fused function that shares the hybrid's
+backends with the standalone paths where their weights are the same
+(``fused_request``).
 
 Checkpoint sources per model: ``<ckpt_dir>/<name>.pth`` (a reference-format
 torch file, loaded with ``load_state_dict``), else seeded demo weights. An
 orbax directory ``<ckpt_dir>/<name>/`` raises: reading those is ROADMAP.md
-queue 1 item 9.
+queue 1 item 9. A ``sees_expert`` hybrid feeds its expert branch from
+``<ckpt_dir>/expert_ftl2.pth`` when that file exists, else from the
+standalone expert.
 
-Left out of this slice, so asking for them fails: orbax checkpoints,
-micro-batching, dp/tp/sp parallel serving, int8, AOT pinning, fused
-single-program requests, adaptive turbo and the NAFNet s2d layout.
+Left out, so asking for them fails: orbax checkpoints (queue 1 item 9),
+dp/tp/sp parallel serving (item 15), AOT pinning and the persistent
+compilation cache (item 16), int8 and the NAFNet s2d layout (item 17).
 """
 
 from __future__ import annotations
@@ -20,11 +26,12 @@ import dataclasses
 import json
 import os
 import sys
+import threading
 import time
 import zlib
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
-from typing import Any, Callable, Deque, Dict, Optional
+from typing import Any, Callable, Deque, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -38,6 +45,7 @@ from midd_tpu_torch.models.direct_unet import ExpertDenoiser
 from midd_tpu_torch.models.hybrid import FusionModule, NoiseAnalyzer, hybrid_forward
 from midd_tpu_torch.models.nafnet import EnhancedNAFNet
 from midd_tpu_torch.models.unet_diffusion import UNetDiffusion
+from midd_tpu_torch.serve.batching import MicroBatcher
 from midd_tpu_torch.serve.codec import tensor_to_base64_png
 
 MODEL_NAMES = ("diffusion", "nafnet", "expert", "hybrid")
@@ -74,6 +82,27 @@ class EngineConfig:
     diffusion_eval_bf16: bool = True
     hybrid_rollout_bf16: bool = True
     device: str = "cuda"
+    # coalesce concurrent requests into batches of these sizes (a batch is
+    # padded up to the next bucket); "auto": (1, 2, 4, 8) up to 256², else (1,)
+    batching: bool = False
+    batch_buckets: Any = "auto"
+    batch_max_wait_ms: float = 4.0
+    # all four paths of a request in one function: when the hybrid holds only
+    # router and fusion weights, its NAFNet output (and, with the same steps,
+    # eps setting and eval precision, its rollout) is the standalone path's.
+    # None = off; a fused call that raises falls back to the per-path ones
+    fused_request: Optional[bool] = None
+    # with batching: when adaptive_queue_depth requests still wait after a
+    # batch was collected, the diffusion and hybrid paths run these eps
+    # settings for that batch (a schedule that does not fit the rollout
+    # falls back to k = 2)
+    adaptive_turbo: bool = False
+    adaptive_queue_depth: int = 3
+    adaptive_diffusion_eps: Any = (0, 2, 7)
+    adaptive_hybrid_eps: Any = (0, 2, 7)
+    # bounded admission: more waiting requests than this are refused
+    # (QueueFull; the server answers 503). None = unbounded
+    max_queue_depth: Optional[int] = None
 
 
 def _eps_kwargs(setting) -> Dict[str, Any]:
@@ -110,6 +139,9 @@ class InferenceEngine:
             n: collections.deque(maxlen=256) for n in MODEL_NAMES
         }
         self._device = ThreadPoolExecutor(max_workers=1, thread_name_prefix="engine-device")
+        self._fused_lock = threading.Lock()
+        self._fused_failures = 0
+        self.batcher: Optional[MicroBatcher] = None
         self._build()
 
     # -- checkpoint plumbing -------------------------------------------------
@@ -269,9 +301,12 @@ class InferenceEngine:
             )
         self.diffusion_eps_reuse = dk
 
-        def diffusion_fn(x):
-            out = denoise(unet_eval, x, schedule, cfg.diffusion_steps, **_eps_kwargs(dk))
-            return out.clamp(0.0, 1.0)
+        def make_diffusion_fn(eps_setting):
+            def fn(x):
+                out = denoise(unet_eval, x, schedule, cfg.diffusion_steps, **_eps_kwargs(eps_setting))
+                return out.clamp(0.0, 1.0)
+
+            return fn
 
         # NAFNet and expert paths
         naf_cfg = self._nafnet_cfg_from_meta(self._peek_meta("nafnet"), cfg.nafnet_cfg)
@@ -305,42 +340,120 @@ class InferenceEngine:
         else:
             hyb_unet_eval = computing(hyb_unet, hyb_dt)
 
-        # an expert-fed fusion takes the standalone expert as its fourth input
-        hyb_expert = expert if fusion_cfg.sees_expert else None
+        # An expert-fed fusion takes a fourth input: the expert_ftl2 tree it
+        # was trained beside when the directory holds one, else the
+        # standalone expert. "shared" is also reported for a fusion that
+        # takes no expert, as the JAX engine reports it.
+        hyb_expert = None
+        self.hybrid_expert_tree = "shared"
+        if fusion_cfg.sees_expert:
+            hyb_expert = expert
+            if self._pth("expert_ftl2") is not None:
+                hyb_expert = computing(self._load("expert_ftl2", lambda: ExpertDenoiser(cfg.expert_cfg)), dt)
+                self.hybrid_expert_tree = "expert_ftl2"
 
+        # The hybrid could ride the standalone rollout: same weights, same
+        # schedule, same step count.
+        share_backends = hyb_naf is naf and hyb_unet is unet
+        rollout_shareable = (
+            share_backends and hschedule is schedule
+            and cfg.hybrid_diffusion_steps == cfg.diffusion_steps
+        )
         hk = cfg.hybrid_turbo_eps_reuse
         if hk is None or hk == "auto":
-            hk = (
-                STUDIED_SCHEDULE
-                if cfg.hybrid_diffusion_steps == 8 and _sched_fits(STUDIED_SCHEDULE, hschedule, 8)
-                else 2
-            )
+            if bool(cfg.fused_request) and rollout_shareable and isinstance(dk, int) and dk <= 2:
+                hk = dk  # the fused request computes that rollout anyway
+            elif cfg.hybrid_diffusion_steps == 8 and _sched_fits(STUDIED_SCHEDULE, hschedule, 8):
+                hk = STUDIED_SCHEDULE
+            else:
+                hk = 2
         self.hybrid_eps_reuse = hk
 
-        def hybrid_fn(x):
-            out = hybrid_forward(
-                hyb_naf,
-                lambda a: denoise(hyb_unet_eval, a, hschedule, cfg.hybrid_diffusion_steps,
-                                  **_eps_kwargs(hk)),
-                router,
-                fusion,
-                x,
-                expert_apply=hyb_expert,
-            )
-            return out.clamp(0.0, 1.0)
+        def make_hybrid_fn(eps_setting, naf_fn=hyb_naf, rollout=None):
+            def fn(x):
+                out = hybrid_forward(
+                    naf_fn,
+                    rollout or (lambda a: denoise(hyb_unet_eval, a, hschedule, cfg.hybrid_diffusion_steps,
+                                                  **_eps_kwargs(eps_setting))),
+                    router,
+                    fusion,
+                    x,
+                    expert_apply=hyb_expert,
+                )
+                return out.clamp(0.0, 1.0)
+
+            return fn
 
         paths = {
-            "diffusion": diffusion_fn,
+            "diffusion": make_diffusion_fn(dk),
             "nafnet": lambda x: naf(x).clamp(0.0, 1.0),
             "expert": lambda x: expert(x).clamp(0.0, 1.0),
-            "hybrid": hybrid_fn,
+            "hybrid": make_hybrid_fn(hk),
         }
         self._paths = paths
-        self.fns = {n: self._bind(n) for n in paths}
+        self.fns = {n: self._bind(self._paths, n) for n in paths}
 
-        if cfg.warmup:
-            xw = np.zeros((1, cfg.img_size, cfg.img_size, 1), np.float32)
-            for name, fn in self.fns.items():
+        # The queue-pressure tier of the two rollout paths, each schedule
+        # checked against its own path's rollout length.
+        self._turbo_paths: Dict[str, Callable] = {}
+        self.turbo_fns: Optional[Dict[str, Callable]] = None
+        if cfg.adaptive_turbo:
+            def tier_eps(setting, sched, steps):
+                return setting if _sched_fits(setting, sched, steps) else 2
+
+            self._turbo_paths = {
+                "diffusion": make_diffusion_fn(tier_eps(cfg.adaptive_diffusion_eps, schedule, cfg.diffusion_steps)),
+                "hybrid": make_hybrid_fn(tier_eps(cfg.adaptive_hybrid_eps, hschedule, cfg.hybrid_diffusion_steps)),
+            }
+            self.turbo_fns = {n: self._bind(self._turbo_paths, n) for n in self._turbo_paths}
+
+        # The fused request computes the shared NAFNet forward and, where the
+        # eps settings and the eval model match too, the rollout once.
+        share_rollout = rollout_shareable and hk == dk and hyb_unet_eval is unet_eval
+        self.shares = {"backends": share_backends, "rollout": share_rollout}
+        self._fused_path: Optional[Callable] = None
+        self.fused: Optional[Callable[[np.ndarray], Dict[str, np.ndarray]]] = None
+        if cfg.fused_request:
+            def fused_fn(x):
+                naf_raw = naf(x)
+                diff_raw = denoise(unet_eval, x, schedule, cfg.diffusion_steps, **_eps_kwargs(dk))
+                hybrid = make_hybrid_fn(
+                    hk,
+                    naf_fn=(lambda a: naf_raw) if share_backends else hyb_naf,
+                    rollout=(lambda a: diff_raw) if share_rollout else None,
+                )
+                return {
+                    "diffusion": diff_raw.clamp(0.0, 1.0),
+                    "nafnet": naf_raw.clamp(0.0, 1.0),
+                    "expert": expert(x).clamp(0.0, 1.0),
+                    "hybrid": hybrid(x),
+                }
+
+            self._fused_path = fused_fn
+            self.fused = lambda x: self._on_device_thread(self._run_fused, x)
+
+        s = cfg.img_size
+        if cfg.batching:
+            buckets = cfg.batch_buckets
+            if buckets == "auto":
+                buckets = (1, 2, 4, 8) if s <= 256 else (1,)
+            # the batcher warms every bucket of every function, batch 1 included
+            self.batcher = MicroBatcher(
+                self.fns,
+                buckets=tuple(int(b) for b in buckets),
+                max_wait_ms=cfg.batch_max_wait_ms,
+                warmup_shape=(s, s, 1) if cfg.warmup else None,
+                fused_fn=self.fused,
+                turbo_fns=self.turbo_fns,
+                turbo_queue_depth=cfg.adaptive_queue_depth,
+                max_queue_depth=cfg.max_queue_depth,
+            )
+        elif cfg.warmup:
+            xw = np.zeros((1, s, s, 1), np.float32)
+            warm = dict(self.fns)
+            if self.fused is not None:
+                warm["fused(all4)"] = self.fused
+            for name, fn in warm.items():
                 t = time.time()
                 fn(xw)
                 _log("warmup", model=name, latency_ms=round((time.time() - t) * 1e3, 2))
@@ -349,7 +462,7 @@ class InferenceEngine:
             self.loaded[n] = True
 
     def _to_device(self, x: np.ndarray) -> torch.Tensor:
-        """(1, H, W, 1) NHWC numpy -> (1, 1, H, W) fp32 on the device."""
+        """(B, H, W, 1) NHWC numpy -> (B, 1, H, W) fp32 on the device."""
         return torch.from_numpy(np.ascontiguousarray(x, np.float32)).permute(0, 3, 1, 2).to(self.device)
 
     @staticmethod
@@ -358,17 +471,30 @@ class InferenceEngine:
 
     def _on_device_thread(self, fn: Callable, *args):
         """Run ``fn`` on the engine's one device thread and return its result.
-        All device work happens there: requests are served one at a time,
-        and per-thread caches (PyTorch keeps cuDNN execution plans per
-        thread) stay warm across requests that arrive on new threads."""
+        All device work happens there: batches and requests are served one
+        at a time, and per-thread caches (PyTorch keeps cuDNN execution
+        plans per thread) stay warm across requests that arrive on new
+        threads."""
         return self._device.submit(fn, *args).result()
 
-    def _run(self, name: str, x: np.ndarray) -> np.ndarray:
+    def _run(self, table: Dict[str, Callable], name: str, x: np.ndarray) -> np.ndarray:
         with torch.inference_mode():
-            return self._to_host(self._paths[name](self._to_device(x)))
+            return self._to_host(table[name](self._to_device(x)))
 
-    def _bind(self, name: str) -> Callable[[np.ndarray], np.ndarray]:
-        return lambda x: self._on_device_thread(self._run, name, x)
+    def _bind(self, table: Dict[str, Callable], name: str) -> Callable[[np.ndarray], np.ndarray]:
+        return lambda x: self._on_device_thread(self._run, table, name, x)
+
+    def _run_fused(self, x: np.ndarray) -> Dict[str, np.ndarray]:
+        with torch.inference_mode():
+            outs = self._fused_path(self._to_device(x))
+            return {name: self._to_host(outs[name]) for name in MODEL_NAMES}
+
+    @property
+    def fused_failures(self) -> int:
+        """Fused calls that raised and were answered by the per-path
+        functions, batched or not."""
+        batched = self.batcher.stats["fused_failures"] if self.batcher is not None else 0
+        return self._fused_failures + batched
 
     # -- request processing --------------------------------------------------
 
@@ -389,24 +515,40 @@ class InferenceEngine:
                     outs[name] = None
         return outs
 
+    def _outputs(self, x: np.ndarray) -> Tuple[Dict[str, Optional[np.ndarray]], str]:
+        if self.batcher is not None:
+            return self.batcher.process(x), "batched"  # QueueFull when admission refuses
+        if self.fused is not None:
+            try:
+                return self.fused(x), "fused"
+            except Exception as e:  # noqa: BLE001  fall back to the per-path functions
+                with self._fused_lock:
+                    self._fused_failures += 1
+                _log("fused_failed", error=repr(e))
+        return self._on_device_thread(self._run_all, x), "per_path"
+
     def process_all(self, x: np.ndarray, original_size) -> Dict[str, Optional[str]]:
         """All four paths with per-path failure isolation (run.py:85-101): a
         path that fails answers None and the others still answer. The PNG
-        encode runs on the calling thread, beside the next request's device
-        work."""
+        encode runs on the calling thread, beside the next request's or
+        batch's device work."""
         t_start = time.time()
+        outs, mode = self._outputs(x)
         results: Dict[str, Optional[str]] = {}
-        for name, out in self._on_device_thread(self._run_all, x).items():
+        for name in MODEL_NAMES:
+            out = outs.get(name)
             try:
                 results[name] = None if out is None else tensor_to_base64_png(out, original_size)
             except Exception as e:  # noqa: BLE001  per-path isolation
                 _log("model_failed", model=name, error=repr(e))
                 results[name] = None
-        _log("request_all", latency_ms=round((time.time() - t_start) * 1e3, 2))
+        _log("request_all", mode=mode, latency_ms=round((time.time() - t_start) * 1e3, 2))
         return results
 
     def close(self) -> None:
-        """Stop the device thread."""
+        """Stop the batcher, then the device thread."""
+        if self.batcher is not None:
+            self.batcher.stop()
         self._device.shutdown(wait=True)
 
     def serving_mode(self) -> Dict:
@@ -439,8 +581,16 @@ class InferenceEngine:
             "compute_dtype": _name(dt) if dt is not None else "float32",
             "diffusion_eval_dtype": diff_eval,
             "hybrid_rollout_eval_dtype": hyb_eval,
+            "fused_request": self.fused is not None,
+            "batching": self.batcher is not None,
             "flash_attention": self.device.type == "cuda",
+            "hybrid_expert_tree": self.hybrid_expert_tree,
             "layout": {"unet_fused_updown": True},
+            "adaptive_turbo": {
+                "queue_depth": cfg.adaptive_queue_depth,
+                "diffusion_eps": _eps(cfg.adaptive_diffusion_eps),
+                "hybrid_eps": _eps(cfg.adaptive_hybrid_eps),
+            } if cfg.adaptive_turbo else False,
         }
 
     def health(self) -> Dict:
@@ -452,4 +602,5 @@ class InferenceEngine:
             "device": device,
             "models_loaded": dict(self.loaded),
             "serving_mode": self.serving_mode(),
+            "fused_failures": self.fused_failures,
         }

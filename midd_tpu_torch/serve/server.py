@@ -2,13 +2,18 @@
 ``midd_tpu/serve/server.py`` with the same contract, run.py:174-226):
 
 - ``GET /``        -> {"message", "status", "endpoints"}
-- ``GET /health``  -> {"status", "device", "models_loaded": {4 bools}, "serving_mode"}
+- ``GET /health``  -> {"status", "device", "models_loaded": {4 bools}, "serving_mode",
+  "fused_failures"}
+- ``GET /ui``      -> the single-page web UI (text/html)
 - ``POST /denoise`` multipart/form-data with a ``file`` field (or a raw image
   body) -> {"diffusion","nafnet","expert","hybrid"}: base64 PNG, or null for
-  a path that failed; HTTP 500 {"detail": ...} on request-level errors.
+  a path that failed; HTTP 500 {"detail": ...} on request-level errors; HTTP
+  503 {"detail": ...} with ``Retry-After: 1`` when bounded admission
+  (``--max-queue``) refuses the request.
 
 Run: ``python -m midd_tpu_torch.serve.server --port 8000`` (on the GPU;
-``--device cpu`` runs on the CPU).
+``--device cpu`` runs on the CPU), e.g. with ``--batching --adaptive
+--max-queue 6``.
 """
 
 from __future__ import annotations
@@ -20,8 +25,10 @@ import traceback
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Optional
 
+from midd_tpu_torch.serve.batching import QueueFull
 from midd_tpu_torch.serve.codec import decode_to_tensor
 from midd_tpu_torch.serve.engine import EngineConfig, InferenceEngine
+from midd_tpu_torch.serve.static_ui import UI_HTML
 
 
 def parse_multipart_file(body: bytes, content_type: str) -> Optional[bytes]:
@@ -40,17 +47,23 @@ class _Handler(BaseHTTPRequestHandler):
     engine: InferenceEngine  # set by make_server
     img_size: int = 512
 
-    def _json(self, obj, status: int = 200):
-        data = json.dumps(obj).encode()
+    def _send(self, data: bytes, content_type: str, status: int = 200, headers=()):
         self.send_response(status)
-        self.send_header("Content-Type", "application/json")
+        self.send_header("Content-Type", content_type)
         self.send_header("Content-Length", str(len(data)))
         self.send_header("Access-Control-Allow-Origin", "*")  # run.py:166-172
+        for key, value in headers:
+            self.send_header(key, value)
         self.end_headers()
         self.wfile.write(data)
 
+    def _json(self, obj, status: int = 200, headers=()):
+        self._send(json.dumps(obj).encode(), "application/json", status, headers)
+
     def do_GET(self):  # noqa: N802
-        if self.path == "/":
+        if self.path == "/ui":
+            self._send(UI_HTML.encode(), "text/html; charset=utf-8")
+        elif self.path == "/":
             self._json({
                 "message": "X-Ray Denoising API with Hybrid Routing",
                 "status": "running",
@@ -77,6 +90,8 @@ class _Handler(BaseHTTPRequestHandler):
                 raise ValueError("no file field in request")
             x, original_size = decode_to_tensor(file_bytes, self.img_size)
             self._json(self.engine.process_all(x, original_size))
+        except QueueFull as e:  # bounded admission: a retryable refusal
+            self._json({"detail": str(e)}, 503, headers=[("Retry-After", "1")])
         except Exception as e:  # noqa: BLE001  request-level boundary (run.py:210-213)
             traceback.print_exc()
             self._json({"detail": str(e)}, 500)
@@ -133,6 +148,20 @@ def main(argv=None):
     ap.add_argument("--exact", action="store_true",
                     help="reference-exact fp32 serving: exact rollouts on both "
                          "paths, fp32 UNet evals, TF32 off")
+    ap.add_argument("--fused", action="store_true",
+                    help="all four paths of a request in one fused function, "
+                         "sharing the hybrid's backends where their weights are the same")
+    ap.add_argument("--batching", action="store_true",
+                    help="coalesce concurrent requests into size-bucketed batches")
+    ap.add_argument("--buckets", default=None, metavar="B1,B2,...",
+                    help="explicit batch buckets (default auto: 1,2,4,8 up to 256², else 1)")
+    ap.add_argument("--adaptive", action="store_true",
+                    help="load-adaptive turbo: when --queue-depth requests wait, the "
+                         "rollout paths run their turbo schedules (with --batching)")
+    ap.add_argument("--queue-depth", type=int, default=3, help="adaptive escalation threshold")
+    ap.add_argument("--max-queue", type=int, default=None,
+                    help="bounded admission: 503 beyond this many waiting requests "
+                         "(with --batching)")
     args = ap.parse_args(argv)
     if args.exact:
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -146,6 +175,12 @@ def main(argv=None):
         hybrid_turbo_eps_reuse=1 if args.exact else _parse_eps(args.turbo_hybrid),
         diffusion_eval_bf16=not args.exact,
         hybrid_rollout_bf16=not args.exact,
+        batching=args.batching,
+        fused_request=args.fused or None,
+        batch_buckets=tuple(int(b) for b in args.buckets.split(",")) if args.buckets else "auto",
+        adaptive_turbo=args.adaptive,
+        adaptive_queue_depth=args.queue_depth,
+        max_queue_depth=args.max_queue,
     )
     serve_forever(args.host, args.port, engine_config=cfg)
 

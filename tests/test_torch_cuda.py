@@ -36,6 +36,8 @@ def _qkv(bh, n, d, dtype, seed=0):
 @pytest.mark.parametrize("bh,n,d,dtype", [
     (2, 4096, 96, torch.bfloat16),
     (2, 4096, 96, torch.float32),
+    (16, 1024, 96, torch.bfloat16),  # a bucket-8 batch at 256²: 8 images x 2 heads
+    (16, 1024, 96, torch.float32),
     (3, 777, 128, torch.float32),
     (1, 1, 1, torch.float32),
     (4, 130, 40, torch.bfloat16),
@@ -262,6 +264,8 @@ LN_CASES = LAYOUT_CASES + [
     (2, 1, 9, 7, _FP, "channels_last"), (2, 7, 9, 7, _FP, "channels_last"),
     (2, 7, 9, 7, _BF, "channels_last"),
     (2, 64, 9, 7, _FP, "channels_last_offset"), (2, 64, 9, 7, _BF, "channels_last_offset"),
+    # a bucket-8 batch at 256², the served layout
+    (8, 32, 256, 256, _FP, "channels_last"), (8, 512, 16, 16, _BF, "channels_last"),
 ]
 
 

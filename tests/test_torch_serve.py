@@ -4,7 +4,8 @@
     from JAX-initialised weights with ``state_dict_from_jax``) at a tiny
     config, exact fp32, with the default (0,2,6,7)-style refresh on both
     rollouts; all four per-path outputs agree to 1e-3.
-(b) The port server's HTTP contract, mirroring tests/test_serving.py.
+(b) The port server's HTTP contract, mirroring tests/test_serving.py:
+    ``GET /ui``, and 503 with ``Retry-After`` when bounded admission refuses.
 (c) Importing the port, its server and ``chip_smoke.py`` loads no JAX and
     no ``midd_tpu`` module.
 """
@@ -17,6 +18,8 @@ import os
 import subprocess
 import sys
 import threading
+import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import pytest
@@ -52,6 +55,12 @@ def _tiny(cfg):
         fusion_cfg=cfg.FusionConfig(base_c=16),
         warmup=False,
     )
+
+
+def _small(cfg):
+    """``_tiny`` at 16², with a 2-step rollout over a 6-step schedule."""
+    return {**_tiny(cfg), "img_size": 16, "diffusion_steps": 2, "hybrid_diffusion_steps": 2,
+            "schedule_cfg": cfg.ScheduleConfig(noise_steps=6)}
 
 
 def _write_checkpoints(ckpt_dir, rng):
@@ -131,9 +140,30 @@ def test_exact_mode_and_defaults_in_serving_mode():
 
 
 def test_engine_refuses_fields_outside_the_slice():
-    for field in ("batching", "quantize_int8", "data_parallel", "aot_dir", "fused_request"):
+    for field in ("quantize_int8", "data_parallel", "aot_dir", "tensor_parallel", "spatial_parallel",
+                  "nafnet_s2d", "persistent_cache"):
         with pytest.raises(TypeError):
             EngineConfig(**{field: True})
+
+
+@pytest.mark.parametrize("extra", [
+    {},
+    dict(batching=True, fused_request=True, adaptive_turbo=True, adaptive_queue_depth=5,
+         adaptive_diffusion_eps=2, max_queue_depth=4),
+])
+def test_serving_mode_new_keys_match_the_jax_engine(extra):
+    kw = {**_tiny(tcfg), "ckpt_dir": "/nonexistent", **extra}
+    teng = InferenceEngine(EngineConfig(**kw, device="cpu"))
+    jeng = JEngine(JEngineConfig(**{**kw, **_tiny(jcfg)}, persistent_cache=False))
+    try:
+        got, want = teng.serving_mode(), jeng.serving_mode()
+        for key in ("fused_request", "batching", "hybrid_expert_tree", "adaptive_turbo",
+                    "diffusion_eps", "hybrid_eps", "exact"):
+            assert got[key] == want[key], key
+    finally:
+        teng.close()
+        if jeng.batcher is not None:
+            jeng.batcher.stop()
 
 
 # -- (b) HTTP contract -------------------------------------------------------
@@ -220,6 +250,75 @@ def test_unknown_route_is_404(server, method, path):
     assert status == 404 and out == {"detail": "Not Found"}
 
 
+def test_server_cli_flags_build_the_engine_config(monkeypatch):
+    """The serving flags of the JAX server's CLI, with its semantics."""
+    from midd_tpu_torch.serve import server as srv
+
+    seen = {}
+    monkeypatch.setattr(srv, "serve_forever", lambda host, port, engine_config: seen.update(cfg=engine_config))
+    srv.main(["--batching", "--adaptive", "--max-queue", "6", "--queue-depth", "5", "--buckets", "1,2",
+              "--fused", "--device", "cpu"])
+    cfg = seen["cfg"]
+    assert (cfg.batching, cfg.adaptive_turbo, cfg.max_queue_depth, cfg.adaptive_queue_depth) == (True, True, 6, 5)
+    assert cfg.batch_buckets == (1, 2) and cfg.fused_request is True and cfg.device == "cpu"
+    srv.main([])
+    cfg = seen["cfg"]
+    assert (cfg.batching, cfg.adaptive_turbo, cfg.max_queue_depth, cfg.batch_buckets, cfg.fused_request) == (
+        False, False, None, "auto", None)
+
+
+def test_ui_page(server):
+    conn = http.client.HTTPConnection(server, timeout=120)
+    conn.request("GET", "/ui")
+    resp = conn.getresponse()
+    page = resp.read().decode()
+    conn.close()
+    assert resp.status == 200 and resp.getheader("Content-Type").startswith("text/html")
+    assert "/denoise" in page and "<html" in page
+
+
+def test_full_queue_answers_503_with_retry_after():
+    """Bounded admission: with one request on the device (a slow stub path)
+    and one waiting, the others are refused with 503 and Retry-After: 1."""
+    eng = InferenceEngine(EngineConfig(**_small(tcfg), ckpt_dir="/nonexistent", device="cpu",
+                                       batching=True, batch_buckets=(1,), max_queue_depth=1))
+    expert = eng._paths["expert"]
+
+    def slow_expert(x):
+        time.sleep(0.5)
+        return expert(x)
+
+    eng._paths["expert"] = slow_expert
+    srv = make_server("127.0.0.1", 0, engine=eng)
+    t = threading.Thread(target=srv.serve_forever, daemon=True)
+    t.start()
+    addr = f"127.0.0.1:{srv.server_address[1]}"
+    body, headers = _multipart(_png())
+
+    def post(_):
+        conn = http.client.HTTPConnection(addr, timeout=120)
+        conn.request("POST", "/denoise", body=body, headers=headers)
+        resp = conn.getresponse()
+        out = resp.status, resp.getheader("Retry-After"), json.loads(resp.read())
+        conn.close()
+        return out
+
+    try:
+        with ThreadPoolExecutor(max_workers=6) as pool:
+            answers = list(pool.map(post, range(6), timeout=120))
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        t.join(timeout=10)
+        eng.close()
+    refused = [a for a in answers if a[0] == 503]
+    assert refused and len(refused) == eng.batcher.stats["rejected"]
+    assert all(a[1] == "1" and "detail" in a[2] for a in refused)
+    for status, _, out in answers:
+        if status != 503:
+            assert status == 200 and all(out[n] is not None for n in MODEL_NAMES)
+
+
 def test_failed_path_answers_null_and_others_still_answer():
     """Per-path isolation: a path that raises answers null."""
     eng = InferenceEngine(EngineConfig(
@@ -248,7 +347,8 @@ for m in pkgutil.walk_packages(midd_tpu_torch.__path__, "midd_tpu_torch."):
     importlib.import_module(m.name)
     walked.add(m.name)
 want = {{"midd_tpu_torch." + n for n in ("serve.server", "ops.flash_attention", "train.data",
-        "train.losses", "train.metrics", "train.trainer", "train.recipes", "utils.checkpoint")}}
+        "train.losses", "train.metrics", "train.trainer", "train.recipes", "utils.checkpoint",
+        "serve.batching", "serve.static_ui", "inference", "evaluate")}}
 assert want <= walked, sorted(want - walked)
 {extra}
 bad = sorted(m for m in sys.modules

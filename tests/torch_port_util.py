@@ -62,3 +62,28 @@ def rand(rng: np.random.Generator, *shape) -> np.ndarray:
 
 def image(rng: np.random.Generator, *shape) -> np.ndarray:
     return np.clip(0.5 + 0.2 * rand(rng, *shape), 0.0, 1.0).astype(np.float32)
+
+
+def write_router_fusion_hybrid(port_dir: str, jax_dir: str, rng: np.random.Generator,
+                               router_cfg, fusion_cfg, size: int = 32) -> None:
+    """A trainer-style hybrid checkpoint, router and fusion weights only, in
+    two forms with the same weights: ``hybrid.pth`` in ``port_dir`` and an
+    orbax ``hybrid/`` in ``jax_dir`` (the JAX engine's ``.pth`` reader
+    converts all four groups of a hybrid and refuses a file without its
+    backends)."""
+    import os
+
+    import jax.numpy as jnp
+
+    from midd_tpu import models as jm
+    from midd_tpu.utils.checkpoint import save_checkpoint
+
+    x = jnp.zeros((1, size, size, 1))
+    router = perturb(jax_init(jm.NoiseAnalyzer(router_cfg), x, seed=int(rng.integers(1 << 30))), rng)
+    ins = (x,) * (4 if fusion_cfg.sees_expert else 3)
+    fusion = perturb(jax_init(jm.FusionModule(fusion_cfg), *ins, seed=int(rng.integers(1 << 30))), rng)
+    sd = {f"{prefix}.{k}": v for prefix, tree in (("router", router), ("fusion", fusion))
+          for k, v in state_dict_from_jax(tree).items()}
+    torch.save({"model_state_dict": sd, "epoch": 1}, os.path.join(port_dir, "hybrid.pth"))
+    save_checkpoint(os.path.join(jax_dir, "hybrid"),
+                    {"params": {"router": router["params"], "fusion": fusion["params"]}}, {})
