@@ -9,7 +9,7 @@ checkpoints they wrote, and checks the card against the CPU on one exact
 rollout, one ancestral cddpm rollout, one DDPM rollout of the TinyUNet, one
 NAFNet forward and one training step of each model.
 
-    python3 chip_smoke.py [--report FILE]
+    python3 chip_smoke.py [--report FILE] [--naf-only]
 
 Phases (any failure exits non-zero, and no result line is printed):
 1. device: a CUDA device is required; prints the card's name and power limit;
@@ -39,7 +39,9 @@ Phases (any failure exits non-zero, and no result line is printed):
    untimed at the channels-last kernel's edges (small P, C 1 and 7, a view
    off 16-byte alignment); fp32 must equal the plain version bit for bit
    at every C;
-6. naf_ffn kernel vs plain at the same shapes, fp32 and bf16, with timings;
+6. naf_ffn kernel (tensor cores: bf16 in one pass, fp32 in three TF32
+   passes) vs plain at the same shapes, fp32 and bf16, with timings (as in
+   phase 5) and the bound at the tensor cores' rates;
 7. fused NAFNet forward: ``nafnet_apply_fused`` at SERVE_NAFNET, 512², fp32,
    against the module's forward (TF32 off); exactly 30 naf_ffn launches;
 8. serving slice: InferenceEngine(EngineConfig()) at 512² with seeded demo
@@ -107,6 +109,10 @@ events. The ``total_s`` line counts both under ``profiler``.
 The second-to-last line is the kernels JSON (each flash entry with an
 ``fp32`` object and the times of every timed shape), the last
 {"ok": true, ...}.
+
+``--naf-only`` runs phases 1, 2 (ln2d and naf_ffn), 6 and 7 (with
+phase 7's profile) and prints the kernels line without a result line: an
+A/B of the NAFNet kernels, each tree's own package beside this script.
 
 ``--report FILE`` also measures where a request's and a training step's time
 goes and writes a longer JSON report to FILE: every request and path time, 6
@@ -262,9 +268,19 @@ LN_FP32_REL = 1e-5
 # flash kernels.
 LN_BF16_REL = 2.0 ** -7
 # naf_ffn fp32: the two products sum C (then C) terms in another order than
-# cuBLAS (TF32 off): ~sqrt(C) * 2^-24 of the terms' size each, so ~1e-6 of
-# max|out| at C 512; 1e-5 leaves a margin while a TF32 product (2^-11) would
-# not fit. bf16: as for ln2d.
+# cuBLAS (TF32 off), each term from three TF32 passes (21 of fp32's 24 bits
+# of each operand, the low part truncated by the tensor cores): ~sqrt(C) *
+# 2^-21 of the terms' size, ~1e-6 of max|out| at C 512; 1e-5 leaves a margin
+# while a one-pass TF32 product (2^-11) would not fit. bf16: the kernel
+# rounds xn, the gate g and the conv weights to bf16 before its products
+# (the TPU's default-precision dot does the same), the plain version keeps
+# them in fp32. Each rounding is 2^-9 relative and
+# random in sign, so the residual branch (W5 g + b5) * gamma is off by ~2^-8
+# of its own size, which is a fraction of |x| here (gamma ~ 0.2): under a
+# tenth of a bf16 ulp of out. Out is then rounded to bf16 on both sides, so
+# they differ by at most one ulp of |out| where the fp32 values straddle a
+# rounding boundary: within two ulps of the largest output, 2^-7 * max|out|,
+# as for ln2d.
 FFN_FP32_REL = 1e-5
 FFN_BF16_REL = 2.0 ** -7
 # nafnet_apply_fused vs the module, fp32, TF32 off: the same convolutions;
@@ -394,9 +410,10 @@ def set_tf32(on: bool) -> None:
 
 
 def flash_bound(flops: float, nbytes: float, dtype) -> tuple:
-    """(bound ms, what bounds it) of a flash kernel: its operations over the
-    tensor-core peak of its dtype (fp32: the TF32 peak, the least time any
-    unit of the card could take), or its bytes over the HBM rate."""
+    """(bound ms, what bounds it) of a tensor-core kernel (flash, naf_ffn):
+    its operations over the tensor-core peak of its dtype (fp32: the TF32
+    peak, the least time any unit of the card could take), or its bytes over
+    the HBM rate."""
     peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_TF32_FLOPS
     t_ops, t_bytes = flops / peak * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
     return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
@@ -755,14 +772,20 @@ def check_naf_ffn(report: dict) -> dict:
                "ok": err <= tol and out.dtype == dtype and out.shape == y.shape and out.stride() == y.stride()}
         if b == 1:
             p, elt = b * h * w, y.element_size()
-            # 6 P C^2 for the two products, ~12 P C for the norm, gate, bias and residual
-            t_ops = (6.0 * p * c * c + 12.0 * p * c) / PEAK_FP32_FLOPS * 1e3
-            t_bytes = (2 * p * c * elt + (3 * c * c + 7 * c) * 4) / HBM_BYTES_PER_S * 1e3
+            # 6 P C^2 for the two products, ~12 P C for the norm, gate, bias
+            # and residual, at the tensor cores' rate (TF32 for fp32 y); y
+            # read and out written once, the fp32 parameters read once
+            bound, bound_by = flash_bound(6.0 * p * c * c + 12.0 * p * c,
+                                          2 * p * c * elt + (3 * c * c + 7 * c) * 4, dtype)
+            kernel = lambda: ffn.naf_ffn_fused(y, *params)  # noqa: E731
             row.update({
-                "ms": time_ms(lambda: ffn.naf_ffn_fused(y, *params)),
+                "ms": time_ms(kernel),
                 "plain_ms": time_ms(lambda: ffn.naf_ffn_plain(y, *params)),
                 "library_ms": None,
-                "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                # one call's kernels under the profiler (bf16: with the
+                # wrapper's two weight casts), no host time
+                "device_ms": sum(device_profile(kernel)[0].values()),
+                "bound_ms": bound, "bound_by": bound_by,
                 "calls_per_forward": NAF_BLOCKS.get(c, 0),
             })
             if dtype == torch.float32 and c in NAF_BLOCKS:
@@ -773,7 +796,7 @@ def check_naf_ffn(report: dict) -> dict:
             raise AssertionError(f"naf_ffn disagrees with its plain version: {row}")
     report["naf_ffn_cases"] = rows
     report["naf_ffn_sum_of_isolated_calls_per_forward"] = _isolated_sums(
-        stage_rows, ("ms", "plain_ms", "bound_ms"))
+        stage_rows, ("ms", "device_ms", "plain_ms", "bound_ms"))
     main = stage_rows["nchw"][0]  # C 32 at 512², fp32, NCHW: the layout of phase 7's input
     return {
         "name": "naf_ffn", "route": "cuda", "source": "midd_tpu_torch/csrc/naf_ffn.cu",
@@ -782,6 +805,7 @@ def check_naf_ffn(report: dict) -> dict:
         "bound_ms": main["bound_ms"], "bound_by": main["bound_by"], "library_ms": None,
         "library": "none: no single PyTorch call computes LayerNorm -> 1x1 -> SimpleGate -> 1x1 -> residual",
         "shape": main["shape"], "dtype": "float32", "layout": main["layout"],
+        "device_ms": main["device_ms"],
     }
 
 
@@ -2255,6 +2279,9 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--report", default=None,
                     help="also profile a request and a training step and write a JSON report here")
+    ap.add_argument("--naf-only", action="store_true",
+                    help="run only the device and build phases and phases 6 and 7 (an A/B of the "
+                         "NAFNet kernels); prints no result line")
     args = ap.parse_args(argv)
     t_all = time.time()
     phase("device")
@@ -2274,6 +2301,8 @@ def main(argv=None) -> int:
     t = time.time()
     libraries = {fa.SOURCE: fa._SIGNATURES[fa.SOURCE], fa.BWD_SOURCE: fa._SIGNATURES[fa.BWD_SOURCE],
                  ln.SOURCE: ln._SIGNATURES, ffn.SOURCE: ffn._SIGNATURES}
+    if args.naf_only:  # phase 7's module forward runs ln2d
+        libraries = {ln.SOURCE: ln._SIGNATURES, ffn.SOURCE: ffn._SIGNATURES}
     with ThreadPoolExecutor(max_workers=len(libraries)) as pool:  # one nvcc per source, all at once
         for lib in pool.map(lambda src: _build.build(src, verbose=True), libraries):
             print(lib, flush=True)
@@ -2281,6 +2310,20 @@ def main(argv=None) -> int:
         _build.library(source, signatures)
     report["build_s"] = time.time() - t
     print(json.dumps({"build_s": report["build_s"]}), flush=True)
+
+    if args.naf_only:
+        phase("naf_ffn kernel vs plain")
+        entry = check_naf_ffn(report)
+        phase("slice: nafnet_apply_fused at 512²")
+        entry["launches"] = fused_forward(report, profile=True)["naf_ffn"]
+        report["kernels"] = [entry]
+        if args.report:
+            os.makedirs(os.path.dirname(os.path.abspath(args.report)), exist_ok=True)
+            with open(args.report, "w") as f:
+                json.dump(report, f, indent=1)
+        print(json.dumps({"total_s": time.time() - t_all, "profiler": PROFILER}), flush=True)
+        print(json.dumps({"kernels": [entry]}), flush=True)
+        return 0
 
     phase("forward kernel vs plain")
     entries = [check_kernel(report)]

@@ -1,7 +1,8 @@
 // Warp-level tensor-core pieces shared by the flash-attention forward
-// (flash_fwd.cu) and the flash backward's dq and dk/dv kernels (flash_bwd.cu):
-// asynchronous copies, ldmatrix, mma.sync, the TF32 split and the two warp
-// products that the kernels are made of.
+// (flash_fwd.cu), the flash backward's dq and dk/dv kernels (flash_bwd.cu)
+// and the fused NAFBlock FFN (naf_ffn.cu): asynchronous copies, ldmatrix,
+// mma.sync, the TF32 split and the warp products that the kernels are made of
+// (warp_gemm_nt_tf32x3 and split_tf32_fast serve naf_ffn.cu alone).
 //
 // One loop serves both element types:
 //   bf16: mma.sync.m16n8k16 bf16 x bf16 -> fp32, one pass per product;
@@ -251,6 +252,71 @@ __device__ __forceinline__ void warp_gemm_pv(float (&c)[ND][4], const float (&p)
       M::mma(c[nt], af, bf[0], bf[1]);
       M::mma(c[nt + 1], af, bf[2], bf[3]);
     }
+  }
+}
+
+// x (as fp32 bits) = hi + lo with hi tf32, rounded to nearest (ties away, as
+// cvt.rna) by integer operations, and lo = x - hi exact in fp32, which the
+// tensor core truncates to tf32 (an error of at most 2^-21 |x|, against
+// split_tf32's 2^-22): three full-rate instructions where split_tf32 takes
+// two conversions, which run at a fraction of that rate.
+__device__ __forceinline__ void split_tf32_fast(uint32_t bits, uint32_t& hi, uint32_t& lo) {
+  hi = (bits + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(__uint_as_float(bits) - __uint_as_float(hi));
+}
+
+// warp_gemm_nt<float>'s product, c[16 x 8*NT] += A B over k in [0, DP) on
+// the same operands in three TF32 passes, issued for a warp that has no other
+// work to interleave with it: the fragments of k step s + 1 are loaded before
+// the products of step s are issued (two register buffers), and the passes
+// are issued pass by pass over the NT tiles, so that no mma waits on the
+// ldmatrix or the mma just before it (a warp issues in order, and both are
+// volatile asm, kept in source order). Operands are split by split_tf32_fast,
+// and the passes accumulate in c itself, by the tensor cores' truncating sum
+// over DP / 8 steps (Mma<float> sums each step from zero and adds on the CUDA
+// cores): callers keep DP short, sum from zero and add.
+template <int NT, int DP>
+__device__ __forceinline__ void warp_gemm_nt_tf32x3(float (&c)[NT][4], const float* a, int a_stride,
+                                                    const float* b, int b_stride, int lane) {
+  using M = Mma<float>;
+  constexpr int CHUNK = 4, STEPS = DP / M::K;
+  const int m = lane >> 3;
+  const uint32_t a_addr =
+      smem_addr(a + ((lane & 7) + (m & 1) * 8) * a_stride + (m >> 1) * CHUNK);
+  const uint32_t b_addr =
+      smem_addr(b + ((m >> 1) * 8 + M::nt_row(lane & 7)) * b_stride + (m & 1) * CHUNK);
+  uint32_t ar[2][4], br[2][NT][2];  // raw fragments of two k steps
+  auto load = [&](int s, int buf) {
+    ldsm_x4(ar[buf], a_addr + s * M::K * 4);
+#pragma unroll
+    for (int nt = 0; nt < NT; nt += 2) {
+      uint32_t r[4];
+      ldsm_x4(r, b_addr + (nt * 8 * b_stride + s * M::K) * 4);
+      br[buf][nt][0] = r[0];
+      br[buf][nt][1] = r[1];
+      br[buf][nt + 1][0] = r[2];
+      br[buf][nt + 1][1] = r[3];
+    }
+  };
+  load(0, 0);
+#pragma unroll
+  for (int s = 0; s < STEPS; ++s) {
+    const int cur = s & 1;
+    if (s + 1 < STEPS) load(s + 1, cur ^ 1);
+    uint32_t ah[4], al[4], bh[NT][2], bl[NT][2];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) split_tf32_fast(ar[cur][i], ah[i], al[i]);
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      split_tf32_fast(br[cur][nt][0], bh[nt][0], bl[nt][0]);
+      split_tf32_fast(br[cur][nt][1], bh[nt][1], bl[nt][1]);
+    }
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) mma_tf32_1688(c[nt], al, bh[nt][0], bh[nt][1]);
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) mma_tf32_1688(c[nt], ah, bl[nt][0], bl[nt][1]);
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) mma_tf32_1688(c[nt], ah, bh[nt][0], bh[nt][1]);
   }
 }
 

@@ -70,7 +70,9 @@ def naf_ffn_fused(y, scale, bias, w4, b4, w5, b5, gamma) -> torch.Tensor:
     norm2's (C,); ``w4`` (2C, C[, 1, 1]), ``b4`` (2C,): conv4; ``w5`` (C, C[,
     1, 1]), ``b5`` (C,): conv5; ``gamma`` (C,) or (1, C, 1, 1). CUDA tensors
     launch the kernel (fp32 or bf16 y, contiguous in NCHW or channels-last
-    order; fp32 contiguous parameters), counted in
+    order; fp32 contiguous parameters; for bf16 y the kernel's tensor-core
+    products take xn, the gate and the conv weights rounded to bf16, and the
+    weights are cast here, once a call), counted in
     ``naf_ffn_fused.launches``; CPU tensors take ``naf_ffn_plain``. The
     result has y's layout."""
     ts = (y, scale, bias, w4, b4, w5, b5, gamma)
@@ -93,7 +95,9 @@ def naf_ffn_fused(y, scale, bias, w4, b4, w5, b5, gamma) -> torch.Tensor:
         )
     _check(y, ts[1:])
     strides = pixel_strides(y, "naf_ffn")
-    params = _params(c, scale, bias, w4, b4, w5, b5, gamma)  # views: all are contiguous
+    params = list(_params(c, scale, bias, w4, b4, w5, b5, gamma))  # views: all are contiguous
+    if y.dtype == torch.bfloat16:  # the kernel's bf16 products take bf16 weights: cast once a call
+        params[2], params[4] = params[2].to(torch.bfloat16), params[4].to(torch.bfloat16)
     lib = library(SOURCE, _SIGNATURES)
     if c > lib.midd_naf_ffn_max_channels():
         raise ValueError(f"naf_ffn: C = {c} does not fit a block's shared memory "

@@ -581,11 +581,15 @@ class InferenceEngine:
             "compute_dtype": _name(dt) if dt is not None else "float32",
             "diffusion_eval_dtype": diff_eval,
             "hybrid_rollout_eval_dtype": hyb_eval,
+            "quantize_int8": False,  # the port has no int8 path (EngineConfig refuses the field)
             "fused_request": self.fused is not None,
             "batching": self.batcher is not None,
             "flash_attention": self.device.type == "cuda",
             "hybrid_expert_tree": self.hybrid_expert_tree,
-            "layout": {"unet_fused_updown": True},
+            # the port computes the plain layouts: no NAFNet space-to-depth
+            # and no stage-0 space-to-depth in the UNet (JAX reports True
+            # for the latter; both are exact restructurings)
+            "layout": {"nafnet_s2d": False, "unet_fused_updown": True, "unet_s2d_stage0": False},
             "adaptive_turbo": {
                 "queue_depth": cfg.adaptive_queue_depth,
                 "diffusion_eps": _eps(cfg.adaptive_diffusion_eps),

@@ -351,7 +351,20 @@ def _ffn_inputs(b, c, h, w, dtype, seed=0):
     return (y, *(p.cuda() for p in params))
 
 
-@pytest.mark.parametrize("b,c,h,w,dtype,layout", LAYOUT_CASES)
+# The tensor-core FFN kernel also at C not a multiple of the mma depth or of
+# 16 bytes (C 1 and 7: weights by plain loads), at P not a multiple of a
+# block's rows (128 at C 32, 32 at C 256 at 64², 16 where few blocks), at C 512
+# at batch 2 in bf16, and on a view one element into its storage
+FFN_CASES = LAYOUT_CASES + [
+    (2, 7, 9, 7, _FP, "nchw"), (2, 7, 9, 7, _BF, "channels_last"), (2, 1, 9, 7, _BF, "nchw"),
+    (1, 48, 16, 16, _BF, "nchw"), (1, 32, 130, 131, _FP, "nchw"), (1, 32, 130, 131, _BF, "channels_last"),
+    (1, 256, 64, 64, _FP, "channels_last"), (1, 256, 63, 65, _BF, "nchw"),
+    (2, 512, 32, 32, _BF, "nchw"), (2, 512, 32, 32, _BF, "channels_last"),
+    (2, 64, 9, 7, _FP, "channels_last_offset"), (2, 64, 9, 7, _BF, "channels_last_offset"),
+]
+
+
+@pytest.mark.parametrize("b,c,h,w,dtype,layout", FFN_CASES)
 def test_naf_ffn_kernel_matches_plain(cuda, b, c, h, w, dtype, layout):
     from midd_tpu_torch.ops import naf_ffn as ffn
 
@@ -364,6 +377,22 @@ def test_naf_ffn_kernel_matches_plain(cuda, b, c, h, w, dtype, layout):
     ref = ffn.naf_ffn_plain(*args).float()
     # fp32: products of C terms in another order; bf16: two bf16 ulps
     # (reasons in chip_smoke.py)
+    rel = 2.0 ** -7 if dtype == torch.bfloat16 else 1e-5
+    assert (out.float() - ref).abs().max().item() <= rel * ref.abs().max().item()
+
+
+@pytest.mark.parametrize("dtype", [_FP, _BF])
+def test_naf_ffn_kernel_at_its_largest_c(cuda, dtype):
+    """The largest C the kernel takes: a 16-row block's shared memory at its
+    limit, P (9) under one block."""
+    from midd_tpu_torch.ops import _build
+    from midd_tpu_torch.ops import naf_ffn as ffn
+
+    c = _build.library(ffn.SOURCE, ffn._SIGNATURES).midd_naf_ffn_max_channels()
+    assert c >= 512
+    y, *params = _ffn_inputs(1, c, 3, 3, dtype)
+    out = ffn.naf_ffn_fused(y, *params)
+    ref = ffn.naf_ffn_plain(y, *params).float()
     rel = 2.0 ** -7 if dtype == torch.bfloat16 else 1e-5
     assert (out.float() - ref).abs().max().item() <= rel * ref.abs().max().item()
 

@@ -5,6 +5,8 @@ the CPU as tests/test_naf_ffn.py runs them. On the CPU the port runs the
 kernel's plain version; the kernel is held against that on the card
 (tests/test_torch_cuda.py)."""
 
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -77,6 +79,34 @@ def test_wrapper_rejects_unsupported_devices():
     w = torch.zeros(8, 4, 1, 1, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         tffn.naf_ffn_fused(y, p, p, w, torch.zeros(8, device="meta"), w[:4], p, p)
+
+
+def test_kernel_source_exports_the_wrapper_entry_points():
+    src = tffn.SOURCE.read_text()
+    for name in tffn._SIGNATURES:
+        assert f'extern "C" int {name}(' in src or f'extern "C" const char* {name}(' in src, name
+
+
+def test_kernel_issues_tensor_core_products_and_async_copies():
+    """Both of ``naf_ffn_kernel``'s products go through the warp products of
+    ``flash_mma.cuh`` (tensor-core ``mma.sync`` on ``ldmatrix`` fragments:
+    ``warp_gemm_nt`` for bf16, ``warp_gemm_nt_tf32x3``'s three TF32 passes for
+    fp32) and its weight tiles arrive by ``cp.async``: a return to a loop of
+    CUDA-core FMAs would drop the helpers from the kernel's body. Its numerics
+    are checked on the card."""
+    text = tffn.SOURCE.read_text()
+    start = text.index("\nnaf_ffn_kernel(")
+    body = text[start:text.index("\n}\n", start)]
+    header = (tffn.SOURCE.parent / "flash_mma.cuh").read_text()
+    for helper in ("warp_gemm_nt", "warp_gemm_nt_tf32x3", "cp_async16"):
+        assert re.search(rf"\b{helper}[<(]", body), helper
+        assert re.search(rf"\b{helper}\(", header), helper
+    start = header.index("warp_gemm_nt_tf32x3(")
+    tf32x3 = header[start:header.index("\n}\n", start)]
+    for piece in ("ldsm_x4(", "mma_tf32_1688(", "split_tf32_fast("):
+        assert piece in tf32x3, piece
+    for instruction in ("mma.sync", "ldmatrix", "cp.async", "cvt.rna.tf32.f32"):
+        assert instruction in header, instruction
 
 
 def test_nafnet_apply_fused_matches_jax_and_the_module(rng):
