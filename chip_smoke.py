@@ -7,7 +7,9 @@ NAFNet, Expert UNet, hybrid router (on the NAFNet and UNet it trained),
 cddpm UNet and TinyUNet through the port's training CLI and serves the
 checkpoints they wrote, and checks the card against the CPU on one exact
 rollout, one ancestral cddpm rollout, one DDPM rollout of the TinyUNet, one
-NAFNet forward and one training step of each model.
+NAFNet forward and one training step of each model; then serves with int8
+convolutions (``--int8``) and at the 1024² operating point through the
+server, and runs the MODEL2_NAFNET variant.
 
     python3 chip_smoke.py [--report FILE] [--naf-only]
 
@@ -98,7 +100,32 @@ Phases (any failure exits non-zero, and no result line is printed):
    cddpm's with ``skip_mode``); then an InferenceEngine on each checkpoint
    answers one 512² request (the hybrid's beside its two backends, the
    cddpm's served as the diffusion model: 32 flash forward launches), and a
-   TinyUNetDenoiser on the tiny checkpoint denoises one PNG at 256².
+   TinyUNetDenoiser on the tiny checkpoint denoises one PNG at 256²;
+12. int8: (a) the card's int32 product (``torch._int_mm``) against its
+   plain version (float64 products on the card) bit for bit at every int8
+   conv shape of SERVE_DIFFUSION at 512², batch 1 and 2, timed at batch 1
+   beside cuDNN's bf16 and fp32 convolutions of the same shapes; (b) the
+   server's ``--int8`` configuration (static scales calibrated at startup,
+   its time logged) at 512²: 3 requests, four PNGs each, 48 flash forward
+   and 120 ln2d launches and 8 UNet evals' int8 products a request; the
+   rollout paths' wall, device time and peak memory against a default
+   engine's, and max|int8 - fp32| per path as information; (c) card vs CPU,
+   fp32 with TF32 off, same seeded weights: the calibration at 256²
+   (``INT8_ABSMAX_REL``) and, on the card's scales, one int8 UNet eval and
+   one 256² int8 rollout, each against twice the CPU's own spread when its
+   attention sums in another order (``INT8_SPREAD_RATIO``), the rollout
+   also to ``INT8_ROLLOUT_MAX`` and ``INT8_ROLLOUT_CORR``;
+13. 1024² at full width: the server's ``--img-size 1024`` configuration, 3
+   requests of other sizes, 48 flash forward (N 16384) and 120 ln2d launches
+   each, every path's wall, device time and peak memory; two fp32-eval
+   engines with TF32 off, ``use_flash_attention`` True and False, on one
+   image: the exact path launches no flash kernel and agrees with flash to
+   ``EXACT_VS_FLASH_BOUND`` on the two rollout paths, both timed;
+14. MODEL2_NAFNET: ln2d and naf_ffn against their plain versions at each of
+   its stages of a 512² input (C 24 to 384), fp32 and bf16, both layouts
+   (fp32 ln2d bit for bit); the module at 512² card vs CPU (1e-4 of
+   max|out|); ``nafnet_apply_fused`` against the module on the card, one
+   naf_ffn launch per NAFBlock (23).
 Where ``torch.profiler`` records no device kernel three times running, it
 is off for the rest of the run and device times are taken by CUDA events
 behind a sleep kernel instead (``device_ms_events``). A profile that holds
@@ -138,6 +165,7 @@ from __future__ import annotations
 
 import base64
 import contextlib
+import copy
 import http.client
 import io
 import json
@@ -160,7 +188,7 @@ from midd_tpu_torch import config, evaluate, inference
 from midd_tpu_torch.diffusion.ddpm_scheduler import DDPMScheduler, TinyUNetDenoiser
 from midd_tpu_torch.diffusion.sampler import denoise
 from midd_tpu_torch.diffusion.schedule import make_schedule, timestep_sequence
-from midd_tpu_torch.models.blocks import BatchNorm2d, GroupNorm32, LayerNorm2d, init_weights
+from midd_tpu_torch.models.blocks import AttentionBlock, BatchNorm2d, GroupNorm32, LayerNorm2d, init_weights
 from midd_tpu_torch.models.direct_unet import ExpertDenoiser
 from midd_tpu_torch.models.hybrid import RouterFusion
 from midd_tpu_torch.models.nafnet import EnhancedNAFNet
@@ -170,8 +198,10 @@ from midd_tpu_torch.ops import _build
 from midd_tpu_torch.ops import flash_attention as fa
 from midd_tpu_torch.ops import ln2d as ln
 from midd_tpu_torch.ops import naf_ffn as ffn
+from midd_tpu_torch.ops import qconv
 from midd_tpu_torch.ops.naf_fast import nafnet_apply_fused
-from midd_tpu_torch.serve.engine import MODEL_NAMES, EngineConfig, InferenceEngine
+from midd_tpu_torch.serve import server
+from midd_tpu_torch.serve.engine import MODEL_NAMES, EngineConfig, InferenceEngine, calibration_batches
 from midd_tpu_torch.serve.server import make_server
 from midd_tpu_torch.train import recipes
 from midd_tpu_torch.train.data import to_device
@@ -373,6 +403,41 @@ BATCH_VS_SINGLE_BOUND = 1e-4
 # thread, so the same kernels in the same order; only a computation that
 # differs (another eval precision or schedule) would show.
 FUSED_BOUND = 1e-6
+# int8 (phase 12). The card's int32 product (torch._int_mm) and the plain one
+# (float64 products, exact) sum the same integers: bit for bit. Calibration,
+# card vs CPU, same weights and images, fp32 with TF32 off: each act_absmax is
+# one activation's magnitude after up to ~40 layers summed in another order
+# (~1e-6 relative; the card-vs-CPU rollout of phase 9a reads ~1e-6), so 1e-4
+# relative, while a layer at TF32 (2^-11) would not fit.
+INT8_ABSMAX_REL = 1e-4
+# An int8 eval and rollout, card vs CPU on the same scales: the fp32 sums
+# differ in the last bits, an activation on a rounding boundary of its int8
+# grid then moves by a whole step, and that reaches every later layer. The
+# CPU alone moves as far when only its attention's summation order changes
+# (the flash kernel's plain version in place of the reference: the
+# ``cpu_spread``). On the H100 at 256², full width, seeded weights (my chip
+# run, PR 12, call 2): one eval max 0.198 of |eps| <= 2.2, the CPU's own
+# 0.166 (this sandbox's CPU); the rollout max 0.046, mean 4.2e-3, corr
+# 0.99905 against the CPU spread's 0.044, 4.2e-3, 0.99907. So the mean
+# differences are held to twice the CPU's own spread, and the rollout to the
+# JAX package's int8 wiring bounds besides (tests/test_qconv.py: max < 0.1,
+# corr > 0.995 against fp32). The exact integer products (12a) and the
+# calibrations' agreement to 1e-4 are the sharp checks.
+INT8_SPREAD_RATIO = 2.0
+INT8_ROLLOUT_MAX, INT8_ROLLOUT_CORR = 0.1, 0.995
+INT8_REQUESTS = 3
+INT8_EVALS_PER_REQUEST = 8  # 4 diffusion + 4 hybrid UNet evals at the (0, 2, 6, 7) defaults
+CALIBRATION_CHECK = (256, 2)  # phase 12c: image size, rollout steps
+# 1024² (phase 13): exact attention against flash, both fp32 evals with TF32
+# off: flash's fp32 products in three TF32 passes (~1e-6 relative) against
+# cuBLAS's fp32 ones, through the rollouts: the bound of the batched-vs-
+# single comparison (BATCH_VS_SINGLE_BOUND), for the same reason.
+EXACT_VS_FLASH_BOUND = 1e-4
+REQUESTS_1024 = 3
+# MODEL2_NAFNET at 512² (phase 14): (C, H = W) of each stage, and its NAFBlocks
+MODEL2_STAGES = [(24, 512), (48, 256), (96, 128), (192, 64), (384, 32)]
+MODEL2_BLOCKS = sum(config.MODEL2_NAFNET.enc_blk_nums) + config.MODEL2_NAFNET.middle_blk_num + sum(
+    config.MODEL2_NAFNET.dec_blk_nums)
 
 
 def phase(name: str) -> None:
@@ -809,11 +874,12 @@ def check_naf_ffn(report: dict) -> dict:
     }
 
 
-def perturbed_nafnet(seed: int) -> EnhancedNAFNet:
-    """SERVE_NAFNET with seeded LeCun-normal convs (``init_weights``) and
-    random biases, norm scales and NAFBlock beta/gamma, on the CPU: with the
-    initial zero beta and gamma every NAFBlock is the identity."""
-    model = init_weights(EnhancedNAFNet(config.SERVE_NAFNET), torch.Generator().manual_seed(seed))
+def perturbed_nafnet(seed: int, cfg: config.NAFNetConfig = config.SERVE_NAFNET) -> EnhancedNAFNet:
+    """A NAFNet (SERVE_NAFNET unless ``cfg``) with seeded LeCun-normal convs
+    (``init_weights``) and random biases, norm scales and NAFBlock
+    beta/gamma, on the CPU: with the initial zero beta and gamma every
+    NAFBlock is the identity."""
+    model = init_weights(EnhancedNAFNet(cfg), torch.Generator().manual_seed(seed))
     gen = torch.Generator().manual_seed(seed + 1)
     with torch.no_grad():
         for name, p in model.named_parameters():
@@ -1541,25 +1607,7 @@ def profile_request(engine, addr) -> dict:
     out["process_all"] = {"wall_ms": walls, "p50_ms": statistics.median(walls),
                           "path_p50_ms": _path_p50_since(engine, marks)}
 
-    out["paths"] = {}
-    for name in MODEL_NAMES:
-        fn = engine.fns[name]
-        walls = []
-        for _ in range(5):
-            t = time.perf_counter()
-            fn(x)
-            walls.append((time.perf_counter() - t) * 1e3)
-        before = counts()
-        by_kernel, kinds = device_profile(lambda: fn(x))
-        launched = since(before)
-        wall, device = statistics.median(walls), sum(by_kernel.values())
-        out["paths"][name] = {
-            "wall_ms": walls, "wall_p50_ms": wall, "device_ms": device,
-            "idle_share": 1.0 - device / wall,
-            "launches": launched,
-            "device_ms_by_kind": kinds,
-            "top_kernels": sorted(by_kernel.items(), key=lambda kv: -kv[1])[:15],
-        }
+    out["paths"] = path_times(engine, x, calls=5)
     wall = sum(p["wall_p50_ms"] for p in out["paths"].values())
     device = sum(p["device_ms"] for p in out["paths"].values())
     out["sum_of_paths"] = {"wall_ms": wall, "device_ms": device, "idle_share": 1.0 - device / wall}
@@ -2273,6 +2321,347 @@ def tiny_sample_card_vs_cpu(report: dict) -> None:
     assert diff <= CARD_VS_CPU_BOUND, res
 
 
+# -- phases 12-14: int8 serving, the 1024² operating point, MODEL2_NAFNET ----------
+
+
+def path_times(engine, x: np.ndarray, names=MODEL_NAMES, calls: int = 3) -> dict:
+    """Per path: wall p50 of ``calls`` calls, one call's device time under the
+    profiler (by kind, and its largest kernels), the idle share, the
+    launches of that call and its peak device memory."""
+    out = {}
+    for name in names:
+        fn = engine.fns[name]
+        walls = []
+        for _ in range(calls):
+            t = time.perf_counter()
+            fn(x)
+            walls.append((time.perf_counter() - t) * 1e3)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = counts()
+        by_kernel, kinds = device_profile(lambda: fn(x))
+        wall, device = statistics.median(walls), sum(by_kernel.values())
+        out[name] = {"wall_ms": walls, "wall_p50_ms": wall, "device_ms": device, "idle_share": 1.0 - device / wall,
+                     "launches": since(before), "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                     "device_ms_by_kind": kinds,
+                     "top_kernels": sorted(by_kernel.items(), key=lambda kv: -kv[1])[:15]}
+    return out
+
+
+def int8_conv_shapes(batch: int, size: int = config.SERVE_IMG_SIZE) -> list:
+    """(input shape, out channels, kernel, stride) of each int8 conv call of
+    SERVE_DIFFUSION at ``size``², found by one forward with hooks on the
+    card; and the number of int8 convs a forward runs."""
+    unet = init_weights(UNetDiffusion(config.SERVE_DIFFUSION, quant="dynamic"),
+                        torch.Generator().manual_seed(0)).cuda().eval()
+    seen = []
+    hooks = [m.register_forward_pre_hook(
+        lambda m, a: seen.append((tuple(a[0].shape), m.out_channels, m.kernel_size[0], m.stride[0])))
+        for m in unet.modules() if isinstance(m, qconv.QuantConv2d)]
+    x = torch.rand(batch, 1, size, size, device="cuda")
+    with torch.inference_mode():
+        unet(x, x, torch.zeros(batch, dtype=torch.long, device="cuda"))
+    for hook in hooks:
+        hook.remove()
+    assert len(seen) == len(hooks), (len(seen), len(hooks))
+    return sorted(set(seen)), len(hooks)
+
+
+def int8_products(report: dict) -> int:
+    """Phase 12a: the card's int32 product against the plain one (float64 on
+    the card) at every int8 conv shape of SERVE_DIFFUSION at 512², batch 1
+    and 2, bit for bit; timed at batch 1 beside cuDNN's convolution of the
+    same shape in bf16 and fp32 (TF32 on, the server's default). Returns the
+    number of int8 convs in one UNet forward."""
+    default_tf32()
+    gen = torch.Generator().manual_seed(12)
+    rows = []
+    for batch in (1, 2):
+        shapes, per_forward = int8_conv_shapes(batch)
+        for (b, c, h, w), o, k, stride in shapes:
+            xq = torch.randint(-127, 128, (b, c, h, w), generator=gen, dtype=torch.int8).cuda()
+            wq = torch.randint(-127, 128, (o, c, k, k), generator=gen, dtype=torch.int8).cuda()
+            got = qconv.int8_conv2d(xq, wq, stride, k // 2)
+            want = qconv.int8_conv2d_plain(xq, wq, stride, k // 2)
+            row = {"shape": [b, c, h, w], "out": o, "k": k, "stride": stride,
+                   "bitwise_equal": bool(torch.equal(got, want)), "dtype": str(got.dtype)}
+            if b == 1:
+                xf, wf = xq.float(), wq.float()
+                xb, wb = xf.bfloat16(), wf.bfloat16()
+                row.update({
+                    "int8_ms": time_ms(lambda: qconv.int8_conv2d(xq, wq, stride, k // 2), reps=10),
+                    "cudnn_bf16_ms": time_ms(lambda: F.conv2d(xb, wb, None, stride, k // 2), reps=10),
+                    "cudnn_fp32_ms": time_ms(lambda: F.conv2d(xf, wf, None, stride, k // 2), reps=10),
+                })
+            rows.append(row)
+            if not (row["bitwise_equal"] and got.dtype == torch.int32):
+                raise AssertionError(f"int8 product differs from its plain version: {row}")
+    timed = [r for r in rows if "int8_ms" in r]
+    summary = {"shapes": len(rows), "int8_convs_per_forward": per_forward,
+               "sum_ms_batch1": {k: sum(r[k] for r in timed) for k in ("int8_ms", "cudnn_bf16_ms", "cudnn_fp32_ms")}}
+    report["int8_products"] = {"cases": rows, **summary}
+    print(json.dumps({"int8_products": summary}), flush=True)
+    return per_forward
+
+
+def int8_serving(report: dict, per_forward: int) -> dict:
+    """Phase 12b: the server's ``--int8`` configuration at 512² (static
+    scales calibrated at startup) behind the stdlib server: 3 requests, four
+    PNGs each, 48 flash forward and 120 ln2d launches and 8 UNet evals' int8
+    products a request; then the rollout paths' wall and device time against
+    a default (fp32-weight convolutions) engine on the same image, and
+    max|int8 - fp32| per path as information. Returns the requests'
+    launches."""
+    default_tf32()
+    _, cfg = server.config_from_args(["--int8"])
+    assert cfg.quantize_int8 == "static", cfg
+    t = time.time()
+    engine = InferenceEngine(cfg)
+    build_s = time.time() - t
+    try:
+        mode = engine.serving_mode()
+        assert mode["quantize_int8"] == "static" and mode["exact"] is False, mode
+        assert set(engine.calibration_ms) == {"diffusion", "hybrid"}, engine.calibration_ms
+        with serving(engine) as addr:
+            status, body = http_json(addr, "GET", "/health")
+            assert status == 200 and body["serving_mode"]["quantize_int8"] == "static", body
+            per_request, walls = [], []
+            zero_counts()
+            calls = qconv.int8_conv2d.calls
+            for i in range(INT8_REQUESTS):
+                before = counts()
+                walls.append(post_denoise(addr, xray_png(512, 512, seed=4000 + i), (512, 512)))
+                per_request.append(since(before))
+            launched = counts()
+            int8_calls = qconv.int8_conv2d.calls - calls
+        assert all(r == PER_REQUEST for r in per_request), per_request
+        assert int8_calls == INT8_REQUESTS * INT8_EVALS_PER_REQUEST * per_forward, int8_calls
+        x = _png_array(xray_png(512, 512, seed=4100))
+        reference = InferenceEngine(EngineConfig())
+        try:
+            diff = {n: float(np.abs(engine.fns[n](x) - reference.fns[n](x)).max()) for n in MODEL_NAMES}
+            times = {"int8": path_times(engine, x, ("diffusion", "hybrid")),
+                     "fp32_weights": path_times(reference, x, ("diffusion", "hybrid"))}
+        finally:
+            reference.close()
+    finally:
+        engine.close()
+    summary = {"engine_build_s": build_s, "calibration_ms": engine.calibration_ms, "request_ms": walls,
+               "launches_per_request": per_request[0], "int8_products_per_request": int8_calls // INT8_REQUESTS,
+               "max_abs_int8_minus_fp32": diff, "paths": times}
+    report["serve_int8"] = summary
+    print(json.dumps({"serve_int8": {k: v for k, v in summary.items() if k != "paths"}}), flush=True)
+    print(json.dumps({"serve_int8_paths": {e: {n: {k: p[k] for k in ("wall_p50_ms", "device_ms", "idle_share")}
+                                               for n, p in paths.items()} for e, paths in times.items()}}),
+          flush=True)
+    return launched
+
+
+def int8_card_vs_cpu(report: dict) -> None:
+    """Phase 12c: static int8 on both devices, SERVE_DIFFUSION on the same
+    seeded weights, fp32 with TF32 off: the calibration on the engine's
+    phantom set at 256² (2-step rollouts) on the card against the CPU's
+    (each act_absmax to INT8_ABSMAX_REL); then, with the card's scales
+    loaded on both, one int8 UNet eval and one 256² int8 rollout (8 served
+    steps, exact) on each device. For scale, the CPU's eval and rollout are
+    also taken with its attention through the flash kernel's plain version:
+    the same exact function summed in another order (the ``cpu_spread``);
+    the card must stay within INT8_SPREAD_RATIO of it on the mean."""
+    set_tf32(False)
+    size, steps = CALIBRATION_CHECK
+    base = init_weights(UNetDiffusion(config.SERVE_DIFFUSION, quant="static"), torch.Generator().manual_seed(21))
+    models, scales = {}, {}
+    for dev in ("cuda", "cpu"):
+        models[dev] = copy.deepcopy(base).to(dev).eval()
+        sched = make_schedule(config.SERVE_SCHEDULE, dev)
+        t = time.time()
+        scales[dev] = qconv.calibrate_unet_rollout(qconv.with_quant_mode(models[dev], "calibrate"), sched,
+                                                   calibration_batches(size, dev), steps)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            card_s = time.time() - t
+    worst = max(abs(scales["cuda"][n].item() - scales["cpu"][n].item()) / scales["cpu"][n].item()
+                for n in scales["cpu"])
+    x = _seeded_image(size, 23)
+    t_mid = torch.tensor([24])
+    evals, outs = {}, {}
+    for dev, model in models.items():
+        qconv.load_qscales(model, scales["cuda"])
+        with torch.inference_mode():
+            evals[dev] = model(x.to(dev), x.to(dev), t_mid.to(dev)).cpu()
+            outs[dev] = denoise(model, x.to(dev), make_schedule(config.SERVE_SCHEDULE, dev),
+                                config.SERVE_DIFFUSION_STEPS).cpu()
+    for mod in models["cpu"].modules():
+        if isinstance(mod, AttentionBlock):
+            mod.use_flash = True
+    with torch.inference_mode():
+        spread_eval = models["cpu"](x, x, t_mid)
+        spread = denoise(models["cpu"], x, make_schedule(config.SERVE_SCHEDULE), config.SERVE_DIFFUSION_STEPS)
+
+    def stats(a, b):
+        d = (a - b).abs()
+        return {"max_abs_diff": d.max().item(), "mean_abs_diff": d.mean().item(),
+                "corr": float(np.corrcoef(a.numpy().ravel(), b.numpy().ravel())[0, 1])}
+
+    res = {"convs": len(scales["cpu"]), "absmax_max_rel_diff": worst, "absmax_bound": INT8_ABSMAX_REL,
+           "card_calibration_s": card_s, "eval_max_abs": evals["cpu"].abs().max().item(),
+           "eval": stats(evals["cuda"], evals["cpu"]), "eval_cpu_spread": stats(spread_eval, evals["cpu"]),
+           "rollout": stats(outs["cuda"], outs["cpu"]), "rollout_cpu_spread": stats(spread, outs["cpu"]),
+           "bounds": {"mean_abs_diff_over_cpu_spread": INT8_SPREAD_RATIO, "rollout_max_abs_diff": INT8_ROLLOUT_MAX,
+                      "rollout_corr": INT8_ROLLOUT_CORR}}
+    report["int8_card_vs_cpu"] = res
+    print(json.dumps({"int8_card_vs_cpu": res}), flush=True)
+    assert set(scales["cuda"]) == set(scales["cpu"]) and worst <= INT8_ABSMAX_REL, res
+    assert torch.isfinite(outs["cuda"]).all(), res
+    for key in ("eval", "rollout"):
+        assert res[key]["mean_abs_diff"] <= INT8_SPREAD_RATIO * res[f"{key}_cpu_spread"]["mean_abs_diff"], res
+    assert res["rollout"]["max_abs_diff"] <= INT8_ROLLOUT_MAX and res["rollout"]["corr"] >= INT8_ROLLOUT_CORR, res
+
+
+def serve_1024(report: dict) -> dict:
+    """Phase 13: the 1024² operating point at full SERVE_* width. The
+    server's ``--img-size 1024`` configuration (auto buckets (1,), flash on
+    the card) behind the stdlib server: 3 requests of other sizes, four
+    PNGs each, 48 flash forward (N 16384) and 120 ln2d launches a request;
+    each path's wall, device time and peak memory. Then two fp32-eval
+    engines with TF32 off, ``use_flash_attention`` True and False, on one
+    1024² image: the exact path launches no flash kernel and agrees with
+    flash to EXACT_VS_FLASH_BOUND on the two rollout paths, both timed.
+    Returns the requests' launches."""
+    default_tf32()
+    _, cfg = server.config_from_args(["--img-size", "1024"])
+    t = time.time()
+    engine = InferenceEngine(cfg)
+    build_s = time.time() - t
+    try:
+        assert engine.serving_mode()["img_size"] == 1024 and engine.serving_mode()["flash_attention"] is True
+        sizes = [(1024, 1024), (1100, 900), (800, 1024)]
+        with serving(engine) as addr:
+            per_request, walls = [], []
+            zero_counts()
+            for i, size in enumerate(sizes[:REQUESTS_1024]):
+                before = counts()
+                walls.append(post_denoise(addr, xray_png(*size, seed=5000 + i), size))
+                per_request.append(since(before))
+            launched = counts()
+        assert all(r == PER_REQUEST for r in per_request), per_request
+        x = _png_array(xray_png(1024, 1024, seed=5100))
+        for name in MODEL_NAMES:
+            y = engine.fns[name](x)
+            assert y.shape == (1, 1024, 1024, 1) and np.isfinite(y).all(), name
+            assert y.min() >= 0.0 and y.max() <= 1.0, name
+        served = path_times(engine, x)
+    finally:
+        engine.close()
+    set_tf32(False)
+    fp32 = dict(img_size=1024, warmup=False, diffusion_eval_bf16=False, hybrid_rollout_bf16=False)
+    flash, exact = (InferenceEngine(EngineConfig(**fp32, use_flash_attention=f)) for f in (True, False))
+    try:
+        assert exact.serving_mode()["flash_attention"] is False
+        diff, exact_launches = {}, {}
+        for name in ("diffusion", "hybrid"):
+            before = counts()
+            y = exact.fns[name](x)
+            exact_launches[name] = since(before)["flash_fwd"]
+            diff[name] = float(np.abs(y - flash.fns[name](x)).max())
+        compared = {"flash": path_times(flash, x, ("diffusion", "hybrid")),
+                    "exact": path_times(exact, x, ("diffusion", "hybrid"))}
+    finally:
+        flash.close()
+        exact.close()
+    default_tf32()
+    summary = {"engine_build_s": build_s, "request_ms": walls, "launches_per_request": per_request[0],
+               "paths": served, "exact_vs_flash_max_abs_diff": diff, "bound": EXACT_VS_FLASH_BOUND,
+               "exact_flash_launches": exact_launches, "fp32_evals": compared}
+    report["serve_1024"] = summary
+    print(json.dumps({"serve_1024": {"request_ms": walls, "launches_per_request": per_request[0],
+                                     "exact_vs_flash_max_abs_diff": diff, "bound": EXACT_VS_FLASH_BOUND,
+                                     "exact_flash_launches": exact_launches}}), flush=True)
+    print(json.dumps({"serve_1024_paths": {n: {k: p[k] for k in ("wall_p50_ms", "device_ms", "idle_share",
+                                                                  "peak_gib", "launches")}
+                                           for n, p in served.items()}}), flush=True)
+    print(json.dumps({"serve_1024_fp32_evals": {e: {n: {k: p[k] for k in ("wall_p50_ms", "device_ms", "peak_gib")}
+                                                    for n, p in paths.items()} for e, paths in compared.items()}}),
+          flush=True)
+    assert all(v == 0 for v in exact_launches.values()), exact_launches
+    assert all(d <= EXACT_VS_FLASH_BOUND for d in diff.values()), diff
+    return launched
+
+
+def model2_kernels(report: dict) -> None:
+    """Phase 14a: ln2d and naf_ffn against their plain versions at every
+    MODEL2_NAFNET stage of a 512² input (C 24 to 384), fp32 and bf16, both
+    layouts, with the tolerances of phases 5 and 6 (fp32 ln2d bit for bit);
+    fp32 calls timed."""
+    set_tf32(False)
+    gen = torch.Generator().manual_seed(14)
+    rows = []
+    for c, s in MODEL2_STAGES:
+        for dtype in (torch.float32, torch.bfloat16):
+            for layout in ("nchw", "channels_last"):
+                x = _in_layout((2.5 + torch.randn(1, c, s, s, generator=gen)).to("cuda", dtype), layout)
+                scale, bias = (1 + 0.2 * torch.randn(c, generator=gen)).cuda(), (0.2 * torch.randn(c, generator=gen)).cuda()
+                params = _ffn_params(c, gen)
+                y, y_ref = ln.ln2d(x, scale, bias), ln.ln2d_plain(x, scale, bias)
+                out, out_ref = ffn.naf_ffn_fused(x, *params), ffn.naf_ffn_plain(x, *params)
+                torch.cuda.synchronize()
+                bf16 = dtype == torch.bfloat16
+                row = {"shape": [1, c, s, s], "dtype": _dt(dtype), "layout": layout,
+                       "ln2d_max_abs_err": (y.float() - y_ref.float()).abs().max().item(),
+                       "ln2d_tol": (LN_BF16_REL if bf16 else LN_FP32_REL) * y_ref.float().abs().max().item(),
+                       "ln2d_bitwise_equal": bool(torch.equal(y, y_ref)),
+                       "naf_ffn_max_abs_err": (out.float() - out_ref.float()).abs().max().item(),
+                       "naf_ffn_tol": (FFN_BF16_REL if bf16 else FFN_FP32_REL) * out_ref.float().abs().max().item()}
+                if not bf16:
+                    row["ln2d_ms"] = time_ms(lambda: ln.ln2d(x, scale, bias), reps=10)
+                    row["naf_ffn_ms"] = time_ms(lambda: ffn.naf_ffn_fused(x, *params), reps=10)
+                row["ok"] = (row["ln2d_max_abs_err"] <= row["ln2d_tol"] and (bf16 or row["ln2d_bitwise_equal"])
+                             and row["naf_ffn_max_abs_err"] <= row["naf_ffn_tol"]
+                             and y.stride() == x.stride() and out.stride() == x.stride())
+                print(json.dumps({"model2_kernels": row}), flush=True)
+                rows.append(row)
+                if not row["ok"]:
+                    raise AssertionError(f"a NAFNet kernel disagrees with its plain version at MODEL2: {row}")
+    report["model2_kernels"] = rows
+
+
+def model2_slice(report: dict) -> dict:
+    """Phase 14b: MODEL2_NAFNET at 512², fp32 with TF32 off, on perturbed
+    seeded weights: the card's module forward against the CPU's (1e-4 of
+    max|out|, as phase 9b), then ``nafnet_apply_fused`` against the module
+    on the card (one naf_ffn launch per NAFBlock, 1e-4 of max|out| as phase
+    7). Returns the fused forward's launches."""
+    set_tf32(False)
+    model = perturbed_nafnet(27, config.MODEL2_NAFNET).eval()
+    assert sum(p.numel() for p in model.parameters()) == 10_803_361
+    x = _seeded_image(512, 29)
+    with torch.inference_mode():
+        cpu = model(x)
+        card_model = model.cuda()
+        xc = x.cuda()
+        module = card_model(xc)
+        zero_counts()
+        fused = nafnet_apply_fused(card_model, xc)
+        torch.cuda.synchronize()
+        launched = counts()
+        times = {"module_ms": time_ms(lambda: card_model(xc), reps=10),
+                 "fused_ms": time_ms(lambda: nafnet_apply_fused(card_model, xc), reps=10)}
+    top = cpu.abs().max().item()
+    res = {"params": 10_803_361, "card_vs_cpu_max_abs_diff": (module.cpu() - cpu).abs().max().item(),
+           "card_vs_cpu_bound": NAFNET_CARD_VS_CPU_REL * top,
+           "fused_vs_module_max_abs_diff": (fused - module).abs().max().item(),
+           "fused_bound": NAFNET_FUSED_REL * module.abs().max().item(), "launches": launched, **times}
+    report["model2"] = res
+    print(json.dumps({"model2": res}), flush=True)
+    assert launched == {**NO_LAUNCHES, "naf_ffn": MODEL2_BLOCKS}, launched
+    assert torch.isfinite(fused).all() and fused.shape == (1, 1, 512, 512)
+    assert res["card_vs_cpu_max_abs_diff"] <= res["card_vs_cpu_bound"], res
+    assert res["fused_vs_module_max_abs_diff"] <= res["fused_bound"], res
+    del card_model
+    torch.cuda.empty_cache()
+    return launched
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -2385,6 +2774,24 @@ def main(argv=None) -> int:
         report["hybrid_train_step_profile"] = profile_train_step("hybrid")
         report["cddpm_train_step_profile"] = profile_train_step("cddpm")
         report["tiny_train_step_profile"] = profile_train_step("tiny")
+
+    phase("slice: int8 serving (--int8) at 512²")
+    t = time.time()
+    paths["serve_int8"] = int8_serving(report, int8_products(report))
+    int8_card_vs_cpu(report)
+    report["phase_12_s"] = time.time() - t
+
+    phase("slice: the 1024² operating point at full width")
+    t = time.time()
+    paths["serve_1024"] = serve_1024(report)
+    report["phase_13_s"] = time.time() - t
+
+    phase("slice: MODEL2_NAFNET at 512²")
+    t = time.time()
+    model2_kernels(report)
+    paths["model2_fused"] = model2_slice(report)
+    report["phase_14_s"] = time.time() - t
+    print(json.dumps({k: report[k] for k in ("phase_12_s", "phase_13_s", "phase_14_s")}), flush=True)
 
     for entry in entries:
         by_path = {p: launched[entry["name"]] for p, launched in paths.items()}

@@ -2,9 +2,7 @@
 
 A copy of the parts of ``midd_tpu/config.py`` that the port runs (the port
 imports nothing of ``midd_tpu``). The presets are the literals the reference
-service hard-codes (run.py:34-74). Fields of variants the port does not run
-yet (the NAFNet multiscale-intro/additive-skip variant) are absent, so asking
-for them fails.
+service hard-codes (run.py:34-74).
 """
 
 from __future__ import annotations
@@ -32,13 +30,17 @@ class DiffusionUNetConfig:
 
 @dataclass(frozen=True)
 class NAFNetConfig:
-    """EnhancedNAFNet (NafNet/NafnetModel.py:232-309), plain topology."""
+    """EnhancedNAFNet (NafNet/NafnetModel.py:232-309) and the model2 variant
+    (Backend/model2.py:75-153: multiscale intro convs + additive skips, no
+    skip_convs)."""
 
     img_channel: int = 1
     width: int = 32
     middle_blk_num: int = 8
     enc_blk_nums: Tuple[int, ...] = (2, 2, 4, 6)
     dec_blk_nums: Tuple[int, ...] = (2, 2, 2, 2)
+    multiscale_intro: bool = False  # model2.py:109-127
+    additive_skips: bool = False  # model2.py:138-141 (True => no skip_convs)
 
     @property
     def padder_size(self) -> int:
@@ -127,3 +129,11 @@ TPU_HYBRID = HybridConfig(
 # Secondary model families.
 CDDPM_UNET = DiffusionUNetConfig(skip_mode="cddpm")
 TINY_UNET = TinyUNetConfig()
+MODEL2_NAFNET = NAFNetConfig(
+    width=24,
+    enc_blk_nums=(1, 2, 2, 4),
+    dec_blk_nums=(1, 1, 2, 2),
+    middle_blk_num=8,
+    multiscale_intro=True,
+    additive_skips=True,
+)

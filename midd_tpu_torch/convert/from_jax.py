@@ -14,6 +14,10 @@ Leaves:
 - batch_stats ``mean``/``var`` -> ``running_mean``/``running_var``, plus a
   zero ``num_batches_tracked``
 
+``qscales_from_jax`` maps the JAX ``qscales`` collection (each int8 conv's
+calibrated ``act_absmax``) onto the port's module names, for
+``ops.qconv.load_qscales``.
+
 It takes numpy arrays (or anything ``np.asarray`` accepts) and imports no JAX.
 """
 
@@ -78,4 +82,18 @@ def state_dict_from_jax(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]
         bn_modules.add(mod)
     for mod in bn_modules:
         out[_key(mod, "num_batches_tracked")] = torch.tensor(0, dtype=torch.int64)
+    return out
+
+
+def qscales_from_jax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """A JAX ``qscales`` collection (``{"downs_0": {"block1_2":
+    {"act_absmax": x}}, ...}``, with or without the outer ``"qscales"``
+    key) -> ``{"downs.0.block1.2": tensor(x), ...}``."""
+    tree = tree.get("qscales", tree)
+    out: Dict[str, torch.Tensor] = {}
+    for path, value in _leaves(tree):
+        if path[-1] != "act_absmax":
+            raise KeyError(f"unexpected qscales leaf {'/'.join(path)}")
+        out[".".join(_torch_path(p) for p in path[:-1])] = torch.tensor(
+            np.asarray(value, dtype=np.float32))
     return out

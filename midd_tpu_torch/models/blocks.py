@@ -16,7 +16,7 @@ from __future__ import annotations
 
 import copy
 import math
-from typing import Optional
+from typing import Any, Optional
 
 import torch
 import torch.nn as nn
@@ -42,6 +42,17 @@ class Conv2d(nn.Conv2d):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self._conv_forward(x, self.weight.to(x.dtype), _cast(self.bias, x.dtype))
+
+
+def conv(in_ch: int, out_ch: int, kernel: int, stride: int = 1, quant: Any = False) -> Conv2d:
+    """``Conv2d``, or with ``quant`` (True, "dynamic", "calibrate" or
+    "static") the int8 ``QuantConv2d`` with the same parameters
+    (``ops/qconv.py``), as the JAX package's ``tconv(quant=...)``."""
+    if quant:
+        from midd_tpu_torch.ops.qconv import QuantConv2d
+
+        return QuantConv2d(in_ch, out_ch, kernel, stride=stride, mode=quant)
+    return Conv2d(in_ch, out_ch, kernel, stride=stride)
 
 
 class Linear(nn.Linear):
@@ -180,16 +191,18 @@ def sinusoidal_embedding(t: torch.Tensor, dim: int) -> torch.Tensor:
 
 class ResidualBlock(nn.Module):
     """Diffusion-UNet residual block (DDIM/DDIMModel.py:108-133):
-    (GN8+SiLU+3x3) -> +time-emb -> (GN8+SiLU+Dropout+3x3) -> +res_conv(x)."""
+    (GN8+SiLU+3x3) -> +time-emb -> (GN8+SiLU+Dropout+3x3) -> +res_conv(x).
+    ``quant`` makes its three convolutions int8 (``conv``)."""
 
-    def __init__(self, in_c: int, out_c: int, time_emb_dim: int, dropout: float = 0.0):
+    def __init__(self, in_c: int, out_c: int, time_emb_dim: int, dropout: float = 0.0,
+                 quant: Any = False):
         super().__init__()
-        self.block1 = nn.Sequential(GroupNorm32(8, in_c), nn.SiLU(), Conv2d(in_c, out_c, 3))
+        self.block1 = nn.Sequential(GroupNorm32(8, in_c), nn.SiLU(), conv(in_c, out_c, 3, quant=quant))
         self.time_mlp = nn.Sequential(nn.SiLU(), Linear(time_emb_dim, out_c))
         self.block2 = nn.Sequential(
-            GroupNorm32(8, out_c), nn.SiLU(), nn.Dropout(dropout), Conv2d(out_c, out_c, 3)
+            GroupNorm32(8, out_c), nn.SiLU(), nn.Dropout(dropout), conv(out_c, out_c, 3, quant=quant)
         )
-        self.res_conv = Conv2d(in_c, out_c, 1) if in_c != out_c else nn.Identity()
+        self.res_conv = conv(in_c, out_c, 1, quant=quant) if in_c != out_c else nn.Identity()
 
     def forward(self, x: torch.Tensor, t_emb: torch.Tensor) -> torch.Tensor:
         h = self.block1(x)
@@ -199,11 +212,13 @@ class ResidualBlock(nn.Module):
 
 class AttentionBlock(nn.Module):
     """Spatial self-attention (DDIM/DDIMModel.py:135-166): GN8 -> 1x1 qkv ->
-    2-head softmax attention over h*w tokens -> 1x1 proj -> +x."""
+    2-head softmax attention over h*w tokens -> 1x1 proj -> +x.
+    ``use_flash`` as ``mha``'s (None: flash on CUDA tensors)."""
 
-    def __init__(self, channels: int, num_heads: int = 2):
+    def __init__(self, channels: int, num_heads: int = 2, use_flash: Optional[bool] = None):
         super().__init__()
         self.num_heads = num_heads
+        self.use_flash = use_flash
         self.norm = GroupNorm32(8, channels)
         self.qkv = Conv2d(channels, 3 * channels, 1)
         self.proj = Conv2d(channels, channels, 1)
@@ -214,7 +229,7 @@ class AttentionBlock(nn.Module):
         # channel order (3, heads, hd), as the NHWC reshape of the JAX block
         qkv = self.qkv(self.norm(x)).view(b, 3, self.num_heads, hd, h * w)
         qkv = qkv.permute(0, 4, 1, 2, 3)  # (B, N, 3, H, D)
-        out = mha(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2])  # (B, N, H, D)
+        out = mha(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2], self.use_flash)  # (B, N, H, D)
         out = out.permute(0, 2, 3, 1).reshape(b, c, h, w)
         return self.proj(out) + x
 
@@ -256,12 +271,14 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
 
 def with_compute_dtype(model: nn.Module, dtype: torch.dtype) -> nn.Module:
     """A copy of ``model`` that computes in ``dtype``: its conv and linear
-    weights and biases are cast once; norm parameters and transposed-conv
-    weights stay fp32. The copy's ``compute_dtype`` is set, so its forward
-    casts the inputs."""
+    weights and biases are cast once; norm parameters, transposed-conv
+    weights and int8 convs (which quantise from fp32 weights) stay fp32. The
+    copy's ``compute_dtype`` is set, so its forward casts the inputs."""
+    from midd_tpu_torch.ops.qconv import QuantConv2d
+
     m = copy.deepcopy(model)
     for mod in m.modules():
-        if isinstance(mod, (nn.Conv2d, nn.Linear)):
+        if isinstance(mod, (nn.Conv2d, nn.Linear)) and not isinstance(mod, QuantConv2d):
             mod.to(dtype)
     m.compute_dtype = dtype
     return m

@@ -1,9 +1,15 @@
-"""EnhancedNAFNet, plain topology (counterpart of ``midd_tpu/models/nafnet.py``).
+"""EnhancedNAFNet (counterpart of ``midd_tpu/models/nafnet.py``).
 
 intro 3x3 -> per stage [NAFBlocks, skip, 2x2/s2 down] -> middle NAFBlocks ->
 per stage [1x1 (no bias) + PixelShuffle(2), resize to the skip, concat,
 1x1 skip_conv, NAFBlocks] -> ending 3x3 -> +input -> crop. The input is padded
 to a multiple of 2**len(enc) (NafNet/NafnetModel.py:304-309).
+
+The model2 variant (``MODEL2_NAFNET``, Backend/model2.py:80-153) adds, behind
+config flags, a multiscale intro (``multiscale_conv.{0,1,2}``, k 3, 5 and 7
+on the intro's output, concatenated and fused by a 1x1 ``fusion``) and
+additive skips (the decoder adds the skip after the resize; no
+``skip_convs``).
 """
 
 from __future__ import annotations
@@ -25,6 +31,9 @@ class EnhancedNAFNet(nn.Module):
         self.compute_dtype: Optional[torch.dtype] = None
         w = cfg.width
         self.intro = Conv2d(cfg.img_channel, w, 3)
+        if cfg.multiscale_intro:
+            self.multiscale_conv = nn.ModuleList([Conv2d(w, w, k) for k in (3, 5, 7)])
+            self.fusion = Conv2d(3 * w, w, 1)
         encoders, downs = [], []
         chan = w
         for num in cfg.enc_blk_nums:
@@ -38,7 +47,8 @@ class EnhancedNAFNet(nn.Module):
         for num in cfg.dec_blk_nums:
             ups.append(nn.Sequential(Conv2d(chan, 2 * chan, 1, bias=False), nn.PixelShuffle(2)))
             chan //= 2
-            skip_convs.append(Conv2d(2 * chan, chan, 1))
+            if not cfg.additive_skips:
+                skip_convs.append(Conv2d(2 * chan, chan, 1))
             decoders.append(nn.Sequential(*[NAFBlock(chan) for _ in range(num)]))
         self.ups = nn.ModuleList(ups)
         self.skip_convs = nn.ModuleList(skip_convs)
@@ -58,6 +68,8 @@ class EnhancedNAFNet(nn.Module):
         if self.compute_dtype is not None:
             inp = inp.to(self.compute_dtype)
         x = self.intro(inp)
+        if self.cfg.multiscale_intro:
+            x = self.fusion(torch.cat([c(x) for c in self.multiscale_conv], dim=1))
         encs = []
         for enc, down in zip(self.encoders, self.downs):
             for blk in enc:
@@ -66,9 +78,12 @@ class EnhancedNAFNet(nn.Module):
             x = down(x)
         for blk in self.middle_blks:
             x = block(blk, x)
-        for up, skip_conv, dec, skip in zip(self.ups, self.skip_convs, self.decoders, encs[::-1]):
+        for s, (up, dec, skip) in enumerate(zip(self.ups, self.decoders, encs[::-1])):
             x = resize_bilinear(up(x), skip.shape[-2:])
-            x = skip_conv(torch.cat([x, skip], dim=1))
+            if self.cfg.additive_skips:
+                x = x + skip
+            else:
+                x = self.skip_convs[s](torch.cat([x, skip], dim=1))
             for blk in dec:
                 x = block(blk, x)
         x = self.ending(x) + inp

@@ -21,7 +21,7 @@ the plain layout.
 
 from __future__ import annotations
 
-from typing import List, Optional, Tuple
+from typing import Any, List, Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -35,6 +35,7 @@ from midd_tpu_torch.models.blocks import (
     GroupNorm32,
     Linear,
     ResidualBlock,
+    conv,
     sinusoidal_embedding,
 )
 from midd_tpu_torch.ops.image import resize_bilinear
@@ -84,8 +85,16 @@ def _build_specs(cfg: DiffusionUNetConfig) -> Tuple[List, List, int]:
 
 
 class UNetDiffusion(nn.Module):
+    """``use_flash``: each AttentionBlock's ``mha`` path (None: flash on CUDA
+    tensors). ``quant`` (False, True/"dynamic", "calibrate", "static"): int8
+    convolutions in the ResidualBlocks and the stride-2 downsamplers, as
+    the JAX model's ``quant``; ``in_conv``, the attention projections, the
+    upsamplers and ``out_conv`` stay at full precision. The parameters are
+    the same either way."""
+
     def __init__(self, cfg: DiffusionUNetConfig = DiffusionUNetConfig(),
-                 fuse_updown: bool = True):
+                 fuse_updown: bool = True, use_flash: Optional[bool] = None,
+                 quant: Any = False):
         super().__init__()
         if cfg.skip_mode not in ("ddim", "cddpm"):
             raise ValueError(f"skip_mode must be 'ddim' or 'cddpm', got {cfg.skip_mode!r}")
@@ -105,27 +114,27 @@ class UNetDiffusion(nn.Module):
         downs = []
         for kind, arg in downs_spec:
             if kind == "res":
-                downs.append(ResidualBlock(ch, arg, te, cfg.dropout))
+                downs.append(ResidualBlock(ch, arg, te, cfg.dropout, quant))
                 ch = arg
             elif kind == "attn":
-                downs.append(AttentionBlock(ch))
+                downs.append(AttentionBlock(ch, use_flash=use_flash))
             else:
-                downs.append(Conv2d(ch, arg, 3, stride=2))
+                downs.append(conv(ch, arg, 3, stride=2, quant=quant))
                 ch = arg
             skip_ch.append(ch)
         self.downs = nn.ModuleList(downs)
 
-        self.mid_block1 = ResidualBlock(ch, ch, te, cfg.dropout)
-        self.mid_attn = AttentionBlock(ch)
-        self.mid_block2 = ResidualBlock(ch, ch, te, cfg.dropout)
+        self.mid_block1 = ResidualBlock(ch, ch, te, cfg.dropout, quant)
+        self.mid_attn = AttentionBlock(ch, use_flash=use_flash)
+        self.mid_block2 = ResidualBlock(ch, ch, te, cfg.dropout, quant)
 
         ups = []
         for kind, arg in ups_spec:
             if kind == "res":
-                ups.append(ResidualBlock(ch + skip_ch.pop(), arg, te, cfg.dropout))
+                ups.append(ResidualBlock(ch + skip_ch.pop(), arg, te, cfg.dropout, quant))
                 ch = arg
             elif kind == "attn":
-                ups.append(AttentionBlock(ch))
+                ups.append(AttentionBlock(ch, use_flash=use_flash))
             else:
                 ups.append(ConvTransposeTorch(ch, arg, 4, stride=2, padding=1))
                 ch = arg

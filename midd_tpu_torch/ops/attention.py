@@ -1,16 +1,24 @@
 """Spatial self-attention core (counterpart of ``midd_tpu/ops/attention.py``).
 
-Inputs keep the JAX package's (B, N, H, D) layout. ``mha`` dispatches on the
-tensor's device: the Hopper flash kernels for CUDA tensors (differentiable:
-the backward runs the dq and dk/dv kernels), the exact reference for CPU
-tensors.
+Inputs keep the JAX package's (B, N, H, D) layout. ``mha(..., use_flash)``
+picks the path: the flash kernels (the Hopper kernels for CUDA tensors,
+differentiable through the dq and dk/dv kernels; their plain versions for
+CPU tensors) or the exact reference. ``use_flash=None`` takes flash on CUDA
+tensors and the exact reference on CPU ones.
+
+Both exact forms work through blocks of ``ROW_BLOCK`` query rows: each row's
+softmax stands alone, so the result is the full-matrix one, and memory stays
+O(ROW_BLOCK * N) at the 1024² operating point (N 16384) where the full
+logits would take 1 GiB a head.
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
-from midd_tpu_torch.ops.flash_attention import mha_flash
+from midd_tpu_torch.ops.flash_attention import ROW_BLOCK, mha_flash
 
 
 def mha_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -18,13 +26,19 @@ def mha_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Te
     Scale D**-0.5 applied to q; softmax in fp32 whatever the input dtype."""
     d = q.shape[-1]
     scale = float(d) ** -0.5
-    logits = torch.einsum("bqhd,bkhd->bhqk", q.float() * scale, k.float())
-    probs = torch.softmax(logits, dim=-1)
-    out = torch.einsum("bhqk,bkhd->bqhd", probs, v.float())
+    qs, kf, vf = q.float() * scale, k.float(), v.float()
+    blocks = []
+    for i in range(0, q.shape[1], ROW_BLOCK):
+        probs = torch.softmax(torch.einsum("bqhd,bkhd->bhqk", qs[:, i:i + ROW_BLOCK], kf), dim=-1)
+        blocks.append(torch.einsum("bhqk,bkhd->bqhd", probs, vf))
+    out = blocks[0] if len(blocks) == 1 else torch.cat(blocks, dim=1)
     return out.to(q.dtype)
 
 
-def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    if q.device.type == "cuda":
-        return mha_flash(q, k, v)
-    return mha_reference(q, k, v)
+def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+        use_flash: Optional[bool] = None) -> torch.Tensor:
+    """Flash (``True``), the exact reference (``False``), or by device
+    (``None``: flash for CUDA tensors)."""
+    if use_flash is None:
+        use_flash = q.device.type == "cuda"
+    return mha_flash(q, k, v) if use_flash else mha_reference(q, k, v)

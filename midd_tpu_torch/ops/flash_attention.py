@@ -29,6 +29,9 @@ import torch
 from midd_tpu_torch.ops._build import CSRC, NVCC_FLAGS, I as _I, P as _P, library, raise_on
 
 SOURCE = CSRC / "flash_fwd.cu"
+# query rows per block of the plain (and the exact reference's) scores: each
+# row's softmax stands alone, so blocks keep memory at O(ROW_BLOCK * N)
+ROW_BLOCK = 1024
 BWD_SOURCE = CSRC / "flash_bwd.cu"
 _SIGNATURES = {
     SOURCE: {
@@ -70,16 +73,26 @@ def _check_qkv(name: str, *ts: torch.Tensor) -> None:
         raise ValueError(f"{name}: unsupported shape {tuple(q.shape)}")
 
 
+@torch.no_grad()
 def flash_attention_plain(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Exact attention over (BH, N, D) in fp32: returns O in the input dtype
-    and the per-row logsumexp (BH, N) in fp32. Scale 1/sqrt(D)."""
+    and the per-row logsumexp (BH, N) in fp32. Scale 1/sqrt(D). Works
+    through blocks of ``ROW_BLOCK`` query rows, in place within a block.
+    Values only, as the kernel's: ``FlashAttention``'s backward computes
+    the gradients."""
     scale = 1.0 / math.sqrt(q.shape[-1])
-    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
-    lse = torch.logsumexp(s, dim=-1)
-    o = torch.matmul(torch.exp(s - lse[..., None]), v.float())
-    return o.to(q.dtype), lse
+    kt, vf = k.float().transpose(-1, -2), v.float()
+    os, lses = [], []
+    for i in range(0, q.shape[1], ROW_BLOCK):
+        s = torch.matmul(q[:, i:i + ROW_BLOCK].float(), kt).mul_(scale)
+        lse = torch.logsumexp(s, dim=-1)
+        os.append(torch.matmul(s.sub_(lse[..., None]).exp_(), vf))
+        lses.append(lse)
+    if len(os) == 1:
+        return os[0].to(q.dtype), lses[0]
+    return torch.cat(os, dim=1).to(q.dtype), torch.cat(lses, dim=1)
 
 
 def flash_attention(

@@ -14,14 +14,21 @@ queue 1 item 9. A ``sees_expert`` hybrid feeds its expert branch from
 ``<ckpt_dir>/expert_ftl2.pth`` when that file exists, else from the
 standalone expert.
 
+``use_flash_attention`` picks the UNets' attention (None: flash on the card,
+the exact reference on the CPU). ``quantize_int8`` runs the diffusion UNets'
+ResBlock and downsampler convolutions in int8 (``ops/qconv.py``): per-call
+scales (True or "dynamic"), or scales calibrated at startup over seeded
+phantom rollouts ("static", the server's ``--int8``).
+
 Left out, so asking for them fails: orbax checkpoints (queue 1 item 9),
 dp/tp/sp parallel serving (item 15), AOT pinning and the persistent
-compilation cache (item 16), int8 and the NAFNet s2d layout (item 17).
+compilation cache (item 16), and the NAFNet s2d layout (item 17).
 """
 
 from __future__ import annotations
 
 import collections
+import copy
 import dataclasses
 import json
 import os
@@ -38,6 +45,7 @@ import torch
 import torch.nn as nn
 
 from midd_tpu_torch import config
+from midd_tpu_torch.benchmarks.xray_bench import make_phantoms
 from midd_tpu_torch.diffusion.sampler import denoise
 from midd_tpu_torch.diffusion.schedule import Schedule, make_schedule, timestep_sequence
 from midd_tpu_torch.models.blocks import init_weights, with_compute_dtype
@@ -45,8 +53,10 @@ from midd_tpu_torch.models.direct_unet import ExpertDenoiser
 from midd_tpu_torch.models.hybrid import FusionModule, NoiseAnalyzer, hybrid_forward
 from midd_tpu_torch.models.nafnet import EnhancedNAFNet
 from midd_tpu_torch.models.unet_diffusion import UNetDiffusion
+from midd_tpu_torch.ops.qconv import calibrate_unet_rollout, load_qscales, with_quant_mode
 from midd_tpu_torch.serve.batching import MicroBatcher
 from midd_tpu_torch.serve.codec import tensor_to_base64_png
+from midd_tpu_torch.train.data import NOISE_FNS
 
 MODEL_NAMES = ("diffusion", "nafnet", "expert", "hybrid")
 STUDIED_SCHEDULE = (0, 2, 6, 7)  # the gated refresh schedule of the 8-step rollout
@@ -65,6 +75,9 @@ class EngineConfig:
     ckpt_dir: str = "checkpoints"
     # whole-engine compute dtype (``--bf16``); None = fp32
     compute_dtype: Optional[torch.dtype] = None
+    # the UNets' attention: flash (True) or the exact reference (False);
+    # None = flash on a CUDA device, exact on the CPU
+    use_flash_attention: Optional[bool] = None
     warmup: bool = True
     nafnet_cfg: Any = config.SERVE_NAFNET
     diffusion_cfg: Any = config.SERVE_DIFFUSION
@@ -103,6 +116,11 @@ class EngineConfig:
     # bounded admission: more waiting requests than this are refused
     # (QueueFull; the server answers 503). None = unbounded
     max_queue_depth: Optional[int] = None
+    # int8 convolutions in the diffusion UNets (standalone and hybrid, every
+    # eval precision); not exact. False, True / "dynamic" (per-call scales)
+    # or "static" (scales calibrated once at startup: 2 phantoms x the
+    # three noise families, fp32 rollouts of the served step count)
+    quantize_int8: Any = False
 
 
 def _eps_kwargs(setting) -> Dict[str, Any]:
@@ -117,6 +135,20 @@ def _sched_fits(setting, sched: Schedule, steps: int) -> bool:
     return max(setting) < len(timestep_sequence(sched.noise_steps, steps))
 
 
+def calibration_batches(img_size: int, device) -> list:
+    """The static-int8 calibration set, as the JAX engine makes it: 2
+    procedural phantoms under each of the three reference noise families
+    (cddpm/cddpmTrain.py:3), one numpy generator seeded 0 across them; three
+    (2, 1, S, S) fp32 batches on ``device``."""
+    clean = make_phantoms(2, img_size, seed=123)
+    rng = np.random.default_rng(0)
+    return [
+        torch.from_numpy(np.stack([np.clip(fn(c, rng), 0.0, 1.0) for c in clean]).astype(np.float32))
+        .permute(0, 3, 1, 2).to(device)
+        for fn in NOISE_FNS.values()
+    ]
+
+
 def _demo_generator(name: str) -> torch.Generator:
     # stable across processes (Python's str hash is salted per process)
     return torch.Generator().manual_seed(zlib.crc32(name.encode()) % (2**31))
@@ -124,13 +156,22 @@ def _demo_generator(name: str) -> torch.Generator:
 
 class InferenceEngine:
     def __init__(self, cfg: EngineConfig = EngineConfig()):
-        self.cfg = cfg
         self.device = torch.device(cfg.device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
                 "EngineConfig.device is cuda but no CUDA device is available; "
                 "pass device='cpu' to run on the CPU"
             )
+        if cfg.quantize_int8 not in (False, True, "dynamic", "static"):
+            raise ValueError(
+                f"quantize_int8 must be False, True, 'dynamic' or 'static', got {cfg.quantize_int8!r}"
+            )
+        if cfg.use_flash_attention is None:
+            cfg = dataclasses.replace(cfg, use_flash_attention=self.device.type == "cuda")
+        self.cfg = cfg
+        # static int8: each calibrated UNet's scales and calibration time
+        self.int8_scales: Dict[str, Dict[str, torch.Tensor]] = {}
+        self.calibration_ms: Dict[str, float] = {}
         self._pth_cache: Dict[str, Dict] = {}
         self.meta: Dict[str, Dict] = {}
         self.loaded: Dict[str, bool] = {n: False for n in MODEL_NAMES}
@@ -242,6 +283,26 @@ class InferenceEngine:
             dec_blk_nums=tuple(meta.get("dec_blk_nums", (2, 2, 2, 2))),
         )
 
+    def _unet(self, unet_cfg) -> Callable[[], nn.Module]:
+        """Builder of a served UNet: the engine's attention path and int8
+        mode ("dynamic" or "static"; static until calibrated has no scales)."""
+        qmode = "static" if self.cfg.quantize_int8 == "static" else bool(self.cfg.quantize_int8)
+        return lambda: UNetDiffusion(unet_cfg, use_flash=self.cfg.use_flash_attention, quant=qmode)
+
+    def _calibrate(self, name: str, unet: nn.Module, schedule: Schedule, steps: int) -> None:
+        """Static int8: record each int8 conv's activation abs-max over fp32
+        rollouts of ``steps`` steps on ``calibration_batches`` into ``unet``."""
+        batches = calibration_batches(self.cfg.img_size, self.device)
+        t = time.time()
+        scales = calibrate_unet_rollout(with_quant_mode(unet, "calibrate"), schedule, batches, steps)
+        load_qscales(unet, scales)
+        self.int8_scales[name] = scales
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.calibration_ms[name] = (time.time() - t) * 1e3
+        _log("int8_calibration", model=name, latency_ms=round(self.calibration_ms[name], 2),
+             steps=steps, batches=len(batches))
+
     def _load_hybrid(self, router_cfg, fusion_cfg, naf_cfg, unet_cfg) -> Dict[str, nn.Module]:
         """Hybrid groups from one ``hybrid.pth`` whose state_dict carries
         ``nafnet.``/``diffusion_unet.``/``router.``/``fusion.`` prefixes.
@@ -250,7 +311,7 @@ class InferenceEngine:
         builds all four groups."""
         builders = {
             "nafnet": lambda: EnhancedNAFNet(naf_cfg),
-            "diffusion_unet": lambda: UNetDiffusion(unet_cfg),
+            "diffusion_unet": self._unet(unet_cfg),
             "router": lambda: NoiseAnalyzer(router_cfg),
             "fusion": lambda: FusionModule(fusion_cfg),
         }
@@ -285,11 +346,13 @@ class InferenceEngine:
 
         # Diffusion path
         diff_cfg = self._diffusion_cfg_from_meta(self._peek_meta("diffusion"), cfg.diffusion_cfg)
-        unet = self._load("diffusion", lambda: UNetDiffusion(diff_cfg))
+        unet = self._load("diffusion", self._unet(diff_cfg))
         noise_steps = int(self.meta["diffusion"].get("noise_steps", cfg.schedule_cfg.noise_steps))
         schedule = make_schedule(
             dataclasses.replace(cfg.schedule_cfg, noise_steps=noise_steps), self.device
         )
+        if cfg.quantize_int8 == "static":
+            self._calibrate("diffusion", unet, schedule, cfg.diffusion_steps)
         unet_eval = computing(unet, dt if dt is not None else (bf16 if cfg.diffusion_eval_bf16 else None))
 
         dk = cfg.turbo_eps_reuse
@@ -334,6 +397,14 @@ class InferenceEngine:
             hyb_unet = groups["diffusion_unet"]
         else:
             hyb_unet, hschedule = unet, schedule
+        share_backends = hyb_naf is naf and hyb_unet is unet
+        if cfg.quantize_int8 == "static":
+            # the standalone scales serve the hybrid where its weights and
+            # rollout are the standalone ones; else it calibrates its own
+            if hyb_unet is unet and cfg.hybrid_diffusion_steps != cfg.diffusion_steps:
+                hyb_unet = copy.deepcopy(unet)
+            if hyb_unet is not unet:
+                self._calibrate("hybrid", hyb_unet, hschedule, cfg.hybrid_diffusion_steps)
         hyb_dt = bf16 if cfg.hybrid_rollout_bf16 else dt
         if hyb_unet is unet and hyb_dt == unet_eval.compute_dtype:
             hyb_unet_eval = unet_eval
@@ -354,7 +425,6 @@ class InferenceEngine:
 
         # The hybrid could ride the standalone rollout: same weights, same
         # schedule, same step count.
-        share_backends = hyb_naf is naf and hyb_unet is unet
         rollout_shareable = (
             share_backends and hschedule is schedule
             and cfg.hybrid_diffusion_steps == cfg.diffusion_steps
@@ -571,6 +641,7 @@ class InferenceEngine:
             and diff_eval == "float32"
             and hyb_eval == "float32"
             and dt is None
+            and not cfg.quantize_int8
         )
         return {
             "exact": exact,
@@ -581,10 +652,10 @@ class InferenceEngine:
             "compute_dtype": _name(dt) if dt is not None else "float32",
             "diffusion_eval_dtype": diff_eval,
             "hybrid_rollout_eval_dtype": hyb_eval,
-            "quantize_int8": False,  # the port has no int8 path (EngineConfig refuses the field)
+            "quantize_int8": str(cfg.quantize_int8) if cfg.quantize_int8 else False,
             "fused_request": self.fused is not None,
             "batching": self.batcher is not None,
-            "flash_attention": self.device.type == "cuda",
+            "flash_attention": bool(cfg.use_flash_attention),
             "hybrid_expert_tree": self.hybrid_expert_tree,
             # the port computes the plain layouts: no NAFNet space-to-depth
             # and no stage-0 space-to-depth in the UNet (JAX reports True

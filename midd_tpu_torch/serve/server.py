@@ -13,7 +13,8 @@
 
 Run: ``python -m midd_tpu_torch.serve.server --port 8000`` (on the GPU;
 ``--device cpu`` runs on the CPU), e.g. with ``--batching --adaptive
---max-queue 6``.
+--max-queue 6``, ``--int8`` (static int8 convolutions in the diffusion
+UNets, calibrated at startup) or ``--img-size 1024``.
 """
 
 from __future__ import annotations
@@ -127,7 +128,9 @@ def _parse_eps(v):
     return tuple(int(i) for i in s.split(",")) if "," in s else int(s)
 
 
-def main(argv=None):
+def config_from_args(argv=None):
+    """The server's command line -> (its parsed arguments, the
+    ``EngineConfig`` it serves)."""
     import argparse
 
     import torch
@@ -148,6 +151,9 @@ def main(argv=None):
     ap.add_argument("--exact", action="store_true",
                     help="reference-exact fp32 serving: exact rollouts on both "
                          "paths, fp32 UNet evals, TF32 off")
+    ap.add_argument("--int8", action="store_true",
+                    help="int8 convolutions in the diffusion UNets, their scales "
+                         "calibrated at startup (not exact)")
     ap.add_argument("--fused", action="store_true",
                     help="all four paths of a request in one fused function, "
                          "sharing the hybrid's backends where their weights are the same")
@@ -163,9 +169,6 @@ def main(argv=None):
                     help="bounded admission: 503 beyond this many waiting requests "
                          "(with --batching)")
     args = ap.parse_args(argv)
-    if args.exact:
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
     cfg = EngineConfig(
         img_size=args.img_size,
         ckpt_dir=args.ckpt_dir,
@@ -175,6 +178,7 @@ def main(argv=None):
         hybrid_turbo_eps_reuse=1 if args.exact else _parse_eps(args.turbo_hybrid),
         diffusion_eval_bf16=not args.exact,
         hybrid_rollout_bf16=not args.exact,
+        quantize_int8="static" if args.int8 else False,
         batching=args.batching,
         fused_request=args.fused or None,
         batch_buckets=tuple(int(b) for b in args.buckets.split(",")) if args.buckets else "auto",
@@ -182,6 +186,16 @@ def main(argv=None):
         adaptive_queue_depth=args.queue_depth,
         max_queue_depth=args.max_queue,
     )
+    return args, cfg
+
+
+def main(argv=None):
+    import torch
+
+    args, cfg = config_from_args(argv)
+    if args.exact:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
     serve_forever(args.host, args.port, engine_config=cfg)
 
 

@@ -2,9 +2,11 @@
 and dk/dv; LayerNorm2d; the fused NAFBlock FFN half): agreement with their
 plain versions (the tensor-core flash kernels also at their tile and ring
 edges, by plain loads and off 16-byte alignment; LayerNorm2d in both
-layouts, at every served stage and at its edges), the launch
-counts, gradients through ``mha`` and through ``LayerNorm2d``, and the
-wrappers' refusals. Marked ``cuda``;
+layouts, at every served stage and at its edges; both NAFNet kernels at
+every MODEL2_NAFNET stage), the launch counts, gradients through ``mha``
+and through ``LayerNorm2d``, and the wrappers' refusals; and the int8
+convolutions' integer product (``torch._int_mm``) against its plain
+version. Marked ``cuda``;
 skipped where there is no GPU. This file imports no JAX, so on a machine
 without JAX run it without the suite's conftest:
 
@@ -267,6 +269,10 @@ LN_CASES = LAYOUT_CASES + [
     # a bucket-8 batch at 256², the served layout
     (8, 32, 256, 256, _FP, "channels_last"), (8, 512, 16, 16, _BF, "channels_last"),
 ]
+# MODEL2_NAFNET's stages of a 512² input (C 24 to 384), both dtypes and layouts
+MODEL2_STAGES = [(1, c, h, h, dtype, layout) for c, h in ((24, 512), (48, 256), (96, 128), (192, 64), (384, 32))
+                 for dtype in (_FP, _BF) for layout in ("nchw", "channels_last")]
+LN_CASES += MODEL2_STAGES
 
 
 def _layout(x, layout):
@@ -361,7 +367,7 @@ FFN_CASES = LAYOUT_CASES + [
     (1, 256, 64, 64, _FP, "channels_last"), (1, 256, 63, 65, _BF, "nchw"),
     (2, 512, 32, 32, _BF, "nchw"), (2, 512, 32, 32, _BF, "channels_last"),
     (2, 64, 9, 7, _FP, "channels_last_offset"), (2, 64, 9, 7, _BF, "channels_last_offset"),
-]
+] + MODEL2_STAGES
 
 
 @pytest.mark.parametrize("b,c,h,w,dtype,layout", FFN_CASES)
@@ -437,6 +443,85 @@ def test_nafnet_apply_fused_on_the_card(cuda):
         assert ffn.naf_ffn_fused.launches == before + 6  # one per NAFBlock
         want = model(x)
     assert (got - want).abs().max().item() <= 1e-4 * want.abs().max().item()
+
+
+def test_model2_nafnet_apply_fused_on_the_card(cuda):
+    """MODEL2_NAFNET (multiscale intro, additive skips) at 64²: the fused
+    forward against the module, 1e-4 of max|out| as above; one naf_ffn
+    launch per NAFBlock."""
+    from midd_tpu_torch import config
+    from midd_tpu_torch.models.blocks import NAFBlock, init_weights
+    from midd_tpu_torch.models.nafnet import EnhancedNAFNet
+    from midd_tpu_torch.ops import naf_ffn as ffn
+    from midd_tpu_torch.ops.naf_fast import nafnet_apply_fused
+
+    cfg = config.MODEL2_NAFNET
+    model = init_weights(EnhancedNAFNet(cfg), torch.Generator().manual_seed(0)).cuda().eval()
+    gen = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        for mod in model.modules():
+            if isinstance(mod, NAFBlock):
+                mod.beta.copy_(0.3 * torch.randn(mod.beta.shape, generator=gen))
+                mod.gamma.copy_(0.3 * torch.randn(mod.gamma.shape, generator=gen))
+        x = torch.rand(1, 1, 64, 64, generator=gen).cuda()
+        before = ffn.naf_ffn_fused.launches
+        got = nafnet_apply_fused(model, x)
+        blocks = sum(cfg.enc_blk_nums) + cfg.middle_blk_num + sum(cfg.dec_blk_nums)
+        assert ffn.naf_ffn_fused.launches == before + blocks
+        want = model(x)
+    assert (got - want).abs().max().item() <= 1e-4 * want.abs().max().item()
+
+
+# -- int8 convolutions (ops/qconv.py): the integer product on the card --------------
+
+
+def _int8_operands(b, c, h, o, k, seed=0):
+    gen = torch.Generator().manual_seed(seed)
+    xq = torch.randint(-127, 128, (b, c, h, h), generator=gen, dtype=torch.int8)
+    wq = torch.randint(-127, 128, (o, c, k, k), generator=gen, dtype=torch.int8)
+    return xq.cuda(), wq.cuda()
+
+
+@pytest.mark.parametrize("b,c,h,o,k,stride", [
+    (1, 5, 7, 3, 3, 2), (2, 12, 4, 10, 1, 1), (1, 48, 9, 48, 3, 2), (1, 1, 5, 1, 3, 1),
+])
+def test_int8_product_on_the_card_at_ragged_shapes(cuda, b, c, h, o, k, stride):
+    """K and N off multiples of 8, M under 16: ``torch._int_mm``'s padding
+    leaves the int32 sums exact."""
+    from midd_tpu_torch.ops import qconv
+
+    xq, wq = _int8_operands(b, c, h, o, k)
+    got = qconv.int8_conv2d(xq, wq, stride, k // 2)
+    assert got.dtype == torch.int32 and got.is_cuda
+    assert torch.equal(got, qconv.int8_conv2d_plain(xq, wq, stride, k // 2))
+
+
+def test_int8_product_on_the_card_at_the_served_shapes(cuda):
+    """Every int8 conv of SERVE_DIFFUSION at 512², batch 1 (found by running
+    the quantised UNet): the card's int32 product equals the plain one bit
+    for bit."""
+    from midd_tpu_torch import config
+    from midd_tpu_torch.models.blocks import init_weights
+    from midd_tpu_torch.models.unet_diffusion import UNetDiffusion
+    from midd_tpu_torch.ops import qconv
+
+    unet = init_weights(UNetDiffusion(config.SERVE_DIFFUSION, quant="dynamic"),
+                        torch.Generator().manual_seed(0)).cuda().eval()
+    shapes = set()
+    hooks = [m.register_forward_pre_hook(
+        lambda m, a: shapes.add((tuple(a[0].shape), m.out_channels, m.kernel_size[0], m.stride[0])))
+        for m in unet.modules() if isinstance(m, qconv.QuantConv2d)]
+    x = torch.rand(1, 1, 512, 512, device="cuda")
+    before = qconv.int8_conv2d.calls
+    with torch.no_grad():
+        unet(x, x, torch.zeros(1, dtype=torch.long, device="cuda"))
+    assert qconv.int8_conv2d.calls - before == len(hooks)
+    for hook in hooks:
+        hook.remove()
+    for i, ((b, c, h, _), o, k, stride) in enumerate(sorted(shapes)):
+        xq, wq = _int8_operands(b, c, h, o, k, seed=i)
+        assert torch.equal(qconv.int8_conv2d(xq, wq, stride, k // 2),
+                           qconv.int8_conv2d_plain(xq, wq, stride, k // 2)), (b, c, h, o, k, stride)
 
 
 # -- the cddpm slice, card vs CPU (chip_smoke.py phases 9c and 10e) -----------------

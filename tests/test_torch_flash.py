@@ -190,18 +190,18 @@ def test_mha_gradients_match_jax_grad_through_pallas(rng, d):
 
 
 @pytest.mark.parametrize("attention", ["mha", "mha_flash"])
-def test_attention_block_value_and_grads_match_jax(rng, monkeypatch, attention):
+def test_attention_block_value_and_grads_match_jax(rng, attention):
     """Mirrors tests/test_flash_attention.py's AttentionBlock check: the JAX
     block with the Pallas kernel (h*w = 1024 reaches it) against the port's
     block on the same weights, value and every gradient."""
-    if attention == "mha_flash":  # route the CPU block through the autograd Function
-        monkeypatch.setattr(port_blocks, "mha", port_flash.mha_flash)
+    # use_flash=True routes the CPU block through the autograd Function
+    use_flash = attention == "mha_flash"
     x = rng.standard_normal((1, 32, 32, 8), dtype=np.float32)
     jblk = JAttentionBlock(use_flash=True)
     variables = jax_init(jblk, jnp.zeros((1, 32, 32, 8)))
     lj = lambda p, x: jnp.sum(jblk.apply(p, x) ** 2)
     vj, (gj, gxj) = jax.value_and_grad(lj, argnums=(0, 1))(variables, jnp.asarray(x))
-    tblk = port(port_blocks.AttentionBlock(8), variables)
+    tblk = port(port_blocks.AttentionBlock(8, use_flash=use_flash), variables)
     tx = nchw(x).requires_grad_(True)
     vt = (tblk(tx) ** 2).sum()
     vt.backward()

@@ -140,8 +140,8 @@ def test_exact_mode_and_defaults_in_serving_mode():
 
 
 def test_engine_refuses_fields_outside_the_slice():
-    for field in ("quantize_int8", "data_parallel", "aot_dir", "tensor_parallel", "spatial_parallel",
-                  "nafnet_s2d", "persistent_cache"):
+    for field in ("data_parallel", "aot_dir", "tensor_parallel", "spatial_parallel",
+                  "nafnet_s2d", "persistent_cache", "tp_min_size", "tp_size", "sp_size", "cache_dir"):
         with pytest.raises(TypeError):
             EngineConfig(**{field: True})
 
@@ -169,9 +169,8 @@ def test_serving_mode_new_keys_match_the_jax_engine(extra):
         got, want = teng.serving_mode(), jeng.serving_mode()
         assert _nested_keys(got) == _nested_keys(want)
         # values differ on purpose only where the port runs another path:
-        # "flash_attention" (the port's kernel runs on the card alone) and
         # the "layout" restructurings (the port computes the plain layouts)
-        for key in set(want) - {"flash_attention", "layout"}:
+        for key in set(want) - {"layout"}:
             assert got[key] == want[key], key
     finally:
         teng.close()
