@@ -9,7 +9,8 @@ checkpoints they wrote, and checks the card against the CPU on one exact
 rollout, one ancestral cddpm rollout, one DDPM rollout of the TinyUNet, one
 NAFNet forward and one training step of each model; then serves with int8
 convolutions (``--int8``) and at the 1024² operating point through the
-server, and runs the MODEL2_NAFNET variant.
+server, runs the MODEL2_NAFNET variant, and runs the xraybench-v1 quality
+benchmark (train, score, variants, turbo gate, seed study) at serve widths.
 
     python3 chip_smoke.py [--report FILE] [--naf-only]
 
@@ -22,8 +23,10 @@ Phases (any failure exits non-zero, and no result line is printed):
    off) at the served shapes, the hybrid trainer's rollout shape (12, 4096,
    96) in fp32, and a few others; timed at the three served sequence
    lengths (N 1024, 4096, 16384; D 96; bf16) and at the training shapes
-   (2 and 12, 4096, 96) in fp32 and at a bucket-8 batch at 256² (16, 1024,
-   96) in both dtypes, each call alone (``ms``) and 5 in a row
+   (2 and 12, 4096, 96) in fp32, at a bucket-8 batch at 256² (16, 1024,
+   96) in both dtypes and at the wide UNet's heads of 192 (a scored batch
+   (8, 1024, 192) bf16, a training step (4, 1024, 192) fp32), each call
+   alone (``ms``) and 5 in a row
    (``ms_batched``), each beside SDPA timed the same two ways in the same
    dtype and the bound (operations over the bf16 or the TF32 peak);
 4. backward kernels vs plain: flash_bwd_dq and flash_bwd_dkv against their
@@ -125,7 +128,21 @@ Phases (any failure exits non-zero, and no result line is printed):
    its stages of a 512² input (C 24 to 384), fp32 and bf16, both layouts
    (fp32 ln2d bit for bit); the module at 512² card vs CPU (1e-4 of
    max|out|); ``nafnet_apply_fused`` against the module on the card, one
-   naf_ffn launch per NAFBlock (23).
+   naf_ffn launch per NAFBlock (23);
+15. xraybench-v1 (``midd_tpu_torch.benchmarks.xray_bench``'s CLI, in this
+   process) at serve widths, 256², the tpu hybrid profile, 8 training
+   phantoms, every recipe at its 2-epoch floor: (a) ``--train`` and
+   ``--train-wide --train-ddim50`` into one directory, every run marked
+   finished; (b) the score: the rows of ``XB_ROWS``, each finite (a PSNR of
+   None only for an exact reconstruction), the JAX CLI's payload keys, the
+   ``_input`` row equal to the CPU's to 1e-5, and per scored batch exactly
+   54 flash forward launches a 9-step rollout (300 at 50 steps) and 60 ln2d
+   a NAFNet; (c) card against CPU on the trained nafnet, diffusion and
+   hybrid on the eval set's first image, TF32 off (``XB_PSNR_*``,
+   ``XB_SSIM_*``); (d) ``--turbo-gate`` (k = 1 launches as exact, k = 2, 3
+   fewer); (e) ``--seeds 1 --seed-models diffusion`` twice, the second
+   reusing the marked run and training nothing. Each step's wall is printed
+   (``utils.profiling.Timer``), and the CLI's own per-row walls.
 Where ``torch.profiler`` records no device kernel three times running, it
 is off for the rest of the run and device times are taken by CUDA events
 behind a sleep kernel instead (``device_ms_events``). A profile that holds
@@ -185,6 +202,7 @@ import torch.nn.functional as F
 from PIL import Image
 
 from midd_tpu_torch import config, evaluate, inference
+from midd_tpu_torch.benchmarks import xray_bench
 from midd_tpu_torch.diffusion.ddpm_scheduler import DDPMScheduler, TinyUNetDenoiser
 from midd_tpu_torch.diffusion.sampler import denoise
 from midd_tpu_torch.diffusion.schedule import make_schedule, timestep_sequence
@@ -208,6 +226,7 @@ from midd_tpu_torch.train.data import to_device
 from midd_tpu_torch.train.trainer import (Trainer, cddpm_loss_fn, diffusion_draw, diffusion_loss_fn,
                                           expert_loss_fn, hybrid_loss_fn, nafnet_loss_fn, no_draw,
                                           tiny_draw, tiny_loss_fn)
+from midd_tpu_torch.utils.profiling import Timer
 
 # H100 SXM data sheet (dense): bf16 and TF32 tensor-core peaks, fp32
 # CUDA-core peak and HBM3 rate
@@ -223,6 +242,7 @@ HBM_BYTES_PER_S = 3.35e12
 # every kernel of the kernels line (the host's launch of the call is inside),
 # and "ms_batched" over 5 calls in a row, divided by 5.
 FLASH_BATCH = 5
+TIMED_D = (96, 192)  # head dims of the served UNet and of the wide one
 MAIN = (2, 4096, 96, torch.bfloat16)
 CASES = [
     MAIN,
@@ -233,6 +253,10 @@ CASES = [
     # a bucket-8 batch at 256² (phase 8b): 8 images x 2 heads in one launch
     (16, 1024, 96, torch.bfloat16),
     (16, 1024, 96, torch.float32),
+    # the wide UNet (WIDE_DIFFUSION, heads of 192; phase 15): a scored batch of
+    # 4 images at 256² (bf16 evals), a training step of 2 (fp32)
+    (8, 1024, 192, torch.bfloat16),
+    (4, 1024, 192, torch.float32),
     (2, 1000, 64, torch.float32),
     (2, 1000, 64, torch.bfloat16),
     (2, 64, 8, torch.float32),
@@ -329,6 +353,8 @@ NAFNET_CARD_VS_CPU_REL = 1e-4
 BWD_CASES = [
     (2, 4096, 96, torch.float32),
     MAIN,
+    (4, 1024, 192, torch.float32),  # the wide UNet's training step (phase 15)
+    (8, 1024, 192, torch.bfloat16),
     (2, 1024, 96, torch.bfloat16),
     (2, 16384, 96, torch.bfloat16),
     (2, 1000, 64, torch.float32),
@@ -434,6 +460,38 @@ CALIBRATION_CHECK = (256, 2)  # phase 12c: image size, rollout steps
 # single comparison (BATCH_VS_SINGLE_BOUND), for the same reason.
 EXACT_VS_FLASH_BOUND = 1e-4
 REQUESTS_1024 = 3
+# xraybench-v1 on the card (phase 15): the protocol's 256², serve widths,
+# the tpu hybrid profile, 8 training phantoms and an epoch scale at which
+# every recipe trains its floor of 2 epochs; 2 eval images per noise family.
+XB_IMG = 256
+XB_ARGS = ["--width-preset", "serve", "--hybrid-profile", "tpu", "--img-size", str(XB_IMG),
+           "--n-train", "8", "--epochs-scale", "0.04"]
+XB_N_EVAL = 2
+XB_ROWS = ["_input", "diffusion", "nafnet", "expert", "hybrid", "diffusion_w96",
+           "expert_ftl2(branch)", "diffusion_ddim50@50", "diffusion@50"]
+XB_PAYLOAD_KEYS = ["protocol", "img_size", "n_eval", "results"]  # midd_tpu/benchmarks/xray_bench.py:744-745
+XB_SCORE_BATCH = 4  # score_fn's batch
+XB_EVALS = {"diffusion": 9, "diffusion_w96": 9, "diffusion_ddim50@50": 50, "diffusion@50": 50,
+            "hybrid": 9}  # UNet evals a scored batch: exact rollouts of 8 (9 scan steps) or 50
+XB_CARD_VS_CPU_MODELS = ("diffusion", "nafnet", "hybrid")
+XB_CARD_VS_CPU_IMAGES = 1  # the eval set's first image (gaussian): the CPU's full-width rollouts set the cost
+# Card vs CPU on the trained checkpoints (phase 15c), the CLI's settings (bf16
+# UNet evals in both rollouts, fp32 elsewhere), TF32 off: the NAFNet path is
+# fp32 on both devices (~1e-6 of max|out| apart, phase 9b), which moves a
+# mean PSNR by ~1e-5 dB; XB_PSNR_FP32_DB and XB_SSIM_FP32 hold that and
+# would not hold a layer at TF32. The rollout paths evaluate the UNet in
+# bf16, rounded at other points on each device (cuDNN's and oneDNN's bf16
+# convolutions, the flash kernel against the exact attention): each eval's
+# eps is then ~2^-8 of itself apart, and after 9 steps the outputs ~1e-3 per
+# pixel apart, random in sign, against an error of ~0.05 rms from clean at
+# ~25 dB: ~1e-3 of the MSE, ~0.005 dB, and ~1e-4 of SSIM (measured on an H100
+# 80GB HBM3 at 700 W on 2-epoch checkpoints, the eval set's first image:
+# diffusion 0.0029 dB and 8.7e-5, hybrid 3.8e-5 dB; one image a family:
+# 0.0039 dB and 9.1e-5). XB_PSNR_BF16_DB and XB_SSIM_BF16 leave a margin of
+# ~5x over that; a UNet eval on wrong weights or a step missed would move these
+# rows by decibels.
+XB_PSNR_FP32_DB, XB_SSIM_FP32 = 1e-3, 1e-5
+XB_PSNR_BF16_DB, XB_SSIM_BF16 = 0.02, 5e-4
 # MODEL2_NAFNET at 512² (phase 14): (C, H = W) of each stage, and its NAFBlocks
 MODEL2_STAGES = [(24, 512), (48, 256), (96, 128), (192, 64), (384, 32)]
 MODEL2_BLOCKS = sum(config.MODEL2_NAFNET.enc_blk_nums) + config.MODEL2_NAFNET.middle_blk_num + sum(
@@ -487,17 +545,18 @@ def flash_bound(flops: float, nbytes: float, dtype) -> tuple:
 def flash_timings(rows: list) -> dict:
     """The kernels-line keys of the timed flash shapes: the times at the
     fp32 training shape (the one fp32 shape timed), and at every shape."""
-    keys = ("n", "dtype", "ms", "ms_batched", "bound_ms", "bound_by", "library_ms",
+    keys = ("n", "d", "dtype", "ms", "ms_batched", "bound_ms", "bound_by", "library_ms",
             "library_ms_batched")
     fp32 = next(r for r in rows if r["dtype"] == "float32")
-    return {"fp32": {k: fp32[k] for k in keys[2:] if k in fp32 and k != "bound_by"},
+    return {"fp32": {k: fp32[k] for k in keys[3:] if k in fp32 and k != "bound_by"},
             "timings": [{k: r[k] for k in keys if k in r} for r in rows]}
 
 
 def check_kernel(report: dict) -> dict:
     """Phase 3: the forward kernel against its plain version, timed at every
     D 96 case (the served sequence lengths in bf16, the training shape in
-    fp32) beside SDPA in the same dtype and the bound; returns its
+    fp32) and D 192 case (the wide UNet's) beside SDPA in the same dtype and
+    the bound; returns its
     kernels-line entry (launches filled in by the main paths)."""
     set_tf32(False)
     gen = torch.Generator().manual_seed(0)
@@ -516,7 +575,7 @@ def check_kernel(report: dict) -> dict:
         row = {"bh": bh, "n": n, "d": d, "dtype": _dt(dtype),
                "max_abs_o": max_o, "max_abs_err_o": err_o, "max_abs_err_lse": err_lse,
                "tol_o": tol_o, "tol_lse": TOL_FP32, "ok": ok}
-        if d == 96:
+        if d in TIMED_D:
             q4, k4, v4 = (t.view(1, bh, n, d) for t in (q, k, v))
             bound, by = flash_bound(4.0 * bh * n * n * d, 4 * bh * n * d * q.element_size() + bh * n * 4, dtype)
             for key, fn in (("ms", lambda: fa.flash_attention(q, k, v)),
@@ -595,9 +654,9 @@ def sdpa_bwd_ms(q, k, v, do) -> float:
 
 def check_bwd(report: dict) -> list:
     """Phase 4: the two backward kernels against their plain versions, each
-    timed at every D 96 case beside SDPA's backward in the same dtype and
-    its bound; returns their kernels-line entries (launches filled in by the
-    main paths)."""
+    timed at every D 96 and D 192 case beside SDPA's backward in the same
+    dtype and its bound; returns their kernels-line entries (launches filled
+    in by the main paths)."""
     set_tf32(False)
     gen = torch.Generator().manual_seed(1)
     rows, timed = [], {"dq": [], "dkv": []}
@@ -617,7 +676,7 @@ def check_bwd(report: dict) -> list:
             err = (got.float() - want.float()).abs().max().item()
             row[name] = {"max_abs": max_ref, "max_abs_err": err, "tol": rel * max_ref}
             row["ok"] &= got.dtype == dtype and got.shape == q.shape and err <= rel * max_ref
-        if d == 96:
+        if d in TIMED_D:
             calls = {"dq": lambda: fa.flash_bwd_dq(q, k, v, do, lse, delta),
                      "dkv": lambda: fa.flash_bwd_dkv(q, k, v, do, lse, delta)}
             ms = {key: time_ms(fn) for key, fn in calls.items()}
@@ -627,7 +686,7 @@ def check_bwd(report: dict) -> list:
             for key, products, outs in (("dq", 3, 1), ("dkv", 4, 2)):
                 bound, by = flash_bound(products * 2.0 * bh * n * n * d,
                                         in_bytes + outs * bh * n * d * q.element_size(), dtype)
-                timed[key].append({"n": n, "dtype": _dt(dtype), "ms": ms[key],
+                timed[key].append({"n": n, "d": d, "dtype": _dt(dtype), "ms": ms[key],
                                    "ms_batched": ms_batched[key], "bound_ms": bound,
                                    "bound_by": by, "library_ms": library_ms})
             row.update({"ms": ms, "ms_batched": ms_batched})
@@ -649,7 +708,7 @@ def check_bwd(report: dict) -> list:
         ("flash_bwd_dkv", 132, [main_row["dk"]["max_abs_err"], main_row["dv"]["max_abs_err"]]),
     ):
         key = name.split("_")[-1]
-        main_t = next(r for r in timed[key] if r["n"] == n and r["dtype"] == "bfloat16")
+        main_t = next(r for r in timed[key] if (r["n"], r["d"], r["dtype"]) == (n, d, "bfloat16"))
         entries.append({
             "name": name,
             "route": "cuda",
@@ -2662,6 +2721,208 @@ def model2_slice(report: dict) -> dict:
     return launched
 
 
+class _ScoreCounter:
+    """Wraps ``xray_bench.score_fn`` while the phase runs: each scored row's
+    images, batches and kernel launches, in call order."""
+
+    def __init__(self):
+        self.rows = []
+        self._orig = xray_bench.score_fn
+
+    def __enter__(self):
+        def counted(fn, eval_set, batch: int = XB_SCORE_BATCH):
+            before = counts()
+            out = self._orig(fn, eval_set, batch)
+            self.rows.append({"images": len(eval_set), "batches": -(-len(eval_set) // batch),
+                              "launches": since(before)})
+            return out
+
+        xray_bench.score_fn = counted
+        return self
+
+    def __exit__(self, *exc):
+        xray_bench.score_fn = self._orig
+
+    def take(self) -> list:
+        rows, self.rows = self.rows, []
+        return rows
+
+
+def xray_cli(argv: list) -> dict:
+    """``xray_bench.main(argv)`` in this process (so that its launches are
+    counted), its output kept and shown only when it fails; returns the
+    payload, the CLI's own per-phase walls (its ``Timer`` line), the
+    Trainer steps it ran and its stderr."""
+    out, err = io.StringIO(), io.StringIO()
+    steps = [0]
+    orig_step = Trainer.train_step
+
+    def counted_step(self, batch):
+        steps[0] += 1
+        return orig_step(self, batch)
+
+    Trainer.train_step = counted_step
+    try:
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            payload = xray_bench.main(argv)
+    except BaseException:
+        print(out.getvalue()[-6000:], flush=True)
+        print(err.getvalue()[-6000:], file=sys.stderr, flush=True)
+        raise
+    finally:
+        Trainer.train_step = orig_step
+    lines = out.getvalue().strip().splitlines()
+    assert json.loads(lines[-1]) == payload, lines[-1][:300]
+    walls = next(json.loads(line) for line in reversed(err.getvalue().splitlines())
+                 if line.startswith('{"event": "xray_bench_s"'))
+    return {"payload": payload, "cli_s": {k: v for k, v in walls.items() if k not in ("event", "device")},
+            "train_steps": steps[0], "stderr": err.getvalue(), "stdout": lines}
+
+
+def _check_results(results: dict, rows: list) -> None:
+    """Every row finite; a PSNR of None only where every image of the group
+    was reconstructed exactly (SSIM 1)."""
+    assert list(results) == rows, list(results)
+    for name, r in results.items():
+        for group, v in r.items():
+            assert np.isfinite(v["ssim"]), (name, group, v)
+            assert v["psnr"] is None and v["ssim"] == 1.0 or np.isfinite(v["psnr"]), (name, group, v)
+
+
+def _xb_per_batch(name: str) -> dict:
+    """The launches of one scored batch of a benchmark row."""
+    flash = 6 * XB_EVALS.get(name, 0)
+    ln2d = 60 if name in ("nafnet", "hybrid") else 0
+    return {**NO_LAUNCHES, "flash_fwd": flash, "ln2d": ln2d}
+
+
+def _check_turbo_launches(flash: list) -> None:
+    """The turbo gate's flash launches, one batch a row (diffusion, hybrid
+    at k = 1, 2, 3): k = 1 is the exact rollout, and each larger stride
+    evaluates the UNet fewer times."""
+    k1 = _xb_per_batch("diffusion")["flash_fwd"]
+    assert flash[0] == flash[1] == k1 and k1 > flash[2] == flash[3] > flash[4] == flash[5], flash
+
+
+def xray_bench_slice(report: dict, smi: str) -> tuple:
+    """Phase 15: the xraybench-v1 CLI on the card at serve widths, 256²:
+    (a) --train (tpu profile: the NAFNet and expert polish runs,
+    expert_ftl2, the sees_expert hybrid), then --train-wide --train-ddim50
+    into the same directory; (b) the score (every row of ``XB_ROWS``,
+    finite; the JAX CLI's payload keys; the ``_input`` row equal to the CPU's
+    own to 1e-5; each row's flash and ln2d launches a scored batch as its
+    exact rollouts and NAFNets make them); (c) card against CPU on the
+    trained nafnet, diffusion and hybrid on the eval set's first image, TF32 off
+    (``XB_PSNR_*``, ``XB_SSIM_*``); (d) --turbo-gate at one image per family;
+    (e) --seeds 1 --seed-models diffusion twice: the second reuses the
+    marked run and trains nothing. Returns the launches of the CLI runs
+    (a, b, d, e) and the phase's record."""
+    timer = Timer("xraybench_phase_s", stream=sys.stdout, device="cuda")
+    default_tf32()
+    res = {"card": smi, "cli_s": {}, "launches_per_batch": {}}
+    cwd = os.getcwd()
+    tmp = tempfile.mkdtemp(prefix="xraybench_")
+    try:
+        os.chdir(tmp)  # the recipes write their curves (where matplotlib exists) here
+        ck = os.path.join(tmp, "ck")
+        common = [*XB_ARGS, "--ckpt-dir", ck, "--n-eval", str(XB_N_EVAL)]
+        zero_counts()
+        with _ScoreCounter() as scored:
+            with timer.section("train"):
+                train = xray_cli(["--train", *common])
+            assert train["train_steps"] > 0 and list(train["payload"]) == XB_PAYLOAD_KEYS
+            for name in ("nafnet", "diffusion", "expert", "expert_ftl2", "hybrid"):
+                assert xray_bench.completed_phases(ck, name), name
+            with timer.section("train_variants"):
+                variants = xray_cli(["--train-wide", "--train-ddim50", *common])
+            assert xray_bench.completed_phases(ck, "diffusion_w96") == ("diffusion",)
+            assert xray_bench.completed_phases(ck, "diffusion_ddim50") == ("diffusion",)
+            scored.take()
+
+            with timer.section("score"):
+                score = xray_cli(common)
+            rows = scored.take()
+            payload = score["payload"]
+            assert list(payload) == XB_PAYLOAD_KEYS, list(payload)
+            assert payload["protocol"] == xray_bench.PROTOCOL_VERSION and payload["img_size"] == XB_IMG
+            assert payload["n_eval"] == 3 * XB_N_EVAL and score["train_steps"] == 0
+            _check_results(payload["results"], XB_ROWS)
+            for name, row in zip(XB_ROWS, rows):
+                per_batch = _xb_per_batch(name)
+                want = {k: v * row["batches"] for k, v in per_batch.items()}
+                assert row["launches"] == want, (name, row, want)
+                res["launches_per_batch"][name] = {k: v for k, v in per_batch.items() if v}
+            cpu_input = xray_bench.score_fn(lambda x: x, xray_bench.make_eval_set(XB_N_EVAL, XB_IMG))
+            for group, v in cpu_input.items():
+                got = payload["results"]["_input"][group]
+                assert abs(got["psnr"] - v["psnr"]) <= 1e-5 and abs(got["ssim"] - v["ssim"]) <= 1e-5, group
+            scored.take()
+
+            with timer.section("turbo_gate"):
+                turbo = xray_cli(["--turbo-gate", "--ckpt-dir", ck, "--img-size", str(XB_IMG), "--n-eval", "1"])
+            _check_results(turbo["payload"]["results"],
+                           [f"{p}_k{k}" for k in (1, 2, 3) for p in ("diffusion", "hybrid")])
+            _check_turbo_launches([r["launches"]["flash_fwd"] for r in scored.take()])
+
+            seed_args = ["--seeds", "1", "--seed-models", "diffusion", *common[:-2], "--n-eval", "1"]
+            with timer.section("seed_study"):
+                seeds = xray_cli(seed_args)
+            with timer.section("seed_study_again"):
+                again = xray_cli(seed_args)
+            for run in (seeds, again):
+                study = run["payload"]["seed_study"]["diffusion"]
+                assert [r["seed"] for r in study["rows"]] == [0, 1], study
+                assert all(np.isfinite(r["psnr"]) for r in study["rows"]), study
+            assert seeds["train_steps"] > 0 and again["train_steps"] == 0, (seeds["train_steps"],
+                                                                            again["train_steps"])
+            assert "diffusion_s1: reusing the finished run" in again["stderr"], again["stderr"][-2000:]
+        launched = counts()
+
+        # (c) card against CPU, through the port on both devices, as the CLI scores
+        set_tf32(False)
+        eval_set = xray_bench.make_eval_set(1, XB_IMG)[:XB_CARD_VS_CPU_IMAGES]
+        kw = dict(img_size=XB_IMG, ckpt_dir=ck, warmup=False, turbo_eps_reuse=1, hybrid_turbo_eps_reuse=1)
+        on = {}
+        for dev in ("cuda", "cpu"):
+            with timer.section(f"card_vs_cpu_{dev}"):
+                engine = InferenceEngine(EngineConfig(**kw, device=dev))
+                try:
+                    on[dev] = xray_bench.score_engine(engine, eval_set, models=XB_CARD_VS_CPU_MODELS)
+                finally:
+                    engine.close()
+        default_tf32()
+        diffs = {}
+        for name in XB_CARD_VS_CPU_MODELS:
+            g, c = on["cuda"][name]["overall"], on["cpu"][name]["overall"]
+            diffs[name] = {"psnr_card": g["psnr"], "psnr_cpu": c["psnr"], "ssim_card": g["ssim"],
+                           "ssim_cpu": c["ssim"], "psnr_diff": abs(g["psnr"] - c["psnr"]),
+                           "ssim_diff": abs(g["ssim"] - c["ssim"])}
+    finally:
+        os.chdir(cwd)
+        shutil.rmtree(tmp, ignore_errors=True)
+    timer.emit()
+    res.update(
+        cli_s={"train": train["cli_s"], "train_variants": variants["cli_s"], "score": score["cli_s"],
+               "turbo_gate": turbo["cli_s"], "seed_study": seeds["cli_s"], "seed_study_again": again["cli_s"]},
+        train_steps={"train": train["train_steps"], "train_variants": variants["train_steps"],
+                     "seed_study": seeds["train_steps"], "seed_study_again": again["train_steps"]},
+        results=payload["results"], table=score["stdout"][-len(XB_ROWS) - 3:-1],
+        turbo_gate={k: v["overall"] for k, v in turbo["payload"]["results"].items()},
+        seed_study=seeds["payload"]["seed_study"], card_vs_cpu=diffs, launches=launched,
+    )
+    report["xraybench"] = res
+    for line in res["table"]:
+        print(line, flush=True)
+    print(json.dumps({"xraybench": {k: res[k] for k in ("cli_s", "train_steps", "launches_per_batch",
+                                                         "card_vs_cpu", "launches")}}), flush=True)
+    for name, d in diffs.items():
+        fp32 = name == "nafnet"
+        psnr_tol, ssim_tol = (XB_PSNR_FP32_DB, XB_SSIM_FP32) if fp32 else (XB_PSNR_BF16_DB, XB_SSIM_BF16)
+        assert np.isfinite(d["psnr_card"]) and np.isfinite(d["psnr_cpu"]), (name, d)
+        assert d["psnr_diff"] <= psnr_tol and d["ssim_diff"] <= ssim_tol, (name, d)
+    return launched, res
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -2792,6 +3053,12 @@ def main(argv=None) -> int:
     paths["model2_fused"] = model2_slice(report)
     report["phase_14_s"] = time.time() - t
     print(json.dumps({k: report[k] for k in ("phase_12_s", "phase_13_s", "phase_14_s")}), flush=True)
+
+    phase("slice: the xraybench-v1 quality benchmark at serve widths, 256²")
+    t = time.time()
+    paths["xraybench"], _ = xray_bench_slice(report, smi)
+    report["phase_15_s"] = time.time() - t
+    print(json.dumps({"phase_15_s": report["phase_15_s"]}), flush=True)
 
     for entry in entries:
         by_path = {p: launched[entry["name"]] for p, launched in paths.items()}

@@ -118,6 +118,11 @@ SERVE_HYBRID = HybridConfig(training_diffusion_steps=8, inference_diffusion_step
 SERVE_IMG_SIZE = 512  # run.py:198
 SERVE_DIFFUSION_STEPS = 8  # run.py:107
 
+# The wide (96-channel) standalone diffusion of the JAX package: the same
+# recipe at twice the base width; the engine reads the width from a
+# checkpoint's metadata (the benchmark's ``diffusion_w96`` row).
+WIDE_DIFFUSION = DiffusionUNetConfig(model_channels=96)
+
 # Residual, expert-fed fusion profile of the JAX package (same param tree as
 # the reference head plus one input channel).
 TPU_HYBRID = HybridConfig(

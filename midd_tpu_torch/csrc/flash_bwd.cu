@@ -21,7 +21,7 @@
 // block owns 64 key rows and streams Q/dO. Every output element is written
 // by exactly one block: no atomics. p is recomputed from lse, so no running
 // max is needed. D is rounded up to a multiple of 16 in shared memory only
-// (template NJ = Dp / 16). Any N >= 1: keys past N get p = 0, query rows
+// (template NJ = Dp / 16; D 129-192 at Dp 192). Any N >= 1: keys past N get p = 0, query rows
 // past N get p = 0 (their lse and delta are never read) and are not stored.
 //
 // Bound on this card: operations. dq does 3 and dk/dv 4 matrix products of
@@ -53,7 +53,7 @@ using namespace midd_mma;
 // dq for DQ_BQ = 64 query rows of one (b, h), on the tensor cores. Each warp
 // owns 16 query rows; the block's warps form groups of four, and group g
 // takes K/V tiles g, g + G, g + 2G, ... (G = 3 where three rings fit, else
-// 2, as in the forward). Per K/V tile a warp computes, in registers:
+// 2, else 1 (Dp 192), as in the forward). Per K/V tile a warp computes, in registers:
 //   S = Q_w K^T;  dP = dO_w V^T;
 //   P = exp2(S scale log2e - lse log2e)  (0 past N);  dS = P (dP - delta);
 //   dQ_w += dS K  (dS rounded to bf16 for bf16),
@@ -71,7 +71,9 @@ using namespace midd_mma;
 // shared memory bf16 186,368 bytes (64-key tiles), fp32 204,800 bytes
 // (32-key tiles); registers per thread bf16 168 (the cap at 384 threads),
 // fp32 143; no spills. Spills elsewhere: bf16 12 bytes at D 97-112 and 8 at
-// D <= 16, fp32 112 bytes at D 17-32.
+// D <= 16, fp32 112 bytes at D 17-32. At Dp 192 one group (128 threads):
+// bf16 153,600 bytes, 252 registers; fp32 200,704 bytes, 227 registers; no
+// spills.
 constexpr int DQ_BQ = 64;  // query rows per block: 16 per warp of a group
 
 template <typename T, int NJ> struct DqLayout {
@@ -81,7 +83,9 @@ template <typename T, int NJ> struct DqLayout {
   static constexpr int Q_BYTES = DQ_BQ * S * sizeof(T);  // Q, and again dO
   static constexpr int K_BYTES = BK * S * sizeof(T);     // K, and again V
   static constexpr int TILE = 2 * K_BYTES;
-  static constexpr int GROUPS = 2 * Q_BYTES + 6 * TILE <= SMEM_MAX ? 3 : 2;
+  static constexpr int GROUPS = 2 * Q_BYTES + 6 * TILE <= SMEM_MAX   ? 3
+                                : 2 * Q_BYTES + 4 * TILE <= SMEM_MAX ? 2
+                                                                     : 1;
   static constexpr int THREADS = 128 * GROUPS;
   static constexpr int STAGE = GROUPS * TILE;
   static constexpr int BYTES = 2 * Q_BYTES + 2 * STAGE;
@@ -208,9 +212,9 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 // dk and dv for DKV_BK = 64 key rows of one (b, h), on the tensor cores
 // (flash_mma.cuh); Q, dO, lse and delta tiles stream. Each warp owns 16 key
-// rows; of the two groups of four warps, group g takes queries [32g, 32g +
-// 32) of every 64-query tile, and per 32 (fp32: 16) queries computes, in
-// registers:
+// rows; of the two groups of four warps, group g takes the g-th half of
+// every streamed query tile (64 queries; 32 for fp32 at Dp 192), and per 32
+// (fp32: 16) queries computes, in registers:
 //   S^T = K_w Q^T;  P^T = exp2(S^T scale log2e - lse log2e)  (0 past N);
 //   dV_w += P^T dO  (P^T rounded to bf16 for bf16);
 //   dP^T = V_w dO^T;  dS^T = P^T (dP^T - delta);
@@ -225,19 +229,26 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // 256 threads; shared memory bf16 80,896 bytes, fp32 154,624 bytes;
 // registers per thread bf16 174, fp32 202, no spills; fp32 spills a few
 // words at D 17-32 (4 bytes) and at D > 96 (76-112 bytes, at the
-// 255-register cap).
+// 255-register cap). At Dp 192 in fp32 two stages of 64 queries do not fit
+// beside K and V: the streamed tiles hold 32 queries (16 a group, one pass),
+// 201,216 bytes. dK and dV take 192 registers a lane alone there: at the
+// 255-register cap fp32 spills 92 bytes and bf16 (154,624 bytes of 64-query
+// tiles) 16.
 constexpr int DKV_BK = 64;      // key rows per block: 16 per warp of a group
-constexpr int DKV_BQ = 64;      // queries per streamed tile
-constexpr int DKV_GROUPS = 2;   // warp groups; group g takes queries [32g, 32g + 32) of a tile
+constexpr int DKV_GROUPS = 2;   // warp groups; group g takes the g-th half of each query tile
 constexpr int DKV_THREADS = 128 * DKV_GROUPS;
 
 template <typename T, int NJ> struct DkvLayout {
   static constexpr int DP = NJ * 16;
   static constexpr int S = DP + midd_mma::Mma<T>::PAD;  // row stride of every tile, elements
-  static constexpr int TILE = 64 * S * sizeof(T);
-  static constexpr int STAGE = 2 * TILE + 2 * DKV_BQ * sizeof(float);  // Q, dO, lse, delta
-  static constexpr int BYTES = 2 * TILE + 2 * STAGE;                   // K, V, two stages
+  static constexpr int TILE = DKV_BK * S * sizeof(T);   // K or V
+  // queries per streamed tile: 64, or 32 where two stages of 64 do not fit
+  static constexpr int BQ = 2 * TILE + 2 * (2 * 64 * S * sizeof(T) + 2 * 64 * 4) <= SMEM_MAX ? 64 : 32;
+  static constexpr int QTILE = BQ * S * sizeof(T);                   // Q or dO
+  static constexpr int STAGE = 2 * QTILE + 2 * BQ * sizeof(float);   // Q, dO, lse, delta
+  static constexpr int BYTES = 2 * TILE + 2 * STAGE;                 // K, V, two stages
   static constexpr int XCHG = DP;  // floats a lane hands over: its dK and dV fragments
+  static_assert(BYTES <= SMEM_MAX, "ring does not fit shared memory");
   static_assert(128 * XCHG * 4 <= 2 * STAGE, "merge buffer does not fit the ring");
 };
 
@@ -256,6 +267,7 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   // queries per register pass: fp32 carries hi and lo A fragments, so half
   constexpr int PASS = sizeof(T) == 2 ? 32 : 16;
   constexpr int NT = PASS / 8;  // 8-query tiles of one pass
+  static_assert((Lay::BQ / DKV_GROUPS) % PASS == 0, "a group's queries of a tile are whole passes");
   extern __shared__ __align__(16) unsigned char smem[];
   T* ks = reinterpret_cast<T*>(smem);
   T* vs = reinterpret_cast<T*>(smem + Lay::TILE);
@@ -269,16 +281,17 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const size_t base = (size_t)bh * n * d;
   const float* lse_bh = lse + (size_t)bh * n;
   const float* delta_bh = delta + (size_t)bh * n;
-  const int tiles = (n + DKV_BQ - 1) / DKV_BQ;
+  constexpr int BQ = Lay::BQ;
+  const int tiles = (n + BQ - 1) / BQ;
 
   auto load_stage = [&](int st, int q0) {
     unsigned char* p = stage(st);
-    mm::load_rows<T, DKV_BQ, DP, DKV_THREADS>(reinterpret_cast<T*>(p), S, q + base, q0, n, d, async);
-    mm::load_rows<T, DKV_BQ, DP, DKV_THREADS>(reinterpret_cast<T*>(p + Lay::TILE), S, dout + base,
-                                              q0, n, d, async);
-    float* vec = reinterpret_cast<float*>(p + 2 * Lay::TILE);
-    mm::load_vec<DKV_BQ>(vec, lse_bh, q0, n, (int)threadIdx.x);
-    mm::load_vec<DKV_BQ>(vec + DKV_BQ, delta_bh, q0, n, (int)threadIdx.x - DKV_BQ);
+    mm::load_rows<T, BQ, DP, DKV_THREADS>(reinterpret_cast<T*>(p), S, q + base, q0, n, d, async);
+    mm::load_rows<T, BQ, DP, DKV_THREADS>(reinterpret_cast<T*>(p + Lay::QTILE), S, dout + base,
+                                          q0, n, d, async);
+    float* vec = reinterpret_cast<float*>(p + 2 * Lay::QTILE);
+    mm::load_vec<BQ>(vec, lse_bh, q0, n, (int)threadIdx.x);
+    mm::load_vec<BQ>(vec + BQ, delta_bh, q0, n, (int)threadIdx.x - BQ);
   };
   mm::load_rows<T, DKV_BK, DP, DKV_THREADS>(ks, S, k + base, k0, n, d, async);
   mm::load_rows<T, DKV_BK, DP, DKV_THREADS>(vs, S, v + base, k0, n, d, async);
@@ -297,18 +310,18 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     mm::cp_async_wait_all();
     __syncthreads();  // tile j is in; every warp is done with stage (j + 1) & 1
     if (j + 1 < tiles) {
-      load_stage((j + 1) & 1, (j + 1) * DKV_BQ);
+      load_stage((j + 1) & 1, (j + 1) * BQ);
       mm::cp_async_commit();
     }
     const unsigned char* p = stage(j & 1);
     const T* qt = reinterpret_cast<const T*>(p);
-    const T* dot = reinterpret_cast<const T*>(p + Lay::TILE);
-    const float* lt = reinterpret_cast<const float*>(p + 2 * Lay::TILE);
-    const float* dlt = lt + DKV_BQ;
-    const int q0 = j * DKV_BQ;
+    const T* dot = reinterpret_cast<const T*>(p + Lay::QTILE);
+    const float* lt = reinterpret_cast<const float*>(p + 2 * Lay::QTILE);
+    const float* dlt = lt + BQ;
+    const int q0 = j * BQ;
 
 #pragma unroll 1
-    for (int h = group * (DKV_BQ / DKV_GROUPS); h < (group + 1) * (DKV_BQ / DKV_GROUPS); h += PASS) {
+    for (int h = group * (BQ / DKV_GROUPS); h < (group + 1) * (BQ / DKV_GROUPS); h += PASS) {
       const T* qh = qt + h * S;
       const T* doh = dot + h * S;
       float pt[NT][4], dst[NT][4];
@@ -430,13 +443,15 @@ cudaError_t dispatch(const Args& a) {
     MIDD_CASE(1) MIDD_CASE(2) MIDD_CASE(3) MIDD_CASE(4)
     MIDD_CASE(5) MIDD_CASE(6) MIDD_CASE(7) MIDD_CASE(8)
 #undef MIDD_CASE
+    case 9: case 10: case 11: case 12:  // Dp 192: one instance for D 129-192
+      return DQ ? launch_dq<T, 12>(a) : launch_dkv<T, 12>(a);
     default: return cudaErrorInvalidValue;
   }
 }
 
 template <bool DQ>
 int run(const Args& a, int is_bf16) {
-  if (a.bh < 1 || a.bh > 65535 || a.n < 1 || a.d < 1 || a.d > 128)
+  if (a.bh < 1 || a.bh > 65535 || a.n < 1 || a.d < 1 || a.d > MAX_D)
     return (int)cudaErrorInvalidValue;
   return (int)(is_bf16 ? dispatch<__nv_bfloat16, DQ>(a) : dispatch<float, DQ>(a));
 }

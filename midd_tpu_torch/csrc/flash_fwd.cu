@@ -17,8 +17,9 @@
 // g + G, g + 2G, ..., and at the end groups 1.. hand their softmax state to
 // group 0, which merges and stores. D is not padded to 128 lanes: it is
 // rounded up to a multiple of 16 (template NJ = Dp / 16) with zeros in
-// shared memory only. Any N >= 1: the ragged last K/V tile is masked to -inf
-// and ragged query rows are not stored.
+// shared memory only, and D 129-192 (the wide UNet's heads of 192) run at
+// Dp 192. Any N >= 1: the ragged last K/V tile is masked to -inf and ragged
+// query rows are not stored.
 //
 // Bound on this card: operations. Per call 4*BH*N^2*D operations against
 // 2*BH*N*D*(3 + 1) bytes (bf16); at the served shape (BH=2, N=4096, D=96)
@@ -40,11 +41,14 @@
 //   same tiles with plain loads;
 // - the grid at the served shape is 128 blocks, under one wave on 132 SMs,
 //   so a block splits the keys over G = 3 warp groups (2 where three rings
-//   do not fit: fp32 at D > 112): 12 warps an SM, 3 a scheduler, to hide
-//   the latency of mma.sync, ldmatrix and the softmax.
+//   do not fit: fp32 at D > 112 and bf16 at Dp 192; 1 where two do not:
+//   fp32 at Dp 192): 12 warps an SM, 3 a scheduler, to hide the latency of
+//   mma.sync, ldmatrix and the softmax.
 // Budget at D 96 (nvcc -Xptxas -v, sm_90a): 384 threads; shared memory bf16
 // 173,056 bytes (64-key tiles), fp32 182,272 bytes (32-key tiles); registers
-// per thread bf16 134, fp32 145; no spills at any D.
+// per thread bf16 134, fp32 145; no spills at any D. At Dp 192: bf16 two
+// groups (256 threads, 230,400 bytes, 208 registers), fp32 one (128
+// threads, 151,552 bytes, 217 registers), no spills.
 // Left for later: wgmma fed by a TMA producer warp; 32 rows a warp (two
 // m16 tiles share each B fragment, as FlashAttention-2 does); and a split of
 // the keys across blocks, which would fill the card at N 1024 (32 blocks).
@@ -62,7 +66,8 @@ using namespace midd_mma;
 constexpr int BQ = 64;  // query rows per block: 16 per warp of a group
 
 // Warp groups and shared memory, in bytes. Each group of four warps takes
-// every GROUPS-th K/V tile: three groups where their ring fits, else two.
+// every GROUPS-th K/V tile: three groups where their ring fits, else two,
+// else one.
 // Q, then two stages of one (K, V) tile per group. Q and K rows are read by
 // ldmatrix (stride: Mma<T>::PAD); V rows by ldmatrix.trans (bf16) or by
 // plain loads of rows t, t+4 x 8 columns (fp32), both conflict-free at a
@@ -76,7 +81,9 @@ template <typename T, int NJ> struct Layout {
   static constexpr int Q_BYTES = BQ * QS * sizeof(T);
   static constexpr int K_BYTES = BK * QS * sizeof(T);
   static constexpr int TILE = K_BYTES + BK * VS * sizeof(T);
-  static constexpr int GROUPS = Q_BYTES + 6 * TILE <= SMEM_MAX ? 3 : 2;
+  static constexpr int GROUPS = Q_BYTES + 6 * TILE <= SMEM_MAX   ? 3
+                                : Q_BYTES + 4 * TILE <= SMEM_MAX ? 2
+                                                                 : 1;
   static constexpr int THREADS = 128 * GROUPS;
   static constexpr int STAGE = GROUPS * TILE;
   static constexpr int BYTES = Q_BYTES + 2 * STAGE;
@@ -270,6 +277,8 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, void* o,
     case 6: return launch<T, 6>(q, k, v, o, lse, bh, n, d, stream);
     case 7: return launch<T, 7>(q, k, v, o, lse, bh, n, d, stream);
     case 8: return launch<T, 8>(q, k, v, o, lse, bh, n, d, stream);
+    case 9: case 10: case 11: case 12:  // Dp 192: one instance for D 129-192
+      return launch<T, 12>(q, k, v, o, lse, bh, n, d, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -282,7 +291,7 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, void* o,
 extern "C" int midd_flash_fwd(const void* q, const void* k, const void* v,
                               void* o, void* lse, int bh, int n, int d,
                               int is_bf16, void* stream) {
-  if (bh < 1 || bh > 65535 || n < 1 || d < 1 || d > 128)
+  if (bh < 1 || bh > 65535 || n < 1 || d < 1 || d > MAX_D)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err =

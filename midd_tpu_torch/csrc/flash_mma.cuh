@@ -34,6 +34,7 @@ namespace midd_mma {
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 constexpr int SMEM_MAX = 232448;  // bytes of shared memory a block can have
+constexpr int MAX_D = 192;        // largest head dim the flash kernels take (Dp 192)
 
 template <typename T> __device__ __forceinline__ T from_float(float x);
 template <> __device__ __forceinline__ float from_float<float>(float x) { return x; }

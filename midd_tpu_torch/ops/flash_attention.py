@@ -32,6 +32,9 @@ SOURCE = CSRC / "flash_fwd.cu"
 # query rows per block of the plain (and the exact reference's) scores: each
 # row's softmax stands alone, so blocks keep memory at O(ROW_BLOCK * N)
 ROW_BLOCK = 1024
+# the largest head dim the kernels take (``MAX_D`` in csrc/flash_mma.cuh):
+# the served UNet's heads are 96, the wide (96-channel) UNet's 192
+MAX_D = 192
 BWD_SOURCE = CSRC / "flash_bwd.cu"
 _SIGNATURES = {
     SOURCE: {
@@ -69,7 +72,7 @@ def _check_qkv(name: str, *ts: torch.Tensor) -> None:
     if not all(t.is_contiguous() for t in ts):
         raise ValueError(f"{name}: operands must be contiguous")
     bh, n, d = q.shape
-    if not (1 <= d <= 128) or n < 1 or not (1 <= bh <= 65535):
+    if not (1 <= d <= MAX_D) or n < 1 or not (1 <= bh <= 65535):
         raise ValueError(f"{name}: unsupported shape {tuple(q.shape)}")
 
 
@@ -99,7 +102,7 @@ def flash_attention(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(BH, N, D) attention -> (O, lse). CUDA tensors launch the kernel
-    (bf16 or fp32, contiguous, 1 <= D <= 128); CPU tensors take the plain
+    (bf16 or fp32, contiguous, 1 <= D <= MAX_D); CPU tensors take the plain
     version."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v)
@@ -215,7 +218,7 @@ def flash_attention_bwd(
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Gradients (dq, dk, dv) of ``flash_attention`` given its saved (O, lse)
     and the output cotangent dO. CUDA tensors launch the two backward kernels
-    (bf16 or fp32, contiguous, 1 <= D <= 128; lse (BH, N) fp32); CPU tensors
+    (bf16 or fp32, contiguous, 1 <= D <= MAX_D; lse (BH, N) fp32); CPU tensors
     take ``flash_attention_bwd_plain``."""
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, o, lse, do)

@@ -9,10 +9,12 @@ backends with the standalone paths where their weights are the same
 
 Checkpoint sources per model: ``<ckpt_dir>/<name>.pth`` (a reference-format
 torch file, loaded with ``load_state_dict``), else seeded demo weights. An
-orbax directory ``<ckpt_dir>/<name>/`` raises: reading those is ROADMAP.md
-queue 1 item 9. A ``sees_expert`` hybrid feeds its expert branch from
-``<ckpt_dir>/expert_ftl2.pth`` when that file exists, else from the
-standalone expert.
+orbax directory ``<ckpt_dir>/<name>/`` (the JAX package's checkpoints)
+raises: the port imports no jax, so convert it first, on a host with jax,
+with ``python orbax_bridge.py to-pth <dir> <dir>.pth`` (or ``dir`` for a
+whole checkpoint directory). A ``sees_expert`` hybrid feeds its expert
+branch from ``<ckpt_dir>/expert_ftl2.pth`` when that file exists, else from
+the standalone expert.
 
 ``use_flash_attention`` picks the UNets' attention (None: flash on the card,
 the exact reference on the CPU). ``quantize_int8`` runs the diffusion UNets'
@@ -20,9 +22,16 @@ ResBlock and downsampler convolutions in int8 (``ops/qconv.py``): per-call
 scales (True or "dynamic"), or scales calibrated at startup over seeded
 phantom rollouts ("static", the server's ``--int8``).
 
-Left out, so asking for them fails: orbax checkpoints (queue 1 item 9),
-dp/tp/sp parallel serving (item 15), AOT pinning and the persistent
-compilation cache (item 16), and the NAFNet s2d layout (item 17).
+``nafnet_s2d`` is accepted, so a JAX engine config reads as it is, and
+changes nothing: the JAX engine then runs its NAFNets' full-resolution
+stage in a space-to-depth layout, and its UNets stage 0 so unless int8
+(``ops/naf_s2d.py``, ``ops/unet_s2d.py``). Those are restructurings for the
+TPU's 128 lanes with the same function and parameters, not ported: the port
+computes the plain layouts, and ``serving_mode()["layout"]`` says so.
+
+Left out, so asking for them fails: dp/tp/sp parallel serving (ROADMAP.md
+queue 1 item 15), AOT pinning and the persistent compilation cache (item
+16).
 """
 
 from __future__ import annotations
@@ -57,6 +66,7 @@ from midd_tpu_torch.ops.qconv import calibrate_unet_rollout, load_qscales, with_
 from midd_tpu_torch.serve.batching import MicroBatcher
 from midd_tpu_torch.serve.codec import tensor_to_base64_png
 from midd_tpu_torch.train.data import NOISE_FNS
+from midd_tpu_torch.utils.checkpoint import orbax_message
 
 MODEL_NAMES = ("diffusion", "nafnet", "expert", "hybrid")
 STUDIED_SCHEDULE = (0, 2, 6, 7)  # the gated refresh schedule of the 8-step rollout
@@ -121,6 +131,9 @@ class EngineConfig:
     # or "static" (scales calibrated once at startup: 2 phantoms x the
     # three noise families, fp32 rollouts of the served step count)
     quantize_int8: Any = False
+    # the JAX engine's NAFNet space-to-depth layout: accepted and ignored,
+    # the plain layout is computed (the same function and parameters)
+    nafnet_s2d: bool = False
 
 
 def _eps_kwargs(setting) -> Dict[str, Any]:
@@ -190,10 +203,7 @@ class InferenceEngine:
     def _pth(self, name: str) -> Optional[Dict]:
         path = os.path.join(self.cfg.ckpt_dir, name)
         if os.path.isdir(path):
-            raise NotImplementedError(
-                f"{path!r} is an orbax checkpoint directory; the port reads "
-                f"<name>.pth files only (orbax I/O: ROADMAP.md queue 1 item 9)"
-            )
+            raise NotImplementedError(orbax_message(path))
         if not os.path.exists(path + ".pth"):
             return None
         if name not in self._pth_cache:
@@ -657,9 +667,8 @@ class InferenceEngine:
             "batching": self.batcher is not None,
             "flash_attention": bool(cfg.use_flash_attention),
             "hybrid_expert_tree": self.hybrid_expert_tree,
-            # the port computes the plain layouts: no NAFNet space-to-depth
-            # and no stage-0 space-to-depth in the UNet (JAX reports True
-            # for the latter; both are exact restructurings)
+            # the layouts computed: the plain ones, whatever nafnet_s2d says
+            # (the JAX engine reports its space-to-depth restructurings here)
             "layout": {"nafnet_s2d": False, "unet_fused_updown": True, "unet_s2d_stage0": False},
             "adaptive_turbo": {
                 "queue_depth": cfg.adaptive_queue_depth,

@@ -72,7 +72,7 @@ from midd_tpu_torch.train.trainer import (
     tiny_draw,
     tiny_loss_fn,
 )
-from midd_tpu_torch.utils.checkpoint import load_checkpoint
+from midd_tpu_torch.utils.checkpoint import load_checkpoint, orbax_message
 
 MODELS = ("nafnet", "diffusion", "cddpm", "expert", "hybrid", "tiny")
 # the JAX CLI's --preset tiny
@@ -116,13 +116,10 @@ def _load_backend(ckpt: Optional[str], model: nn.Module, name: str, seeded: List
     """A frozen backend's weights: a port (or reference) ``.pth`` loads
     strictly; no path, or a path that does not exist, gives seeded weights,
     as the JAX package falls back to a seeded init: that is printed and
-    ``name`` joins ``seeded``. An orbax directory raises (ROADMAP.md queue 1
-    item 9)."""
+    ``name`` joins ``seeded``. An orbax directory raises, naming the
+    converter (``orbax_bridge.py``)."""
     if ckpt and os.path.isdir(ckpt):
-        raise NotImplementedError(
-            f"{ckpt!r} is an orbax checkpoint directory; the port reads .pth files "
-            f"only (orbax I/O: ROADMAP.md queue 1 item 9)"
-        )
+        raise NotImplementedError(orbax_message(ckpt))
     if ckpt and (os.path.exists(ckpt) or os.path.exists(ckpt + ".pth")):
         state = load_checkpoint(ckpt)
         model.load_state_dict(state.get("model_state_dict", state), strict=True)

@@ -5,8 +5,12 @@ one ``<ckpt_dir>/<ckpt_name>.pth`` in the reference's torch format
 (DDIM/DDIMModel.py:429-435, hybrid3diffusionspeed.py:837-852):
 ``model_state_dict``, ``optimizer_state_dict`` and the metadata keys (epoch,
 best_psnr, best_ssim, the histories, the flattened arch fields) at the top
-level. The port's serving engine reads exactly this file. Reading and
-writing orbax directories is ROADMAP.md queue 1 item 9.
+level. The port's serving engine reads exactly this file.
+
+The port imports no jax, so it cannot read or write orbax directories: the
+engine and the recipes refuse one with ``orbax_message``. ``orbax_bridge.py``
+at the repository root converts in both directions on a host with jax
+(``to-pth``, ``to-orbax``, and ``dir`` for a whole checkpoint directory).
 """
 
 from __future__ import annotations
@@ -41,3 +45,12 @@ def load_checkpoint(path: str) -> Dict[str, Any]:
     if not os.path.exists(path) and os.path.exists(path + ".pth"):
         path += ".pth"
     return torch.load(path, map_location="cpu", weights_only=True)
+
+
+def orbax_message(path: str) -> str:
+    """The error for an orbax checkpoint directory: what it is, and the
+    converter command that makes a ``.pth`` of it."""
+    path = os.path.normpath(path)
+    return (f"{path!r} is an orbax checkpoint directory; the port reads .pth files only. "
+            f"Convert it on a host with jax: python orbax_bridge.py to-pth {path} {path}.pth "
+            f"(or python orbax_bridge.py dir SRC_DIR OUT_DIR for a whole checkpoint directory)")

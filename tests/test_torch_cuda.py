@@ -6,7 +6,7 @@ layouts, at every served stage and at its edges; both NAFNet kernels at
 every MODEL2_NAFNET stage), the launch counts, gradients through ``mha``
 and through ``LayerNorm2d``, and the wrappers' refusals; and the int8
 convolutions' integer product (``torch._int_mm``) against its plain
-version. Marked ``cuda``;
+version; and the quality benchmark's ``score_fn`` card against CPU. Marked ``cuda``;
 skipped where there is no GPU. This file imports no JAX, so on a machine
 without JAX run it without the suite's conftest:
 
@@ -43,6 +43,11 @@ def _qkv(bh, n, d, dtype, seed=0):
     (3, 777, 128, torch.float32),
     (1, 1, 1, torch.float32),
     (4, 130, 40, torch.bfloat16),
+    # the wide UNet's heads of 192: a scored batch of 4 (bf16) and a training step of 2 (fp32)
+    (8, 1024, 192, torch.bfloat16),
+    (4, 1024, 192, torch.float32),
+    (3, 333, 136, torch.float32),  # Dp 192 from D 129 up
+    (2, 100, 130, torch.bfloat16),  # a row of 260 bytes: plain loads
 ])
 def test_kernel_matches_plain(cuda, bh, n, d, dtype):
     _check_fwd(*_qkv(bh, n, d, dtype))
@@ -78,7 +83,7 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(cuda):
     with pytest.raises(ValueError, match="dtypes"):
         fa.flash_attention(q.half(), k.half(), v.half())
     with pytest.raises(ValueError, match="unsupported shape"):
-        big = torch.zeros(1, 8, 160, device="cuda")
+        big = torch.zeros(1, 8, fa.MAX_D + 1, device="cuda")
         fa.flash_attention(big, big, big)
     assert fa.flash_attention.launches == before
 
@@ -89,6 +94,10 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(cuda):
     (2, 1000, 64, torch.bfloat16),
     (3, 77, 128, torch.float32),
     (1, 1, 1, torch.float32),
+    (4, 1024, 192, torch.float32),  # the wide UNet's training step (fp32, 32-query tiles in dk/dv)
+    (8, 1024, 192, torch.bfloat16),
+    (3, 333, 136, torch.float32),
+    (2, 100, 130, torch.bfloat16),
 ])
 def test_bwd_kernels_match_plain(cuda, bh, n, d, dtype):
     q, k, v = _qkv(bh, n, d, dtype)
@@ -593,3 +602,41 @@ def test_cddpm_stochastic_rollout_card_vs_cpu(cuda):
             assert fa.flash_attention.launches - before == 9 * 4
     assert torch.isfinite(outs["cuda"]).all()
     assert (outs["cuda"] - outs["cpu"]).abs().max().item() <= 1e-3
+
+
+def test_xray_bench_score_fn_card_vs_cpu(cuda):
+    """The benchmark's ``score_fn`` on a seeded full-width NAFNet at the
+    protocol's 256², run on the card and on the CPU (fp32, TF32 off), over
+    one eval image of each noise family. The forwards agree to ~1e-6 of
+    max|out| (the 1e-4 bound of ``chip_smoke.py``'s NAFNet card-vs-CPU
+    check); with these untrained outputs far from clean, that moves a mean
+    PSNR by ~1e-5 dB and an SSIM by ~1e-7: 1e-3 dB and 1e-5 hold them, while
+    one layer at TF32 would not fit. 60 ln2d launches a forward."""
+    import numpy as np
+
+    from midd_tpu_torch import config
+    from midd_tpu_torch.benchmarks import xray_bench
+    from midd_tpu_torch.models.blocks import init_weights
+    from midd_tpu_torch.models.nafnet import EnhancedNAFNet
+    from midd_tpu_torch.ops import ln2d as ln
+
+    eval_set = xray_bench.make_eval_set(1, 256)
+    scores = {}
+    for dev in ("cuda", "cpu"):
+        model = init_weights(EnhancedNAFNet(config.SERVE_NAFNET), torch.Generator().manual_seed(9))
+        model = model.to(dev).eval()
+
+        def fn(noisy):
+            with torch.inference_mode():
+                x = torch.from_numpy(noisy).permute(0, 3, 1, 2).to(dev)
+                return model(x).clamp(0, 1).permute(0, 2, 3, 1)
+
+        before = ln.ln2d.launches
+        scores[dev] = xray_bench.score_fn(fn, eval_set)
+        if dev == "cuda":
+            assert ln.ln2d.launches - before == 60
+    for key, want in scores["cpu"].items():
+        got = scores["cuda"][key]
+        assert got["n"] == want["n"] and np.isfinite(got["psnr"]), key
+        assert abs(got["psnr"] - want["psnr"]) <= 1e-3, (key, got, want)
+        assert abs(got["ssim"] - want["ssim"]) <= 1e-5, (key, got, want)

@@ -148,7 +148,7 @@ def test_load_backend_falls_back_to_seeded_weights_and_refuses_orbax(tmp_path, c
     assert "nafnet backend: no checkpoint at None" in said and "absent.pth" in said
     assert said.count(f"seed {trecipes.BACKEND_SEED}") == 2
     (tmp_path / "nafnet").mkdir()
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
+    with pytest.raises(NotImplementedError, match="orbax_bridge.py to-pth"):
         trecipes._load_backend(str(tmp_path / "nafnet"), build(), "nafnet", names)
 
 

@@ -122,7 +122,7 @@ def test_hybrid_without_backends_falls_back_to_standalone(tmp_path):
 
 def test_orbax_directory_names_the_roadmap_item(tmp_path):
     os.makedirs(tmp_path / "diffusion")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="orbax_bridge.py to-pth"):
         InferenceEngine(EngineConfig(**_tiny(tcfg), ckpt_dir=str(tmp_path), device="cpu"))
 
 
@@ -141,9 +141,13 @@ def test_exact_mode_and_defaults_in_serving_mode():
 
 def test_engine_refuses_fields_outside_the_slice():
     for field in ("data_parallel", "aot_dir", "tensor_parallel", "spatial_parallel",
-                  "nafnet_s2d", "persistent_cache", "tp_min_size", "tp_size", "sp_size", "cache_dir"):
+                  "persistent_cache", "tp_min_size", "tp_size", "sp_size", "cache_dir"):
         with pytest.raises(TypeError):
             EngineConfig(**{field: True})
+
+
+# the layouts the port computes, whatever the config's nafnet_s2d says
+PLAIN_LAYOUT = {"nafnet_s2d": False, "unet_fused_updown": True, "unet_s2d_stage0": False}
 
 
 def _nested_keys(d, prefix=""):
@@ -172,6 +176,7 @@ def test_serving_mode_new_keys_match_the_jax_engine(extra):
         # the "layout" restructurings (the port computes the plain layouts)
         for key in set(want) - {"layout"}:
             assert got[key] == want[key], key
+        assert got["layout"] == PLAIN_LAYOUT
     finally:
         teng.close()
         if jeng.batcher is not None:
