@@ -9,8 +9,9 @@ checkpoints they wrote, and checks the card against the CPU on one exact
 rollout, one ancestral cddpm rollout, one DDPM rollout of the TinyUNet, one
 NAFNet forward and one training step of each model; then serves with int8
 convolutions (``--int8``) and at the 1024² operating point through the
-server, runs the MODEL2_NAFNET variant, and runs the xraybench-v1 quality
-benchmark (train, score, variants, turbo gate, seed study) at serve widths.
+server, runs the MODEL2_NAFNET variant, runs the xraybench-v1 quality
+benchmark (train, score, variants, turbo gate, seed study) at serve widths,
+and trains with rematerialisation and data parallel over two processes.
 
     python3 chip_smoke.py [--report FILE] [--naf-only]
 
@@ -142,7 +143,23 @@ Phases (any failure exits non-zero, and no result line is printed):
    ``XB_SSIM_*``); (d) ``--turbo-gate`` (k = 1 launches as exact, k = 2, 3
    fewer); (e) ``--seeds 1 --seed-models diffusion`` twice, the second
    reusing the marked run and training nothing. Each step's wall is printed
-   (``utils.profiling.Timer``), and the CLI's own per-row walls.
+   (``utils.profiling.Timer``), and the CLI's own per-row walls;
+16. rematerialisation and data parallelism at 512², fp32 with TF32 off:
+   (a) ``TrainConfig(remat=True)`` against the plain step from the same
+   weights and draws, SERVE_DIFFUSION at batch 1 (12 flash forward
+   launches a step against 6: the backward recomputes the whole loss; 6 dq
+   and 6 dk/dv) and SERVE_EXPERT at batch 4 (BatchNorm buffers bit for bit,
+   moved once), loss, gradients and weights to ``REMAT_*``, each step's
+   wall and the peak memory; (b) the recipes CLI at ``--mesh 2,1,1`` in two
+   ranks under ``python -m torch.distributed.run`` (this script's
+   ``--dp-rank`` mode; gloo, the ranks share the card), diffusion (batch
+   2), nafnet (2) and expert (4) for 4 steps on 512² PNG pairs, against the
+   same CLI in this process: every rank's launches a step (6/6/6 flash, 60
+   ln2d), equal losses on both ranks, the ``.pth`` weights and the expert's
+   buffers to ``DP_*``, the step walls (a correctness run: two ranks on
+   one card are not a speed result); (c) the one-process diffusion ``.pth``
+   resumed at dp 2 and the dp-2 one resumed in this process, each restored
+   state equal to its file.
 Where ``torch.profiler`` records no device kernel three times running, it
 is off for the rest of the run and device times are taken by CUDA events
 behind a sleep kernel instead (``device_ms_events``). A profile that holds
@@ -154,6 +171,7 @@ The second-to-last line is the kernels JSON (each flash entry with an
 ``fp32`` object and the times of every timed shape), the last
 {"ok": true, ...}.
 
+``--dp-rank JOB`` is phase 16b's rank mode (run by torchrun, not by hand).
 ``--naf-only`` runs phases 1, 2 (ln2d and naf_ffn), 6 and 7 (with
 phase 7's profile) and prints the kernels line without a result line: an
 A/B of the NAFNet kernels, each tree's own package beside this script.
@@ -183,11 +201,13 @@ from __future__ import annotations
 import base64
 import contextlib
 import copy
+import dataclasses
 import http.client
 import io
 import json
 import os
 import shutil
+import signal
 import statistics
 import subprocess
 import sys
@@ -1258,55 +1278,98 @@ def write_pairs(root: str, n: int, size: int):
 
 
 @contextlib.contextmanager
+def trainer_probe():
+    """While the block runs, every Trainer step is timed and counted, every
+    validation counted, and every resume checked against its file
+    (``restored_matches``). Yields the record."""
+    rec = {"steps": [], "vals": [], "resumed": []}
+    orig_step, orig_validate, orig_resume = Trainer.train_step, Trainer.validate, Trainer.resume
+
+    def timed_step(self, batch):
+        before, t0 = counts(), time.perf_counter()
+        loss = orig_step(self, batch)  # returns a host float: the step has finished
+        rec["steps"].append({"ms": (time.perf_counter() - t0) * 1e3, "loss": loss, "launches": since(before)})
+        return loss
+
+    def counted_validate(self, samples):
+        before = counts()
+        out = orig_validate(self, samples)
+        rec["vals"].append(since(before))
+        return out
+
+    def checked_resume(self, path):
+        orig_resume(self, path)
+        rec["resumed"].append(restored_matches(self, path))
+
+    Trainer.train_step, Trainer.validate, Trainer.resume = timed_step, counted_validate, checked_resume
+    try:
+        yield rec
+    finally:
+        Trainer.train_step, Trainer.validate, Trainer.resume = orig_step, orig_validate, orig_resume
+
+
+def restored_matches(trainer, path: str) -> bool:
+    """Whether ``trainer`` holds exactly the state that ``path`` saved:
+    weights and buffers, AdamW's state, the next epoch, best metrics and
+    histories."""
+    ckpt = torch.load(path, map_location="cpu", weights_only=True)
+    st = trainer.state
+    model = st.model.state_dict()
+    opt, want = st.optimizer.state_dict(), ckpt["optimizer_state_dict"]
+    return bool(model.keys() == ckpt["model_state_dict"].keys()
+                and all(torch.equal(v.cpu(), ckpt["model_state_dict"][k]) for k, v in model.items())
+                and opt["param_groups"] == want["param_groups"] and opt["state"].keys() == want["state"].keys()
+                and all(torch.equal(v.cpu(), want["state"][i][k]) for i, s in opt["state"].items()
+                        for k, v in s.items())
+                and st.epoch == ckpt["epoch"] + 1
+                and (st.best_psnr, st.best_ssim) == (ckpt["best_psnr"], ckpt["best_ssim"])
+                and all(st.history[k] == ckpt[k] for k in st.history))
+
+
+def recipe_run(cwd: str, argv: list) -> tuple:
+    """``recipes.main(argv)`` in the working directory ``cwd`` (the CLI
+    writes checkpoints/ and its curves PNG there) under ``trainer_probe``,
+    with the counts set to 0 just before. Returns the run's record and the
+    TrainerState."""
+    os.makedirs(cwd, exist_ok=True)
+    here = os.getcwd()
+    os.chdir(cwd)
+    try:
+        with trainer_probe() as rec:
+            torch.cuda.reset_peak_memory_stats()
+            zero_counts()
+            t0 = time.perf_counter()
+            state = recipes.main(argv)
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t0
+            launched = counts()
+            peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    finally:
+        os.chdir(here)
+    step_ms = [st["ms"] for st in rec["steps"]]
+    return {
+        "steps": len(step_ms), "losses": [st["loss"] for st in rec["steps"]], "step_ms": step_ms,
+        "step_ms_median_after_first": statistics.median(step_ms[1:]) if len(step_ms) > 1 else None,
+        "launches_per_step": [st["launches"] for st in rec["steps"]], "validation_launches": rec["vals"],
+        "resumed": rec["resumed"], "launches": launched, "wall_s": wall_s, "peak_memory_gib": peak_gib,
+        "history": state.history,
+    }, state
+
+
+@contextlib.contextmanager
 def cli_run(model: str, n_pairs: int, *extra: str):
     """``recipes.main --model MODEL`` at 512², 1 epoch, on ``n_pairs`` seeded
     synthetic pairs in a temporary working directory, with every Trainer
     step timed and counted and every validation counted. Yields the run's
     record, the TrainerState and the checkpoint directory (deleted on exit)."""
     default_tf32()
-    steps, vals = [], []
-    orig_step, orig_validate = Trainer.train_step, Trainer.validate
-
-    def timed_step(self, batch):
-        before, t0 = counts(), time.perf_counter()
-        loss = orig_step(self, batch)  # returns a host float: the step has finished
-        steps.append({"ms": (time.perf_counter() - t0) * 1e3, "loss": loss, "launches": since(before)})
-        return loss
-
-    def counted_validate(self, samples):
-        before = counts()
-        out = orig_validate(self, samples)
-        vals.append(since(before))
-        return out
-
-    cwd = os.getcwd()
     with tempfile.TemporaryDirectory() as tmp:
         clean_dir, noisy_dir = write_pairs(tmp, n_pairs, TRAIN_SIZE)
-        Trainer.train_step, Trainer.validate = timed_step, counted_validate
-        os.chdir(tmp)  # the CLI writes checkpoints/ and its curves PNG to the working directory
-        try:
-            torch.cuda.reset_peak_memory_stats()
-            zero_counts()
-            t0 = time.perf_counter()
-            state = recipes.main([
-                "--model", model, "--clear-dir", clean_dir, "--noisy-dirs", noisy_dir,
-                "--img-size", str(TRAIN_SIZE), "--epochs", "1", "--max-samples", str(n_pairs), *extra,
-            ])
-            torch.cuda.synchronize()
-            wall_s = time.perf_counter() - t0
-            launched = counts()
-            peak_gib = torch.cuda.max_memory_allocated() / 2**30
-        finally:
-            Trainer.train_step, Trainer.validate = orig_step, orig_validate
-            os.chdir(cwd)
-        step_ms = [st["ms"] for st in steps]
-        run = {
-            "steps": len(steps), "losses": [st["loss"] for st in steps], "step_ms": step_ms,
-            "step_ms_median_after_first": statistics.median(step_ms[1:]),
-            "launches_per_step": [st["launches"] for st in steps], "validation_launches": vals,
-            "launches": launched, "wall_s": wall_s, "peak_memory_gib": peak_gib,
-            "history": state.history,
-        }
+        run, state = recipe_run(tmp, [
+            "--model", model, "--clear-dir", clean_dir, "--noisy-dirs", noisy_dir,
+            "--img-size", str(TRAIN_SIZE), "--epochs", "1", "--max-samples", str(n_pairs), *extra,
+        ])
+        del run["resumed"]
         yield run, state, os.path.join(tmp, "checkpoints")
 
 
@@ -2923,6 +2986,266 @@ def xray_bench_slice(report: dict, smi: str) -> tuple:
     return launched, res
 
 
+# Phase 16: rematerialisation and data parallelism, fp32 with TF32 off (the
+# comparisons are exact up to reduction order; cuDNN may pick other
+# algorithms, such as Winograd, for other batch sizes, whose TF32 errors
+# would not be).
+REMAT_STEPS = 5  # per mode, from the same weights: the first compared, all timed
+REMAT_BATCH = {"diffusion": 1, "expert": 4}  # the CLIs' batches
+# The remat step's first forward is the plain step's, and its backward
+# consumes recomputed activations equal to the saved ones: the loss to 1e-6,
+# all gradients together to 1e-5 in L2 (reduction order inside cuDNN's
+# weight gradients only), the weights after the step to 2 lr with at most
+# 1% of the entries beyond 1e-6 (Adam's first step, ~ lr * g / |g|, turns a
+# gradient's rounding into a move anywhere in +-lr where the gradient is
+# rounding noise), and the BatchNorm buffers bit for bit (moved in the first
+# forward only).
+REMAT_LOSS_REL = 1e-6
+REMAT_GRAD_REL_L2 = 1e-5
+REMAT_LOOSE_SHARE = 0.01
+DP_MODELS = ("diffusion", "nafnet", "expert")
+DP_BATCH = {"diffusion": 2, "nafnet": 2, "expert": 4}
+DP_PAIRS = {m: 4 * b for m, b in DP_BATCH.items()}  # 4 steps of the global batch
+DP_TIMEOUT_S = 420  # the torchrun launch: 2 ranks' start-up, 4 runs, validations
+DP_PER_STEP = {"diffusion": {**NO_LAUNCHES, "flash_fwd": 6, "flash_bwd_dq": 6, "flash_bwd_dkv": 6},
+               "nafnet": {**NO_LAUNCHES, "ln2d": 60}, "expert": NO_LAUNCHES}
+# dp 2 against one process on the same global batches and draws: the
+# gradients differ by the order of the batch reduction (two half-batch
+# means averaged, ~1e-7 of each), which Adam's sign-like first steps turn
+# into moves of up to +-lr on entries whose gradient is rounding noise, and
+# which later steps carry; the expert's 13 train-mode BatchNorms amplify a
+# moved weight into the next gradients (PERF.md section 2). Bounds from a
+# first chip measurement (NVIDIA H100 80GB HBM3, 700 W; 4 steps; PERF.md
+# section 6), with the margin beside each:
+DP_LOSS_REL = 1e-5  # each step's global loss; measured <= 4.6e-7
+# ||w_dp - w_one|| / ||w_one - w_0|| over all parameters: measured 5.5e-6
+# (diffusion), 7.2e-6 (NAFNet), 0.024 (expert)
+DP_UPDATE_REL_L2 = {"diffusion": 1e-4, "nafnet": 1e-4, "expert": 0.1}
+DP_STATS_REL = 2e-3  # each BatchNorm buffer, max |dp - one| / max |one|; measured 2.0e-4
+
+
+def _train_batch(seed: int, b: int) -> tuple:
+    return tuple(torch.from_numpy(a).cuda() for a in _step_batch(seed, size=TRAIN_SIZE, b=b))
+
+
+def remat_pair(name: str, build, loss_fn, batch: tuple, draw, lr: float) -> dict:
+    """REMAT_STEPS plain steps and REMAT_STEPS remat steps of ``build()``'s
+    model, each run from the same weights on ``batch`` and ``draw``: the
+    first step's loss, gradients, weights and buffers compared, every step's
+    wall, the launches and the peak memory of each run."""
+    has_bn = name == "expert"
+    out = {}
+    for remat in (False, True):
+        model = build()
+        cfg = dataclasses.replace(recipes.default_train_config(name), batch_size=batch[0].shape[0], remat=remat)
+        trainer = Trainer(loss_fn, None, cfg, model, lambda b, g: draw, has_batch_stats=has_bn)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        zero_counts()
+        walls, first = [], None
+        for _ in range(REMAT_STEPS):
+            t0 = time.perf_counter()
+            loss = trainer.train_step(batch)  # a host float: the step has finished
+            walls.append((time.perf_counter() - t0) * 1e3)
+            if first is None:
+                first = {"loss": loss, "state": {k: v.detach().clone() for k, v in model.state_dict().items()},
+                         "grads": {n: p.grad.detach().clone() for n, p in model.named_parameters()}}
+        out[remat] = {**first, "launches": counts(), "step_ms": walls,
+                      "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                      "peak_above_start_gib": (torch.cuda.max_memory_allocated() - base) / 2**30}
+        del trainer, model
+        torch.cuda.empty_cache()
+    plain, rem = out[False], out[True]
+    g_num = sum((rem["grads"][n] - g).double().square().sum().item() for n, g in plain["grads"].items())
+    g_den = sum(g.double().square().sum().item() for g in plain["grads"].values())
+    diffs = [(rem["state"][k] - v).abs() for k, v in plain["state"].items() if v.is_floating_point()
+             and not k.endswith(("running_mean", "running_var"))]
+    buffers = [k for k in plain["state"] if k.endswith(("running_mean", "running_var", "num_batches_tracked"))]
+    res = {"loss": [plain["loss"], rem["loss"]], "loss_rel_diff": abs(rem["loss"] - plain["loss"]) / abs(plain["loss"]),
+           "grad_rel_l2": (g_num / g_den) ** 0.5, "weight_max_abs_diff": max(d.max().item() for d in diffs),
+           "weight_loose_share": sum(int((d > 1e-6).sum()) for d in diffs) / sum(d.numel() for d in diffs),
+           "buffers_equal": all(torch.equal(rem["state"][k], plain["state"][k]) for k in buffers),
+           "buffers": len(buffers), "lr": lr,
+           **{mode: {"launches": o["launches"], "step_ms": o["step_ms"],
+                     "step_ms_median_after_first": statistics.median(o["step_ms"][1:]), "peak_gib": o["peak_gib"],
+                     "peak_above_start_gib": o["peak_above_start_gib"]}
+              for mode, o in (("plain", plain), ("remat", rem))}}
+    if has_bn:
+        res["num_batches_tracked"] = int(rem["state"]["inc.1.num_batches_tracked"])
+    return res
+
+
+def remat_slice(report: dict, smi: str) -> dict:
+    """Phase 16a: ``TrainConfig(remat=True)`` against the plain step at 512²,
+    SERVE_DIFFUSION at batch 1 (flash forward, dq and dk/dv; the forward's 6
+    flash launches run again in the backward: 12 a step) and SERVE_EXPERT at
+    batch 4 (train-mode BatchNorm, buffers moved once). Returns the remat
+    runs' launches."""
+    set_tf32(False)
+    sched = make_schedule(config.SERVE_SCHEDULE, "cuda")
+    batch = _train_batch(61, REMAT_BATCH["diffusion"])
+    draw = diffusion_draw(sched)(batch, torch.Generator(device="cuda").manual_seed(62))
+    res = {"card": smi, "diffusion": remat_pair(
+        "diffusion", lambda: init_weights(UNetDiffusion(config.SERVE_DIFFUSION), torch.Generator().manual_seed(63)),
+        diffusion_loss_fn(sched), batch, draw, recipes.default_train_config("diffusion").lr)}
+    res["expert"] = remat_pair(
+        "expert", lambda: init_weights(ExpertDenoiser(config.SERVE_EXPERT), torch.Generator().manual_seed(64)),
+        expert_loss_fn(), _train_batch(65, REMAT_BATCH["expert"]), None, recipes.default_train_config("expert").lr)
+    report["remat"] = res
+    print(json.dumps({"remat": res}), flush=True)
+    flash = {**NO_LAUNCHES, "flash_fwd": 6, "flash_bwd_dq": 6, "flash_bwd_dkv": 6}
+    d = res["diffusion"]
+    assert d["plain"]["launches"] == {k: REMAT_STEPS * v for k, v in flash.items()}, d
+    assert d["remat"]["launches"] == {**{k: REMAT_STEPS * v for k, v in flash.items()},
+                                      "flash_fwd": REMAT_STEPS * 12}, d
+    assert res["expert"]["plain"]["launches"] == res["expert"]["remat"]["launches"] == NO_LAUNCHES, res
+    assert res["expert"]["num_batches_tracked"] == 1 and res["expert"]["buffers"] == 39, res
+    for name in ("diffusion", "expert"):
+        r = res[name]
+        assert r["loss_rel_diff"] <= REMAT_LOSS_REL and r["grad_rel_l2"] <= REMAT_GRAD_REL_L2, (name, r)
+        assert r["weight_max_abs_diff"] <= 2 * r["lr"] and r["weight_loose_share"] <= REMAT_LOOSE_SHARE, (name, r)
+        assert r["buffers_equal"], (name, r)
+    return {k: res["diffusion"]["remat"]["launches"][k] + res["expert"]["remat"]["launches"][k] for k in NO_LAUNCHES}
+
+
+def dp_rank_main(job_path: str) -> int:
+    """One rank of phase 16b's torchrun launch (``--dp-rank JOB``): each run
+    of the job through ``recipes.main`` in its directory, with TF32 off,
+    under ``trainer_probe``; writes ``JOB.rank<RANK>.json``."""
+    import torch.distributed as dist
+
+    with open(job_path) as f:
+        job = json.load(f)
+    set_tf32(False)
+    runs = []
+    for run in job["runs"]:
+        record, state = recipe_run(run["cwd"], run["argv"])
+        runs.append({"name": run["name"], **record, "device": str(next(state.model.parameters()).device)})
+    out = {"rank": dist.get_rank(), "world": dist.get_world_size(), "backend": dist.get_backend(), "runs": runs}
+    with open(f"{job_path}.rank{out['rank']}.json", "w") as f:
+        json.dump(out, f)
+    dist.destroy_process_group()
+    return 0
+
+
+def torchrun(job: dict, tmp: str) -> tuple:
+    """Run ``job`` in two ranks on the one card: ``python -m
+    torch.distributed.run --standalone --nproc_per_node 2`` of this script's
+    ``--dp-rank`` mode, bounded by DP_TIMEOUT_S (on expiry the whole process
+    group is killed and the phase fails). Returns both ranks' records and
+    the launch's wall."""
+    path = os.path.join(tmp, "dp_job.json")
+    with open(path, "w") as f:
+        json.dump(job, f)
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node", "2",
+           os.path.abspath(__file__), "--dp-rank", path]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=tmp, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                            start_new_session=True)
+    try:
+        out, _ = proc.communicate(timeout=DP_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        out, _ = proc.communicate()
+        raise AssertionError(f"dp ranks did not finish in {DP_TIMEOUT_S} s:\n{out[-6000:]}")
+    wall_s = time.perf_counter() - t0
+    print("\n".join(line for line in out.splitlines() if "init_distributed" in line or "epoch" in line), flush=True)
+    if proc.returncode != 0:
+        raise AssertionError(f"torchrun exited {proc.returncode}:\n{out[-6000:]}")
+    ranks = []
+    for r in range(2):
+        with open(f"{path}.rank{r}.json") as f:
+            ranks.append(json.load(f))
+    return ranks, wall_s
+
+
+def _weights_compare(dp: dict, one: dict, fresh: dict) -> dict:
+    """dp-2's ``.pth`` against one process's: the weights' distance over
+    their update, the largest entry apart, the BatchNorm buffers."""
+    params = [k for k, v in fresh.items() if v.is_floating_point() and not k.endswith(("running_mean", "running_var"))]
+    num = sum((dp[k].double() - one[k].double()).square().sum().item() for k in params)
+    den = sum((one[k].double() - fresh[k].double()).square().sum().item() for k in params)
+    stats = [k for k in fresh if k.endswith(("running_mean", "running_var"))]
+    return {"update_rel_l2": (num / den) ** 0.5, "weight_max_abs_diff": max(
+                (dp[k] - one[k]).abs().max().item() for k in params),
+            "stats_max_rel": max(((dp[k] - one[k]).abs().max() / one[k].abs().max()).item() for k in stats)
+            if stats else None,
+            "buffers_counter": [int(dp[k]) for k in fresh if k.endswith("num_batches_tracked")][:1]}
+
+
+def dp_slice(report: dict, smi: str) -> dict:
+    """Phase 16b and 16c: the recipes CLI at ``--mesh 2,1,1`` in two ranks
+    under torchrun on the one card (gloo: NCCL refuses two ranks on one
+    GPU), SERVE_DIFFUSION (batch 2), SERVE_NAFNET (batch 2) and SERVE_EXPERT
+    (batch 4) at 512² for 4 steps, against the same CLI in this process on
+    the same PNG pairs; then the one-process diffusion ``.pth`` resumed at
+    dp 2 for one more epoch (in the same launch) and the dp-2 one resumed
+    in this process, each restored state checked against its file. Two
+    ranks on one card is a correctness run: their step walls are not a
+    speed result. Returns the launches of each dp run, both ranks summed."""
+    set_tf32(False)
+    with tempfile.TemporaryDirectory() as tmp:
+        data = {m: write_pairs(os.path.join(tmp, "data", m), DP_PAIRS[m], TRAIN_SIZE) for m in DP_MODELS}
+
+        def argv(m, epochs=1):
+            return ["--model", m, "--clear-dir", data[m][0], "--noisy-dirs", data[m][1],
+                    "--img-size", str(TRAIN_SIZE), "--epochs", str(epochs), "--max-samples", str(DP_PAIRS[m]),
+                    "--batch-size", str(DP_BATCH[m])]
+
+        def pth(kind, m):
+            return os.path.join(tmp, kind, m, "checkpoints", f"{m}.pth")
+
+        single = {m: recipe_run(os.path.join(tmp, "one", m), argv(m))[0] for m in DP_MODELS}
+        job = {"runs": [{"name": m, "cwd": os.path.join(tmp, "dp", m), "argv": argv(m) + ["--mesh", "2,1,1"]}
+                        for m in DP_MODELS]}
+        job["runs"].append({"name": "resume_one_at_dp2", "cwd": os.path.join(tmp, "dp_resume", "diffusion"),
+                            "argv": argv("diffusion", epochs=2) + ["--mesh", "2,1,1", "--resume",
+                                                                   pth("one", "diffusion")]})
+        ranks, launch_s = torchrun(job, tmp)
+        resumed, _ = recipe_run(os.path.join(tmp, "one_resume", "diffusion"),
+                                argv("diffusion", epochs=2) + ["--resume", pth("dp", "diffusion")])
+        fresh = {"diffusion": UNetDiffusion(config.SERVE_DIFFUSION), "nafnet": EnhancedNAFNet(config.SERVE_NAFNET),
+                 "expert": ExpertDenoiser(config.SERVE_EXPERT)}
+        res = {"card": smi, "note": "two ranks share one card over gloo: a correctness run, not a speed result",
+               "launch_s": launch_s, "backend": [r["backend"] for r in ranks], "world": [r["world"] for r in ranks]}
+        for i, m in enumerate(DP_MODELS):
+            runs = [r["runs"][i] for r in ranks]
+            w0 = init_weights(fresh[m], torch.Generator().manual_seed(42)).state_dict()
+            load = lambda kind: torch.load(pth(kind, m), map_location="cpu", weights_only=True)  # noqa: E731
+            dp, one = load("dp"), load("one")
+            res[m] = {
+                "batch": DP_BATCH[m], "steps": [r["steps"] for r in runs], "devices": [r["device"] for r in runs],
+                "losses_dp": runs[0]["losses"], "losses_one": single[m]["losses"],
+                "loss_max_rel_diff": max(abs(a - b) / abs(b) for a, b in zip(runs[0]["losses"], single[m]["losses"])),
+                "step_ms_dp": [r["step_ms"] for r in runs], "step_ms_one": single[m]["step_ms"],
+                "step_ms_median_after_first": {"dp_ranks": [r["step_ms_median_after_first"] for r in runs],
+                                               "one": single[m]["step_ms_median_after_first"]},
+                "launches_per_step_per_rank": runs[0]["launches_per_step"][0],
+                "launches_per_rank": [r["launches"] for r in runs],
+                "peak_gib_per_rank": [r["peak_memory_gib"] for r in runs], "peak_gib_one": single[m]["peak_memory_gib"],
+                **_weights_compare(dp["model_state_dict"], one["model_state_dict"], w0),
+            }
+        res["resume"] = {"one_at_dp2": [r["runs"][3]["resumed"] for r in ranks],
+                         "one_at_dp2_epochs": [len(r["runs"][3]["history"]["losses"]) for r in ranks],
+                         "dp2_in_one": resumed["resumed"], "dp2_in_one_epochs": len(resumed["history"]["losses"])}
+    report["dp"] = res
+    print(json.dumps({"dp": res}), flush=True)
+    assert res["backend"] == ["gloo", "gloo"] and res["world"] == [2, 2], res
+    for m in DP_MODELS:
+        r = res[m]
+        assert r["steps"] == [4, 4] and r["devices"] == ["cuda:0", "cuda:0"], (m, r)
+        assert ranks[0]["runs"][DP_MODELS.index(m)]["losses"] == ranks[1]["runs"][DP_MODELS.index(m)]["losses"], m
+        assert all(n == DP_PER_STEP[m] for rk in ranks for n in rk["runs"][DP_MODELS.index(m)]["launches_per_step"]), m
+        assert r["loss_max_rel_diff"] <= DP_LOSS_REL and r["update_rel_l2"] <= DP_UPDATE_REL_L2[m], (m, r)
+        assert r["weight_max_abs_diff"] <= 2 * 4 * recipes.default_train_config(m).lr, (m, r)
+    assert res["expert"]["stats_max_rel"] <= DP_STATS_REL and res["expert"]["buffers_counter"] == [4], res
+    assert res["resume"]["one_at_dp2"] == [[True], [True]] and res["resume"]["dp2_in_one"] == [True], res
+    assert res["resume"]["one_at_dp2_epochs"] == [2, 2] and res["resume"]["dp2_in_one_epochs"] == 2, res
+    return {m: {k: sum(r["runs"][i]["launches"][k] for r in ranks) for k in NO_LAUNCHES}
+            for i, m in enumerate(DP_MODELS)}
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -2932,12 +3255,16 @@ def main(argv=None) -> int:
     ap.add_argument("--naf-only", action="store_true",
                     help="run only the device and build phases and phases 6 and 7 (an A/B of the "
                          "NAFNet kernels); prints no result line")
+    ap.add_argument("--dp-rank", default=None, metavar="JOB",
+                    help="(phase 16b's ranks, under torchrun) run JOB's recipes; prints no result line")
     args = ap.parse_args(argv)
     t_all = time.time()
     phase("device")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU only", file=sys.stderr)
         return 2
+    if args.dp_rank:
+        return dp_rank_main(args.dp_rank)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
@@ -3059,6 +3386,14 @@ def main(argv=None) -> int:
     paths["xraybench"], _ = xray_bench_slice(report, smi)
     report["phase_15_s"] = time.time() - t
     print(json.dumps({"phase_15_s": report["phase_15_s"]}), flush=True)
+
+    phase("slice: rematerialisation, and dp 2 through the recipes CLI under torchrun, at 512²")
+    t = time.time()
+    paths["remat"] = remat_slice(report, smi)
+    torch.cuda.empty_cache()  # the ranks share the card
+    paths.update({f"dp_{m}": launched for m, launched in dp_slice(report, smi).items()})
+    report["phase_16_s"] = time.time() - t
+    print(json.dumps({"phase_16_s": report["phase_16_s"]}), flush=True)
 
     for entry in entries:
         by_path = {p: launched[entry["name"]] for p, launched in paths.items()}

@@ -164,8 +164,8 @@ def make_train_dataset(
     on-the-fly noise. ``noise_type='mixed'`` rotates the three families by
     index. ``noise_seed`` seeds the noise and augmentation draws only, and
     leaves the phantom geometry protocol-fixed (what the seed study varies).
-    The draws are consumed in call order across ``__getitem__`` calls, as in
-    the JAX package, so a model's draws depend on what trained before it off
+    The draws are consumed in order (a training epoch's order), as in the
+    JAX package, so a model's draws depend on what trained before it off
     the same dataset object."""
     from midd_tpu_torch.train.data import NOISE_FNS, SyntheticPairedDataset, augment_pair
 
@@ -177,9 +177,8 @@ def make_train_dataset(
     class _Mixed(SyntheticPairedDataset):
         # the family comes from the index, not from a shared attribute, so
         # that the trainer's loader threads cannot race on it
-        def __getitem__(self, idx):
+        def item(self, idx, rng):
             clean = self.clean[idx]
-            rng = self._item_rng()
             noisy = NOISE_FNS[NOISE_TYPES[idx % len(NOISE_TYPES)]](clean, rng)
             if self.is_train:
                 clean, noisy = augment_pair(clean, noisy, self.augment, rng)

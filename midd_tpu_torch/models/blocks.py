@@ -105,7 +105,17 @@ class BatchNorm2d(nn.BatchNorm2d):
     tenth of the way to the batch's value, the variance too biased.
     ``F.batch_norm(training=True)`` would write torch's unbiased variance
     into ``running_var`` (and take the variance in two passes), so the
-    statistics are computed here."""
+    statistics are computed here.
+
+    ``sum_over_ranks``: under data parallelism, a differentiable sum over
+    the ranks that share the batch (``parallel/train_dp.py`` sets it), so
+    that the statistics are the global batch's, as the JAX package's dp
+    step computes them; None when this process holds the whole batch.
+    ``update_buffers``: False while a rematerialised forward runs again in
+    the backward pass, so that a step moves the buffers once."""
+
+    sum_over_ranks = None
+    update_buffers = True
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         xf = x.float()
@@ -114,13 +124,22 @@ class BatchNorm2d(nn.BatchNorm2d):
                 xf, self.running_mean, self.running_var, self.weight,
                 self.bias, False, 0.0, self.eps,
             ).to(x.dtype)
-        mean = xf.mean(dim=(0, 2, 3))
-        var = (xf.square().mean(dim=(0, 2, 3)) - mean.square()).clamp_min(0.0)
-        with torch.no_grad():
-            m = self.momentum
-            self.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
-            self.running_var.mul_(1.0 - m).add_(var, alpha=m)
-            self.num_batches_tracked += 1
+        if self.sum_over_ranks is None:
+            mean = xf.mean(dim=(0, 2, 3))
+            var = (xf.square().mean(dim=(0, 2, 3)) - mean.square()).clamp_min(0.0)
+        else:
+            c = xf.shape[1]
+            sums = self.sum_over_ranks(torch.cat([
+                xf.sum(dim=(0, 2, 3)), xf.square().sum(dim=(0, 2, 3)), xf.new_full((1,), xf.numel() // c),
+            ]))
+            mean = sums[:c] / sums[2 * c]
+            var = (sums[c : 2 * c] / sums[2 * c] - mean.square()).clamp_min(0.0)
+        if self.update_buffers:
+            with torch.no_grad():
+                m = self.momentum
+                self.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
+                self.running_var.mul_(1.0 - m).add_(var, alpha=m)
+                self.num_batches_tracked += 1
         mul = torch.rsqrt(var + self.eps) * self.weight
         y = (xf - mean[None, :, None, None]) * mul[None, :, None, None] + self.bias[None, :, None, None]
         return y.to(x.dtype)

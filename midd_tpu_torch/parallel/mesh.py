@@ -1,0 +1,121 @@
+"""The (dp, sp, tp) mesh of the port (counterpart of ``midd_tpu/parallel/mesh.py``).
+
+The JAX package lays its devices out as a ``jax.sharding.Mesh`` and lets
+XLA insert the collectives. The port runs one process per rank under
+``torch.distributed``: the same layout rule, applied to rank ids, gives a
+``DeviceMesh`` with dims named ("dp", "sp", "tp"), and the training step
+issues its collectives itself (``parallel/train_dp.py``).
+
+Axes, as in the JAX package: dp shards the batch; sp the image rows; tp the
+convolutions' output channels. Mesh policy: tp is the largest of (4, 2, 1)
+dividing the rank count (over sp) when it is not given; dp gets the rest.
+
+Ported: dp. The batch rows that one dp rank holds are ``batch_sharding``'s.
+Not ported yet: sp (``image_sharding``, ROADMAP.md queue 1 item 15c) and tp
+(``param_shardings``, ``shard_params``, ``count_tp_sharded``, item 15b):
+those raise.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+AXES = ("dp", "sp", "tp")
+TP_MESSAGE = "tensor parallelism (tp > 1) is not ported yet: ROADMAP.md queue 1 item 15b"
+SP_MESSAGE = "spatial parallelism (sp > 1) is not ported yet: ROADMAP.md queue 1 item 15c"
+
+
+def mesh_layout(n_devices: Optional[int] = None, tp: Optional[int] = None, sp: int = 1,
+                ranks: Optional[Sequence[int]] = None) -> np.ndarray:
+    """``make_mesh``'s layout rule over rank ids: the (dp, sp, tp) array of
+    the first ``n_devices`` of ``ranks`` (default: every rank of the
+    process group, or one), with tp the largest of (4, 2, 1) dividing
+    ``n // sp`` where it is None."""
+    if ranks is None:
+        ranks = range(dist.get_world_size() if dist.is_initialized() else 1)
+    ranks = list(ranks)
+    n = n_devices or len(ranks)
+    ranks = ranks[:n]
+    if tp is None:
+        tp = 1
+        for cand in (4, 2):
+            if (n // sp) % cand == 0:
+                tp = cand
+                break
+    dp = n // (sp * tp)
+    return np.asarray(ranks).reshape(dp, sp, tp)
+
+
+def device_mesh(layout: np.ndarray, device_type: str):
+    """A ``DeviceMesh`` over an initialised process group from a (dp, sp,
+    tp) rank array; every rank of the group must call it."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    return DeviceMesh(device_type, layout.tolist(), mesh_dim_names=AXES)
+
+
+def make_mesh(n_devices: Optional[int] = None, tp: Optional[int] = None, sp: int = 1,
+              ranks: Optional[Sequence[int]] = None, device_type: str = "cuda"):
+    """The (dp, sp, tp) ``DeviceMesh`` of ``mesh_layout``'s rule."""
+    return device_mesh(mesh_layout(n_devices, tp, sp, ranks), device_type)
+
+
+def batch_sharding(global_batch: int, mesh) -> Tuple[int, int]:
+    """(start_row, n_rows) of the global batch that the calling rank holds:
+    the batch is split over dp in rank order and replicated over sp and tp,
+    the rule of the JAX package's ``P("dp")``."""
+    dp = mesh.size(AXES.index("dp"))
+    return process_rows(global_batch, dp, mesh.get_local_rank("dp"))
+
+
+def replicated(tensors: Sequence, mesh) -> Sequence:
+    """Give every rank the values of ``tensors`` that the mesh's first rank
+    holds (a broadcast in place over the process group, which the mesh
+    spans), as a replicated layout holds one full copy on every device.
+    Returns ``tensors``."""
+    src = int(mesh.mesh.flatten()[0])
+    with torch.no_grad():
+        for t in tensors:
+            dist.broadcast(t, src=src)
+    return tensors
+
+
+def process_rows(global_batch: int, n: int, index: int) -> Tuple[int, int]:
+    """(start_row, n_rows) of part ``index`` of ``n`` equal parts."""
+    if global_batch % n:
+        raise ValueError(f"batch {global_batch} not divisible by {n} hosts")
+    per = global_batch // n
+    return index * per, per
+
+
+def image_sharding(*args, **kwargs):
+    raise NotImplementedError(SP_MESSAGE)
+
+
+def param_shardings(*args, **kwargs):
+    raise NotImplementedError(TP_MESSAGE)
+
+
+def shard_params(*args, **kwargs):
+    raise NotImplementedError(TP_MESSAGE)
+
+
+def count_tp_sharded(*args, **kwargs):
+    raise NotImplementedError(TP_MESSAGE)
+
+
+def check_mesh_shape(mesh_shape: Sequence[int]) -> Tuple[int, int, int]:
+    """(dp, sp, tp) of a mesh shape the port can train on; sp > 1 and
+    tp > 1 raise, naming the ROADMAP item."""
+    dp, sp, tp = (int(x) for x in mesh_shape)
+    if tp > 1:
+        raise NotImplementedError(TP_MESSAGE)
+    if sp > 1:
+        raise NotImplementedError(SP_MESSAGE)
+    if min(dp, sp, tp) < 1:
+        raise ValueError(f"mesh_shape {tuple(mesh_shape)}: every axis needs at least 1 device")
+    return dp, sp, tp

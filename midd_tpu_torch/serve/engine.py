@@ -30,7 +30,7 @@ TPU's 128 lanes with the same function and parameters, not ported: the port
 computes the plain layouts, and ``serving_mode()["layout"]`` says so.
 
 Left out, so asking for them fails: dp/tp/sp parallel serving (ROADMAP.md
-queue 1 item 15), AOT pinning and the persistent compilation cache (item
+queue 1 items 15b and 15c), AOT pinning and the persistent compilation cache (item
 16).
 """
 

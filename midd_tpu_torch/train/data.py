@@ -18,7 +18,7 @@ import os
 import queue
 import threading
 from dataclasses import dataclass
-from typing import Iterator, List, Sequence, Tuple
+from typing import Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -162,8 +162,11 @@ def _rotate(img: np.ndarray, angle: float) -> np.ndarray:
 
 
 class _SeededItems:
-    """Per-item generators spawned from one seeded generator under a lock,
-    so that ``__getitem__`` may run on a thread pool."""
+    """Per-item generators spawned from one seeded generator under a lock:
+    ``dataset[i]`` takes the next one. ``batches`` spawns them in the
+    epoch's order itself and hands each to ``item``, so that the item at a
+    given place of the epoch gets the same draws whether the items are built
+    on a thread pool or not, and on whichever data-parallel rank builds it."""
 
     def __init__(self, seed: int):
         self.rng = np.random.default_rng(seed)
@@ -172,6 +175,12 @@ class _SeededItems:
     def _item_rng(self) -> np.random.Generator:
         with self._rng_lock:
             return np.random.default_rng(int(self.rng.integers(2**63)))
+
+    def item(self, idx: int, rng: np.random.Generator) -> Tuple[np.ndarray, np.ndarray]:
+        raise NotImplementedError
+
+    def __getitem__(self, idx: int) -> Tuple[np.ndarray, np.ndarray]:
+        return self.item(idx, self._item_rng())
 
 
 class PairedXRayDataset(_SeededItems):
@@ -199,12 +208,12 @@ class PairedXRayDataset(_SeededItems):
     def __len__(self) -> int:
         return len(self.pairs)
 
-    def __getitem__(self, idx: int) -> Tuple[np.ndarray, np.ndarray]:
+    def item(self, idx: int, rng: np.random.Generator) -> Tuple[np.ndarray, np.ndarray]:
         c, n = self.pairs[idx]
         clean = load_image(c, self.img_size)
         noisy = load_image(n, self.img_size)
         if self.is_train:
-            clean, noisy = augment_pair(clean, noisy, self.augment, self._item_rng())
+            clean, noisy = augment_pair(clean, noisy, self.augment, rng)
         return clean, noisy
 
 
@@ -229,9 +238,8 @@ class SyntheticPairedDataset(_SeededItems):
     def __len__(self) -> int:
         return self.clean.shape[0]
 
-    def __getitem__(self, idx: int) -> Tuple[np.ndarray, np.ndarray]:
+    def item(self, idx: int, rng: np.random.Generator) -> Tuple[np.ndarray, np.ndarray]:
         clean = self.clean[idx]
-        rng = self._item_rng()
         noisy = self.noise_fn(clean, rng)
         if self.is_train:
             clean, noisy = augment_pair(clean, noisy, self.augment, rng)
@@ -250,14 +258,30 @@ def batches(
     drop_last: bool = True,
     seed: int = 0,
     num_workers: int = 0,
+    rows: Optional[Tuple[int, int]] = None,
 ) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
     """One epoch of (clean, noisy) NHWC numpy batches. ``num_workers > 0``
-    assembles items on a thread pool (PIL decode releases the GIL)."""
+    assembles items on a thread pool (PIL decode releases the GIL).
+    ``rows=(start, n)``: build only rows [start, start + n) of each batch,
+    a data-parallel rank's share (``parallel.process_batch_slice``), each
+    item as the whole batch would have it (a ``_SeededItems`` dataset's
+    generators are spawned for every item of the batch, in order)."""
     order = np.arange(len(dataset))
     if shuffle:
         np.random.default_rng(seed).shuffle(order)
     n = len(order)
     end = n - n % batch_size if drop_last else n
+    if rows is not None and not drop_last:
+        raise ValueError("rows: each rank's share of a batch needs drop_last")
+    first, count = rows if rows is not None else (0, batch_size)
+
+    def calls(start):
+        idxs = [int(i) for i in order[start : start + batch_size]]
+        keep = range(first, min(first + count, len(idxs)))
+        if isinstance(dataset, _SeededItems):
+            rngs = [dataset._item_rng() for _ in idxs]
+            return [lambda k=k: dataset.item(idxs[k], rngs[k]) for k in keep]
+        return [lambda k=k: dataset[idxs[k]] for k in keep]
 
     def stack(items):
         return np.stack([c for c, _ in items]), np.stack([x for _, x in items])
@@ -267,12 +291,11 @@ def batches(
 
         with ThreadPoolExecutor(max_workers=num_workers) as pool:
             for start in range(0, end, batch_size):
-                idxs = order[start : start + batch_size]
-                yield stack(list(pool.map(lambda i: dataset[int(i)], idxs)))
+                yield stack(list(pool.map(lambda call: call(), calls(start))))
         return
 
     for start in range(0, end, batch_size):
-        yield stack([dataset[int(i)] for i in order[start : start + batch_size]])
+        yield stack([call() for call in calls(start)])
 
 
 def to_device(batch: Tuple[np.ndarray, ...], device: torch.device) -> Tuple[torch.Tensor, ...]:

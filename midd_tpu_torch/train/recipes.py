@@ -31,7 +31,11 @@ weights; the port's serving engine reads each of them.
 CLI:
     python -m midd_tpu_torch.train.recipes --model diffusion|nafnet|expert|hybrid|cddpm|tiny \\
         --clear-dir data/clean --noisy-dirs data/noisy [--device cuda|cpu] \\
-        [--nafnet-ckpt N.pth --diffusion-ckpt D.pth] ...
+        [--nafnet-ckpt N.pth --diffusion-ckpt D.pth] [--mesh DP,1,1] ...
+
+Data parallel over two ranks (one process each; gloo on the CPU, or when
+the ranks share a card; NCCL when each has its own):
+    torchrun --nproc_per_node 2 -m midd_tpu_torch.train.recipes --mesh 2,1,1 ...
 """
 
 from __future__ import annotations
@@ -55,6 +59,8 @@ from midd_tpu_torch.models.hybrid import RouterFusion
 from midd_tpu_torch.models.nafnet import EnhancedNAFNet
 from midd_tpu_torch.models.tiny_unet import TinyUNet
 from midd_tpu_torch.models.unet_diffusion import UNetDiffusion
+from midd_tpu_torch.parallel.mesh import check_mesh_shape
+from midd_tpu_torch.parallel.multihost import init_distributed
 from midd_tpu_torch.train.data import PairedXRayDataset
 from midd_tpu_torch.train.trainer import (
     TrainConfig,
@@ -379,15 +385,22 @@ def main(argv: Optional[Sequence[str]] = None) -> TrainerState:
     ap.add_argument("--preset", choices=["full", "tiny"], default="full",
                     help="tiny = smoke-test widths")
     ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
+    ap.add_argument("--mesh", default=None, metavar="DP,SP,TP",
+                    help="training mesh, e.g. '2,1,1' for 2-way data parallelism over 2 ranks "
+                         "started by torchrun (sp and tp > 1 are not ported yet)")
     args = ap.parse_args(argv)
     if args.model == "tiny" and args.resume:
         ap.error("--model tiny: the tiny recipe takes no --resume")
+    mesh_shape = None
+    if args.mesh:
+        mesh_shape = check_mesh_shape(args.mesh.split(","))
+        init_distributed(backend="gloo" if args.device == "cpu" else None)
 
     dataset = PairedXRayDataset(args.clear_dir, args.noisy_dirs, img_size=args.img_size,
                                 max_samples=args.max_samples,
                                 substring_glob=args.model == "hybrid")
     overrides = {k: v for k, v in (("epochs", args.epochs), ("batch_size", args.batch_size),
-                                   ("lr", args.lr)) if v}
+                                   ("lr", args.lr), ("mesh_shape", mesh_shape)) if v}
     cfg = dataclasses.replace(default_train_config(args.model), **overrides)
     tiny = args.preset == "tiny"
     if args.model == "nafnet":

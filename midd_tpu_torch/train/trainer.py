@@ -26,12 +26,21 @@ The random draws of a step (the diffusion trainers' t and eps) come from a
 through a draw function of their own, so that a test can feed the JAX
 package's draws instead.
 
-Not ported yet: rematerialisation and multi-device meshes (ROADMAP.md
-queue 1 item 15).
+``TrainConfig.remat`` recomputes the whole loss function in the backward
+pass (``torch.utils.checkpoint``), as the JAX trainer wraps its loss in
+``jax.checkpoint``. ``TrainConfig.mesh_shape = (dp, 1, 1)`` trains data
+parallel over dp ranks, one process each (``parallel/``): every rank draws
+for the global batch and keeps its rows, loads only its rows of each
+global batch, and applies the update of the global batch
+(``parallel.train_dp``); validation runs on every rank and rank 0's
+numbers decide; rank 0 writes the ``.pth``, which holds the whole state, so
+a checkpoint resumes at any dp. Not ported yet: sp > 1 and tp > 1
+(ROADMAP.md queue 1 items 15b and 15c).
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 import os
 import time
@@ -40,11 +49,17 @@ from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn as nn
+from torch.utils.checkpoint import checkpoint
 
 from midd_tpu_torch.diffusion.sampler import denoise, noise_images, sample_timesteps
 from midd_tpu_torch.diffusion.schedule import Schedule
+from midd_tpu_torch.models.blocks import BatchNorm2d
 from midd_tpu_torch.models.hybrid import hybrid_forward
+from midd_tpu_torch.parallel.mesh import batch_sharding, check_mesh_shape, make_mesh, replicated
+from midd_tpu_torch.parallel.multihost import local_device
+from midd_tpu_torch.parallel.train_dp import make_sharded_train_step
 from midd_tpu_torch.train import losses
 from midd_tpu_torch.train.data import batches, prefetch_to_device, to_device
 from midd_tpu_torch.train.metrics import compute_metrics
@@ -68,10 +83,12 @@ class TrainConfig:
     # host input pipeline: threaded batch assembly + background device prefetch
     num_workers: int = 2
     prefetch: int = 2
-    # not ported yet (ROADMAP.md queue 1 item 15): must stay at these values
+    # rematerialise the loss's forward in the backward pass
     remat: bool = False
+    # (dp, sp, tp): data parallel over dp ranks (one process each, the
+    # process group started); sp and tp must be 1 (not ported yet)
     mesh_shape: Optional[Tuple[int, int, int]] = None
-    tp_min_size: int = 1 << 16
+    tp_min_size: int = 1 << 16  # the JAX trainer's tp threshold; unused while tp is 1
 
 
 def lr_schedule_per_epoch(cfg: TrainConfig) -> Callable[[int], float]:
@@ -300,13 +317,47 @@ def hybrid_loss_fn(schedule: Schedule, diffusion_steps: int,
 
 
 # ---------------------------------------------------------------------------
+# Rematerialisation
+# ---------------------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def _buffers_held(model: nn.Module):
+    """Keep ``model``'s BatchNorm buffers still while its forward runs again."""
+    norms = [m for m in model.modules() if isinstance(m, BatchNorm2d)]
+    for m in norms:
+        m.update_buffers = False
+    try:
+        yield
+    finally:
+        for m in norms:
+            m.update_buffers = True
+
+
+def rematerialise(loss_fn: Callable) -> Callable:
+    """``loss_fn`` whose forward keeps no activations: the backward pass runs
+    it again (``torch.utils.checkpoint``, non-reentrant), the whole loss
+    function as one region, as the JAX trainer's ``jax.checkpoint(loss_fn)``.
+    The draws are arguments, so the second run sees the same ones; the
+    BatchNorm buffers move in the first run only."""
+
+    def fn(model: nn.Module, *args):
+        return checkpoint(loss_fn, model, *args, use_reentrant=False,
+                          context_fn=lambda: (contextlib.nullcontext(), _buffers_held(model)))
+
+    return fn
+
+
+# ---------------------------------------------------------------------------
 # The training engine
 # ---------------------------------------------------------------------------
 
 
 class Trainer:
     """Epoch loop with validation, best checkpoints, resume and early
-    stopping, on one device.
+    stopping, on one device, or on each of dp ranks (``cfg.mesh_shape``;
+    ``device`` "cuda" is then each rank's own card, or the card the ranks
+    share).
 
     ``loss_fn(model, batch, draw) -> (loss, parts)``, ``draw_fn(batch,
     generator) -> draw`` and ``eval_fn(model, extra, clean, noisy) -> pred``
@@ -339,10 +390,22 @@ class Trainer:
         if has_bn != has_batch_stats:
             raise ValueError(f"has_batch_stats={has_batch_stats}, but the model "
                              f"{'holds' if has_bn else 'holds no'} BatchNorm statistics")
-        if cfg.remat or cfg.mesh_shape is not None:
-            raise NotImplementedError(
-                "remat and mesh_shape are not ported yet: ROADMAP.md queue 1 item 15"
-            )
+        self.mesh, self.rows = None, None  # dp > 1: the mesh, and this rank's rows of a batch
+        if cfg.mesh_shape is not None:
+            dp, sp, tp = check_mesh_shape(cfg.mesh_shape)
+            n = dp * sp * tp
+            world = dist.get_world_size() if dist.is_initialized() else 1
+            if world < n:
+                raise ValueError(f"mesh_shape {cfg.mesh_shape} needs {n} devices, have {world}")
+            if world > n:
+                raise ValueError(f"mesh_shape {cfg.mesh_shape} needs {n} devices, but {world} ranks run")
+            if cfg.batch_size % dp:
+                raise ValueError(f"batch_size {cfg.batch_size} not divisible by dp={dp}")
+            if dp > 1:
+                if torch.device(device) == torch.device("cuda") and torch.cuda.is_available():
+                    device = local_device("cuda")
+                self.mesh = make_mesh(n, tp=tp, sp=sp, device_type=torch.device(device).type)
+                self.rows = batch_sharding(cfg.batch_size, self.mesh)
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -350,8 +413,11 @@ class Trainer:
                 "pass device='cpu' to train on the CPU"
             )
         self.cfg = cfg
-        self.loss_fn, self.eval_fn, self.draw_fn = loss_fn, eval_fn, draw_fn
+        self.loss_fn = rematerialise(loss_fn) if cfg.remat else loss_fn
+        self.eval_fn, self.draw_fn = eval_fn, draw_fn
         model = model.to(self.device)
+        if self.mesh is not None:  # every replica starts from rank 0's weights and statistics
+            replicated([*model.parameters(), *model.buffers()], self.mesh)
         self.frozen = None if frozen is None else {
             k: m.to(self.device).eval().requires_grad_(False) for k, m in frozen.items()
         }
@@ -359,25 +425,43 @@ class Trainer:
         self.params = [p for p in model.parameters() if p.requires_grad]
         self.state = TrainerState(model=model, optimizer=make_optimizer(cfg, self.params),
                                   extra=extra or {})
+        self._step = make_sharded_train_step(self.loss_fn, self.state.optimizer, model, self.mesh, cfg.grad_clip)
         self.schedule = lr_schedule_per_epoch(cfg)
         self.generator = torch.Generator(device=self.device).manual_seed(cfg.seed)
 
+    @property
+    def is_main(self) -> bool:
+        """Whether this process writes checkpoints and logs (rank 0)."""
+        return self.mesh is None or dist.get_rank() == 0
+
+    def _draw(self, batch: Tuple[torch.Tensor, ...]):
+        """The step's draws for ``batch``. Under dp, drawn for the global
+        batch (this rank's rows in place, zeros elsewhere) from the one
+        seeded generator, and this rank's rows kept, so that every rank
+        draws what the single-process step draws."""
+        if self.rows is None:
+            return self.draw_fn(batch, self.generator)
+        start, n = self.rows
+        full = []
+        for t in batch:
+            g = t.new_zeros((self.cfg.batch_size, *t.shape[1:]))
+            g[start : start + n] = t
+            full.append(g)
+        draw = self.draw_fn(tuple(full), self.generator)
+        return None if draw is None else tuple(d[start : start + n] for d in draw)
+
     def train_step(self, batch: Tuple[torch.Tensor, torch.Tensor]) -> float:
-        """One update on a device batch; returns the loss (NaN/inf for a
+        """One update on a device batch (under dp, this rank's rows of the
+        global batch); returns the global batch's loss (NaN/inf for a
         skipped batch, whose forward still moved any BatchNorm statistics)."""
-        st = self.state
-        st.model.train()
-        st.optimizer.zero_grad(set_to_none=True)
-        loss, _ = self.loss_fn(st.model, batch, self.draw_fn(batch, self.generator),
-                               *self._frozen_args)
-        loss.backward()
-        finite_update(loss, self.params, st.optimizer, self.cfg.grad_clip)
-        return float(loss.detach())
+        return float(self._step(batch, self._draw(batch), *self._frozen_args))
 
     @torch.no_grad()
     def validate(self, val_samples: List[Tuple[np.ndarray, np.ndarray]]) -> Tuple[float, float]:
         """Mean (PSNR, SSIM) of the clamped predictions over the finite
-        ones; (0, 0) when none is finite."""
+        ones; (0, 0) when none is finite. Under dp every rank validates and
+        rank 0's numbers are returned on all, so that every rank takes the
+        same checkpoint and early-stopping decisions."""
         st = self.state
         st.model.eval()
         psnrs, ssims = [], []
@@ -388,9 +472,12 @@ class Trainer:
             if math.isfinite(float(p)):
                 psnrs.append(float(p))
                 ssims.append(float(s))
-        if not psnrs:
-            return 0.0, 0.0
-        return float(np.mean(psnrs)), float(np.mean(ssims))
+        result = (float(np.mean(psnrs)), float(np.mean(ssims))) if psnrs else (0.0, 0.0)
+        if self.mesh is not None:
+            shared = torch.tensor(result, dtype=torch.float64, device=self.device)
+            dist.broadcast(shared, src=0)
+            result = tuple(shared.tolist())
+        return result
 
     def resume(self, ckpt_path: str) -> None:
         """Full resume from a checkpoint written by ``save``: weights,
@@ -407,7 +494,8 @@ class Trainer:
             st.history[k] = list(ckpt.get(k, []))
 
     def save(self, metadata: Optional[Dict] = None) -> str:
-        """Write ``<ckpt_dir>/<ckpt_name>.pth``; returns its path."""
+        """Write ``<ckpt_dir>/<ckpt_name>.pth`` (under dp, rank 0 writes it
+        and every rank returns once it is written); returns its path."""
         st = self.state
         meta = {
             "epoch": st.epoch,
@@ -419,6 +507,7 @@ class Trainer:
         return save_checkpoint(
             os.path.join(self.cfg.ckpt_dir, f"{self.cfg.ckpt_name}.pth"),
             st.model.state_dict(), st.optimizer.state_dict(), meta,
+            replicas=None if self.mesh is None else dist.group.WORLD,
         )
 
     def fit(
@@ -439,7 +528,7 @@ class Trainer:
             t0 = time.time()
 
             batch_iter = batches(dataset, cfg.batch_size, shuffle=True,
-                                 seed=cfg.seed + epoch, num_workers=cfg.num_workers)
+                                 seed=cfg.seed + epoch, num_workers=cfg.num_workers, rows=self.rows)
             if cfg.prefetch > 0:
                 batch_iter = prefetch_to_device(batch_iter, self.device, size=cfg.prefetch)
             else:
@@ -457,7 +546,7 @@ class Trainer:
             st.history["psnrs"].append(val_psnr)
             st.history["ssims"].append(val_ssim)
 
-            if verbose:
+            if verbose and self.is_main:
                 print(
                     f"epoch {epoch + 1}/{cfg.epochs} | loss {avg_loss:.6f} | "
                     f"val PSNR {val_psnr:.2f} dB | val SSIM {val_ssim:.4f} | "
@@ -472,7 +561,7 @@ class Trainer:
                 patience_counter += 1
 
             if cfg.patience is not None and patience_counter >= cfg.patience:
-                if verbose:
+                if verbose and self.is_main:
                     print("early stopping")
                 break
 
@@ -482,7 +571,10 @@ class Trainer:
 def plot_training_curves(history: Dict[str, List[float]], out_path: str) -> bool:
     """Loss/PSNR/SSIM curve PNG, as every reference trainer saves
     (DDIM:440-464). Without matplotlib it writes nothing and returns False:
-    the curves are a by-product and never stop a run."""
+    the curves are a by-product and never stop a run. Under data
+    parallelism rank 0 writes them."""
+    if dist.is_initialized() and dist.get_rank() != 0:
+        return False
     try:
         import matplotlib
     except ImportError:

@@ -19,22 +19,29 @@ import os
 from typing import Any, Dict, Mapping, Optional
 
 import torch
+import torch.distributed as dist
 
 
 def save_checkpoint(path: str, model_state_dict: Mapping[str, torch.Tensor],
                     optimizer_state_dict: Optional[Dict[str, Any]] = None,
-                    metadata: Optional[Dict[str, Any]] = None) -> str:
+                    metadata: Optional[Dict[str, Any]] = None, replicas=None) -> str:
     """Write ``path`` (a ``.pth`` file) atomically: a reader never sees a
-    half-written file. Model tensors are stored on the CPU."""
+    half-written file. Model tensors are stored on the CPU. ``replicas``: a
+    process group whose ranks hold equal copies of the state (data
+    parallel): its first rank writes the one file, and every rank returns
+    once it is written."""
     path = os.path.abspath(path)
-    os.makedirs(os.path.dirname(path), exist_ok=True)
-    payload: Dict[str, Any] = dict(metadata or {})
-    payload["model_state_dict"] = {k: v.detach().cpu() for k, v in model_state_dict.items()}
-    if optimizer_state_dict is not None:
-        payload["optimizer_state_dict"] = optimizer_state_dict
-    tmp = f"{path}.{os.getpid()}.tmp"
-    torch.save(payload, tmp)
-    os.replace(tmp, path)
+    if replicas is None or dist.get_rank(replicas) == 0:
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        payload: Dict[str, Any] = dict(metadata or {})
+        payload["model_state_dict"] = {k: v.detach().cpu() for k, v in model_state_dict.items()}
+        if optimizer_state_dict is not None:
+            payload["optimizer_state_dict"] = optimizer_state_dict
+        tmp = f"{path}.{os.getpid()}.tmp"
+        torch.save(payload, tmp)
+        os.replace(tmp, path)
+    if replicas is not None:
+        dist.barrier(group=replicas)
     return path
 
 

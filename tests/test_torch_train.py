@@ -292,7 +292,8 @@ def test_two_train_steps_match_the_jax_trainer(rng, tmp_path):
 def test_trainer_refuses_what_is_not_ported():
     m = torch.nn.Linear(2, 2)
     args = (lambda *a: None, lambda *a: None)
-    for cfg in (ttrainer.TrainConfig(remat=True), ttrainer.TrainConfig(mesh_shape=(2, 1, 1))):
+    for cfg in (ttrainer.TrainConfig(mesh_shape=(1, 2, 1)), ttrainer.TrainConfig(mesh_shape=(1, 1, 2)),
+                ttrainer.TrainConfig(mesh_shape=(2, 2, 2))):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             ttrainer.Trainer(*args, cfg, m, lambda *a: None, device="cpu")
 

@@ -5,6 +5,7 @@ move NHWC numpy arrays to NCHW torch tensors and back."""
 from __future__ import annotations
 
 import numpy as np
+import pytest
 import torch
 
 import jax
@@ -87,3 +88,38 @@ def write_router_fusion_hybrid(port_dir: str, jax_dir: str, rng: np.random.Gener
     torch.save({"model_state_dict": sd, "epoch": 1}, os.path.join(port_dir, "hybrid.pth"))
     save_checkpoint(os.path.join(jax_dir, "hybrid"),
                     {"params": {"router": router["params"], "fusion": fusion["params"]}}, {})
+
+
+def assert_step_matches(got, want, name, grads, lr):
+    """One train step from the same weights, ``got`` against ``want`` (each
+    {"loss", "state"[, "grads"]}, the state a state_dict): the loss to
+    1e-5, the BatchNorm statistics to 1e-5, and each parameter to 2e-5,
+    except at most 2% of
+    the entries, whose gradient (in ``grads``, the single-process step's
+    clipped gradients) is under 1e-3 of its tensor's largest (floored at
+    1e-3 of the model's largest): Adam's first step (~ lr * g / |g|) turns
+    their rounding into a move anywhere in +-lr, so they are held to 2 lr
+    (as tests/test_torch_expert_train.py). ``want["grads"]``, where given:
+    each clipped gradient to 1e-4 of that scale."""
+    assert got["loss"] == pytest.approx(want["loss"], rel=1e-5), name
+    top = max(g.abs().max().item() for g in grads.values())
+    n_loose = n_all = 0
+    for k, g in grads.items():
+        g = g.numpy()
+        scale = max(np.abs(g).max(), 1e-3 * top)
+        if "grads" in want:
+            np.testing.assert_allclose(got["grads"][k].numpy(), want["grads"][k].numpy(), rtol=1e-3,
+                                       atol=1e-4 * scale, err_msg=f"{name} {k}")
+        diff = np.abs(got["state"][k].numpy() - want["state"][k].numpy())
+        loose = diff > 2e-5
+        assert (np.abs(g[loose]) < 1e-3 * scale).all(), (name, k, diff[loose].max())
+        assert (diff <= 2 * lr).all(), (name, k, diff.max())
+        n_loose, n_all = n_loose + int(loose.sum()), n_all + loose.size
+    assert n_loose <= 0.02 * n_all, (name, n_loose, n_all)
+    for k, w in want["state"].items():
+        if k.endswith(("running_mean", "running_var")):
+            w = w.numpy()
+            np.testing.assert_allclose(got["state"][k].numpy(), w, rtol=1e-5, atol=1e-5 * np.abs(w).max(),
+                                       err_msg=f"{name} {k}")
+        elif k.endswith("num_batches_tracked"):
+            assert int(got["state"][k]) == 1, (name, k)  # the port's counter (JAX keeps none)
