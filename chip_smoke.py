@@ -11,7 +11,9 @@ NAFNet forward and one training step of each model; then serves with int8
 convolutions (``--int8``) and at the 1024² operating point through the
 server, runs the MODEL2_NAFNET variant, runs the xraybench-v1 quality
 benchmark (train, score, variants, turbo gate, seed study) at serve widths,
-and trains with rematerialisation and data parallel over two processes.
+trains with rematerialisation and data parallel over two processes, and
+serves tensor- and data-parallel (the engine's ``--tp`` / ``--dp``) on the
+one card.
 
     python3 chip_smoke.py [--report FILE] [--naf-only]
 
@@ -159,7 +161,22 @@ Phases (any failure exits non-zero, and no result line is printed):
    buffers to ``DP_*``, the step walls (a correctness run: two ranks on
    one card are not a speed result); (c) the one-process diffusion ``.pth``
    resumed at dp 2 and the dp-2 one resumed in this process, each restored
-   state equal to its file.
+   state equal to its file;
+17. tensor- and data-parallel serving on the one card
+   (``devices=["cuda:0"] * 2``), SERVE_* widths, 512², TF32 off, seeded
+   demo weights: (a) tp 2 against the unsharded engine (fp32 evals, fused
+   requests and the turbo tier on): ``n_tp_sharded`` equal to the JAX
+   engine's count (``TP2_SERVE_SHARDED``), 48 flash forward and 120 ln2d
+   launches a request (fused and per path), the four paths', the fused and
+   the turbo functions' outputs to ``TP_FP32_BOUND``, each path's wall and
+   device time beside the unsharded engine's (not a speed result: both
+   slices share the card); (b) dp 2 with batching, buckets (1, 2) -> (2,):
+   3 requests through the server, one 2-row batch each of 96 flash forward
+   and 240 ln2d launches, and a 2-row batch against each image served alone
+   (``DP_VS_ONE_BOUND``); (c) the default engine (bf16 UNet evals) at tp 2
+   against unsharded (``TP_BF16_BOUND`` on the rollout paths), its conv
+   slices in bf16; (d) the server's ``--int8 --tp`` refused, naming ROADMAP.md
+   queue 1 item 15b part 2.
 Where ``torch.profiler`` records no device kernel three times running, it
 is off for the rest of the run and device times are taken by CUDA events
 behind a sleep kernel instead (``device_ms_events``). A profile that holds
@@ -238,6 +255,7 @@ from midd_tpu_torch.ops import ln2d as ln
 from midd_tpu_torch.ops import naf_ffn as ffn
 from midd_tpu_torch.ops import qconv
 from midd_tpu_torch.ops.naf_fast import nafnet_apply_fused
+from midd_tpu_torch.parallel import ColumnParallel
 from midd_tpu_torch.serve import server
 from midd_tpu_torch.serve.engine import MODEL_NAMES, EngineConfig, InferenceEngine, calibration_batches
 from midd_tpu_torch.serve.server import make_server
@@ -516,6 +534,27 @@ XB_PSNR_BF16_DB, XB_SSIM_BF16 = 0.02, 5e-4
 MODEL2_STAGES = [(24, 512), (48, 256), (96, 128), (192, 64), (384, 32)]
 MODEL2_BLOCKS = sum(config.MODEL2_NAFNET.enc_blk_nums) + config.MODEL2_NAFNET.middle_blk_num + sum(
     config.MODEL2_NAFNET.dec_blk_nums)
+
+# Tensor- and data-parallel serving on the one card (phase 17), 512², fp32
+# with TF32 off. The parameters that the tp rule splits in the SERVE_*
+# engine with demo weights at tp 2, as the JAX engine counts them
+# (``n_tp_sharded``; computed with JAX by tests/test_torch_tp_serve.py):
+# 2 x 48 (the standalone and the hybrid's UNet) + 2 x 85 (the NAFNets)
+# + 13 (expert) + 3 (router) + 0 (fusion).
+TP2_SERVE_SHARDED = 282
+PARALLEL_REQUESTS = 3
+# tp 2 against the unsharded engine: each split convolution is cuDNN's
+# convolution of half the output channels, which may run another algorithm
+# (sums in another order, ~1e-6 relative per layer) through the 9-step
+# rollouts, as a batch against its images alone (BATCH_VS_SINGLE_BOUND).
+TP_FP32_BOUND = 1e-4
+# the default engine's bf16 UNet evals at tp 2: where a split convolution's
+# sum rounds to the other neighbouring bf16 value (2^-8 relative), the eps
+# of that eval moves by it, and the rollout carries the change on
+TP_BF16_BOUND = 5e-2
+# dp 2 on one card: each replica runs its row at batch 1 on its own thread,
+# the unsharded engine's shapes, so the same kernels
+DP_VS_ONE_BOUND = 1e-6
 
 
 def phase(name: str) -> None:
@@ -3246,6 +3285,139 @@ def dp_slice(report: dict, smi: str) -> dict:
             for i, m in enumerate(DP_MODELS)}
 
 
+def parallel_serving_slice(report: dict, smi: str) -> dict:
+    """Phase 17: the engine's ``tensor_parallel`` and ``data_parallel`` on
+    the one card (``devices=["cuda:0"] * 2``), SERVE_* widths, 512², TF32
+    off, seeded demo weights (the same in every engine): (a) tp 2 against
+    the unsharded engine, fp32 evals, fused requests and the turbo tier on:
+    ``n_tp_sharded``, launches a request (fused, and the four per-path
+    functions), the four paths', the fused and the turbo functions' max abs
+    difference, every path's wall and device time beside the unsharded
+    engine's; (b) dp 2 with batching, buckets (1, 2) -> (2,): 3 requests
+    through the server, one 2-row batch each (96 flash, 240 ln2d), then a
+    batch of two images against each served alone by the unsharded engine;
+    (c) the default engine (bf16 UNet evals) at tp 2 against unsharded;
+    (d) the server's ``--int8 --tp`` refused. Returns the launches of (a)'s
+    and (b)'s requests."""
+    set_tf32(False)
+    fp32 = dict(diffusion_eval_bf16=False, hybrid_rollout_bf16=False, warmup=False)
+    pngs = [xray_png(512, 512, seed=5000 + i) for i in range(PARALLEL_REQUESTS)]
+    x2 = np.concatenate([_png_array(png) for png in pngs[:2]])
+    x = x2[:1]
+    two = ["cuda:0"] * 2
+    res = {"card": smi, "note": "tp and dp slices share one card: a correctness run, not a speed result"}
+    launched = {}
+    t = time.time()
+    plain = InferenceEngine(EngineConfig(**fp32, fused_request=True, adaptive_turbo=True))
+    try:
+        tp = InferenceEngine(EngineConfig(**fp32, fused_request=True, adaptive_turbo=True, tensor_parallel=True),
+                             devices=two)
+        res["engine_build_s"] = time.time() - t
+        try:
+            res["tp"] = {"mesh_shape": tp.mesh_shape, "n_tp_sharded": tp.n_tp_sharded}
+            zero_counts()
+            per_request = []
+            for i, png in enumerate(pngs):
+                before = counts()
+                out = tp.process_all(_png_array(png), (512, 512))
+                per_request.append(since(before))
+                assert all(out[n] is not None for n in MODEL_NAMES), f"tp request {i}: a path answered null"
+            launched["serve_tp"] = counts()
+            before = counts()
+            got = {n: tp.fns[n](x) for n in MODEL_NAMES}
+            per_path_request = since(before)
+            want = {n: plain.fns[n](x) for n in MODEL_NAMES}
+            fused_got, fused_want = tp.fused(x), plain.fused(x)
+            res["tp"].update({
+                "launches_per_request": per_request, "launches_per_path_request": per_path_request,
+                "max_abs_diff": {n: float(np.abs(got[n] - want[n]).max()) for n in MODEL_NAMES},
+                "fused_max_abs_diff": {n: float(np.abs(fused_got[n] - fused_want[n]).max()) for n in MODEL_NAMES},
+                "turbo_max_abs_diff": {n: float(np.abs(tp.turbo_fns[n](x) - plain.turbo_fns[n](x)).max())
+                                       for n in tp.turbo_fns},
+                "bound": TP_FP32_BOUND,
+            })
+            times = {"tp2": path_times(tp, x), "unsharded": path_times(plain, x)}
+            res["tp"]["paths"] = {e: {n: {k: p[k] for k in ("wall_p50_ms", "device_ms", "idle_share", "peak_gib")}
+                                      for n, p in paths.items()} for e, paths in times.items()}
+        finally:
+            tp.close()
+        print(json.dumps({"parallel_tp": res["tp"]}), flush=True)
+
+        dp = InferenceEngine(EngineConfig(**fp32, batching=True, batch_buckets=(1, 2), data_parallel=True),
+                             devices=two)
+        try:
+            res["dp"] = {"mesh_shape": dp.mesh_shape, "buckets": dp.batcher.buckets}
+            with serving(dp) as addr:
+                zero_counts()
+                per_batch, walls = [], []
+                for png in pngs:
+                    before = counts()
+                    walls.append(post_denoise(addr, png, (512, 512)))
+                    per_batch.append(since(before))
+                launched["serve_dp"] = counts()
+            stats = dp.batcher.stats
+            got = {n: dp.fns[n](x2) for n in MODEL_NAMES}
+            res["dp"].update({
+                "request_ms": walls, "batches": stats["batches"], "launches_per_batch": per_batch,
+                "max_abs_diff_vs_unsharded": {
+                    n: float(max(np.abs(got[n][i:i + 1] - plain.fns[n](x2[i:i + 1])).max() for i in range(2)))
+                    for n in MODEL_NAMES},
+                "bound": DP_VS_ONE_BOUND,
+            })
+        finally:
+            dp.close()
+        print(json.dumps({"parallel_dp": res["dp"]}), flush=True)
+    finally:
+        plain.close()
+
+    default = InferenceEngine(EngineConfig(warmup=False))
+    try:
+        tp_bf16 = InferenceEngine(EngineConfig(warmup=False, tensor_parallel=True), devices=two)
+        try:
+            # the conv and linear slices hold the cast weights (transposed convs stay fp32)
+            shard_dtypes = {s.weight.dtype for m in tp_bf16.replicas[0]["unet_eval"].modules()
+                            if isinstance(m, ColumnParallel) for s in m.shards
+                            if isinstance(s, (torch.nn.Conv2d, torch.nn.Linear))}
+            res["tp_bf16"] = {
+                "n_tp_sharded": tp_bf16.n_tp_sharded, "unet_eval_shard_dtypes": sorted(map(str, shard_dtypes)),
+                "max_abs_diff": {n: float(np.abs(tp_bf16.fns[n](x) - default.fns[n](x)).max()) for n in MODEL_NAMES},
+                "bound": {"diffusion": TP_BF16_BOUND, "hybrid": TP_BF16_BOUND, "nafnet": TP_FP32_BOUND,
+                          "expert": TP_FP32_BOUND},
+            }
+        finally:
+            tp_bf16.close()
+    finally:
+        default.close()
+    print(json.dumps({"parallel_tp_bf16": res["tp_bf16"]}), flush=True)
+
+    _, cfg = server.config_from_args(["--int8", "--tp"])
+    try:
+        InferenceEngine(cfg)
+    except NotImplementedError as e:
+        res["int8_tp_refused"] = str(e)
+    else:
+        raise AssertionError("--int8 --tp built an engine")
+    report["parallel_serving"] = res
+    print(json.dumps({"int8_tp_refused": res["int8_tp_refused"]}), flush=True)
+
+    tp_res, dp_res, bf = res["tp"], res["dp"], res["tp_bf16"]
+    assert tp_res["mesh_shape"] == {"dp": 1, "sp": 1, "tp": 2}, tp_res["mesh_shape"]
+    assert tp_res["n_tp_sharded"] == bf["n_tp_sharded"] == TP2_SERVE_SHARDED, (tp_res["n_tp_sharded"], bf)
+    assert all(r == PER_REQUEST for r in tp_res["launches_per_request"]), tp_res["launches_per_request"]
+    assert tp_res["launches_per_path_request"] == PER_REQUEST, tp_res["launches_per_path_request"]
+    for key in ("max_abs_diff", "fused_max_abs_diff", "turbo_max_abs_diff"):
+        assert max(tp_res[key].values()) <= TP_FP32_BOUND, (key, tp_res[key])
+    assert dp_res["mesh_shape"] == {"dp": 2, "sp": 1, "tp": 1} and dp_res["buckets"] == [2], dp_res
+    assert dp_res["batches"] == PARALLEL_REQUESTS, dp_res
+    assert all(b == _launches(2 * PER_REQUEST["flash_fwd"], 2 * PER_REQUEST["ln2d"])
+               for b in dp_res["launches_per_batch"]), dp_res["launches_per_batch"]
+    assert max(dp_res["max_abs_diff_vs_unsharded"].values()) <= DP_VS_ONE_BOUND, dp_res
+    assert bf["unet_eval_shard_dtypes"] == ["torch.bfloat16"], bf
+    assert all(bf["max_abs_diff"][n] <= bf["bound"][n] for n in MODEL_NAMES), bf
+    assert "ROADMAP.md queue 1 item 15b part 2" in res["int8_tp_refused"], res["int8_tp_refused"]
+    return launched
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -3394,6 +3566,13 @@ def main(argv=None) -> int:
     paths.update({f"dp_{m}": launched for m, launched in dp_slice(report, smi).items()})
     report["phase_16_s"] = time.time() - t
     print(json.dumps({"phase_16_s": report["phase_16_s"]}), flush=True)
+
+    phase("slice: tensor- and data-parallel serving on the one card at 512²")
+    t = time.time()
+    torch.cuda.empty_cache()
+    paths.update(parallel_serving_slice(report, smi))
+    report["phase_17_s"] = time.time() - t
+    print(json.dumps({"phase_17_s": report["phase_17_s"]}), flush=True)
 
     for entry in entries:
         by_path = {p: launched[entry["name"]] for p, launched in paths.items()}

@@ -39,6 +39,7 @@ from midd_tpu_torch.models.blocks import (
     sinusoidal_embedding,
 )
 from midd_tpu_torch.ops.image import resize_bilinear
+from midd_tpu_torch.parallel.tp import ColumnParallel
 
 # pool tap m of the 2x2 mean picks transposed-conv taps {2m+1, 2m+2}
 _UPDOWN_A = ((1.0, 0.0, 0.0, 0.0), (0.0, 1.0, 1.0, 0.0), (0.0, 0.0, 0.0, 1.0))
@@ -48,7 +49,10 @@ def fused_updown(up: ConvTransposeTorch, x: torch.Tensor) -> torch.Tensor:
     """``down2(up(x))`` for a ``ConvTranspose2d(k=4, s=2, p=1)`` as one 3x3
     conv: with k the kernel in correlation form (spatially flipped), the
     fused kernel is 0.25 * A k A^T per (in, out) slice. Derived in fp32, then
-    cast to the input dtype."""
+    cast to the input dtype. A tensor-parallel ``up`` computes it for each of
+    its output-channel slices."""
+    if isinstance(up, ColumnParallel):
+        return up.map(fused_updown, x)
     a = torch.tensor(_UPDOWN_A, dtype=up.weight.dtype, device=up.weight.device)
     k = up.weight.flip(-1, -2)  # (I, O, 4, 4), correlation form
     w2 = 0.25 * torch.einsum("ap,bq,iopq->oiab", a, a, k)

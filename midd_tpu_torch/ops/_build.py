@@ -106,6 +106,17 @@ def raise_on(err: int, lib: ctypes.CDLL, kernel: str) -> None:
         raise RuntimeError(f"{kernel} launch failed: {lib.midd_cuda_error_string(err).decode()}")
 
 
+_count_lock = threading.Lock()
+
+
+def count_launch(wrapper, counter: str = "launches") -> None:
+    """Add one to ``wrapper.launches`` (or its ``counter``), the launch count
+    of its kernel; a lock makes the read-modify-write safe for wrappers
+    called from several threads (the serving engine's dp replicas)."""
+    with _count_lock:
+        setattr(wrapper, counter, getattr(wrapper, counter) + 1)
+
+
 def pixel_strides(x: torch.Tensor, name: str) -> tuple:
     """(sb, sc, sp): the element strides of batch, channel and pixel of a
     dense (B, C, H, W) tensor in NCHW or channels-last order, pixel p = h*W +

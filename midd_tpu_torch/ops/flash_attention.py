@@ -26,7 +26,7 @@ from typing import Tuple
 
 import torch
 
-from midd_tpu_torch.ops._build import CSRC, NVCC_FLAGS, I as _I, P as _P, library, raise_on
+from midd_tpu_torch.ops._build import CSRC, NVCC_FLAGS, I as _I, P as _P, count_launch, library, raise_on
 
 SOURCE = CSRC / "flash_fwd.cu"
 # query rows per block of the plain (and the exact reference's) scores: each
@@ -120,7 +120,7 @@ def flash_attention(
             lse.data_ptr(), bh, n, d, int(q.dtype == torch.bfloat16), stream,
         )
     raise_on(err, lib, "flash_fwd")
-    flash_attention.launches += 1
+    count_launch(flash_attention)
     return o, lse
 
 
@@ -195,7 +195,7 @@ def flash_bwd_dq(q, k, v, do, lse, delta) -> torch.Tensor:
     counts its launches in ``flash_bwd_dq.launches``."""
     dq = torch.empty_like(q)
     _launch_bwd("midd_flash_bwd_dq", (dq,), q, k, v, do, lse, delta)
-    flash_bwd_dq.launches += 1
+    count_launch(flash_bwd_dq)
     return dq
 
 
@@ -204,7 +204,7 @@ def flash_bwd_dkv(q, k, v, do, lse, delta) -> Tuple[torch.Tensor, torch.Tensor]:
     in ``flash_bwd_dkv.launches``."""
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     _launch_bwd("midd_flash_bwd_dkv", (dk, dv), q, k, v, do, lse, delta)
-    flash_bwd_dkv.launches += 1
+    count_launch(flash_bwd_dkv)
     return dk, dv
 
 

@@ -25,7 +25,7 @@ from __future__ import annotations
 
 import torch
 
-from midd_tpu_torch.ops._build import CSRC, F, I, L, P, library, pixel_strides, raise_on, stream
+from midd_tpu_torch.ops._build import CSRC, F, I, L, P, count_launch, library, pixel_strides, raise_on, stream
 
 SOURCE = CSRC / "ln2d.cu"
 _SIGNATURES = {
@@ -131,7 +131,7 @@ def ln2d(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                             b, c, h * w, *strides, float(eps), int(x.dtype == torch.bfloat16),
                             stream(x))
     raise_on(err, lib, "ln2d")
-    ln2d.launches += 1
+    count_launch(ln2d)
     return y
 
 

@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import torch
 
-from midd_tpu_torch.ops._build import CSRC, I, L, P, library, pixel_strides, raise_on, stream
+from midd_tpu_torch.ops._build import CSRC, I, L, P, count_launch, library, pixel_strides, raise_on, stream
 
 SOURCE = CSRC / "naf_ffn.cu"
 _SIGNATURES = {
@@ -109,7 +109,7 @@ def naf_ffn_fused(y, scale, bias, w4, b4, w5, b5, gamma) -> torch.Tensor:
         err = lib.midd_naf_ffn(y.data_ptr(), *(t.data_ptr() for t in params), out.data_ptr(),
                                b, c, h * w, *strides, int(y.dtype == torch.bfloat16), stream(y))
     raise_on(err, lib, "naf_ffn")
-    naf_ffn_fused.launches += 1
+    count_launch(naf_ffn_fused)
     return out
 
 

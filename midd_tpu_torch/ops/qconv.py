@@ -31,6 +31,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from midd_tpu_torch.models.blocks import Conv2d
+from midd_tpu_torch.ops._build import count_launch
 
 MODES = ("dynamic", "static", "calibrate")
 
@@ -97,7 +98,7 @@ def int8_conv2d(xq: torch.Tensor, wq: torch.Tensor, stride: int, padding: int) -
         return int8_conv2d_plain(xq, wq, stride, padding)
     if xq.device.type != "cuda":
         raise ValueError(f"int8_conv2d: unsupported device {xq.device}")
-    int8_conv2d.calls += 1
+    count_launch(int8_conv2d, "calls")
     return int8_conv2d_int_mm(xq, wq, stride, padding)
 
 

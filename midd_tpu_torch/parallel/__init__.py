@@ -1,13 +1,16 @@
-"""Data-parallel training of the port over ``torch.distributed``, one
-process per rank (counterpart of ``midd_tpu/parallel``). The JAX package's
-tp and sp names (``image_sharding``, ``param_shardings``, ``shard_params``,
-``count_tp_sharded``) are not exported: they raise until ROADMAP.md queue 1
-items 15b and 15c port them. ``host_local_batch_to_global`` has no
+"""Parallelism of the port (counterpart of ``midd_tpu/parallel``):
+data-parallel training over ``torch.distributed``, one process per rank,
+and the tensor-parallel layout of the serving engine, in one process over
+local devices. ``image_sharding`` (sp) is not exported: it raises until
+ROADMAP.md queue 1 item 15c ports it. ``host_local_batch_to_global`` has no
 counterpart (``multihost``'s docstring says why)."""
 
 from midd_tpu_torch.parallel.mesh import (  # noqa: F401
     batch_sharding,
+    count_tp_sharded,
     make_mesh,
+    mesh_layout,
+    param_shardings,
     replicated,
 )
 from midd_tpu_torch.parallel.multihost import (  # noqa: F401
@@ -16,4 +19,5 @@ from midd_tpu_torch.parallel.multihost import (  # noqa: F401
     mesh_fabric_report,
     process_batch_slice,
 )
+from midd_tpu_torch.parallel.tp import ColumnParallel, gather_shards, shard_params  # noqa: F401
 from midd_tpu_torch.parallel.train_dp import make_sharded_train_step  # noqa: F401

@@ -1,39 +1,42 @@
 """The (dp, sp, tp) mesh of the port (counterpart of ``midd_tpu/parallel/mesh.py``).
 
 The JAX package lays its devices out as a ``jax.sharding.Mesh`` and lets
-XLA insert the collectives. The port runs one process per rank under
-``torch.distributed``: the same layout rule, applied to rank ids, gives a
-``DeviceMesh`` with dims named ("dp", "sp", "tp"), and the training step
-issues its collectives itself (``parallel/train_dp.py``).
+XLA insert the collectives. The port's trainer runs one process per rank
+under ``torch.distributed``: the same layout rule, applied to rank ids,
+gives a ``DeviceMesh`` with dims named ("dp", "sp", "tp"), and the training
+step issues its collectives itself (``parallel/train_dp.py``). The serving
+engine lays out a list of local devices by the same rule, in one process.
 
 Axes, as in the JAX package: dp shards the batch; sp the image rows; tp the
 convolutions' output channels. Mesh policy: tp is the largest of (4, 2, 1)
-dividing the rank count (over sp) when it is not given; dp gets the rest.
+dividing the device count (over sp) when it is not given; dp gets the rest.
 
-Ported: dp. The batch rows that one dp rank holds are ``batch_sharding``'s.
-Not ported yet: sp (``image_sharding``, ROADMAP.md queue 1 item 15c) and tp
-(``param_shardings``, ``shard_params``, ``count_tp_sharded``, item 15b):
+Ported: dp (the batch rows that one dp rank holds are ``batch_sharding``'s)
+and tp's layout rule (``param_shardings``, ``count_tp_sharded``; the engine
+applies it with ``parallel/tp.py``). Not ported yet: sp (``image_sharding``,
+ROADMAP.md queue 1 item 15c) and training at tp > 1 (item 15b part 2):
 those raise.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.distributed as dist
+import torch.nn as nn
 
 AXES = ("dp", "sp", "tp")
-TP_MESSAGE = "tensor parallelism (tp > 1) is not ported yet: ROADMAP.md queue 1 item 15b"
+TP_MESSAGE = "tensor-parallel training (tp > 1) is not ported yet: ROADMAP.md queue 1 item 15b part 2"
 SP_MESSAGE = "spatial parallelism (sp > 1) is not ported yet: ROADMAP.md queue 1 item 15c"
 
 
 def mesh_layout(n_devices: Optional[int] = None, tp: Optional[int] = None, sp: int = 1,
-                ranks: Optional[Sequence[int]] = None) -> np.ndarray:
-    """``make_mesh``'s layout rule over rank ids: the (dp, sp, tp) array of
-    the first ``n_devices`` of ``ranks`` (default: every rank of the
-    process group, or one), with tp the largest of (4, 2, 1) dividing
+                ranks: Optional[Sequence] = None) -> np.ndarray:
+    """``make_mesh``'s layout rule: the (dp, sp, tp) array of the first
+    ``n_devices`` of ``ranks``, rank ids or devices (default: every rank of
+    the process group, or one), with tp the largest of (4, 2, 1) dividing
     ``n // sp`` where it is None."""
     if ranks is None:
         ranks = range(dist.get_world_size() if dist.is_initialized() else 1)
@@ -47,7 +50,9 @@ def mesh_layout(n_devices: Optional[int] = None, tp: Optional[int] = None, sp: i
                 tp = cand
                 break
     dp = n // (sp * tp)
-    return np.asarray(ranks).reshape(dp, sp, tp)
+    layout = np.empty(n, dtype=object if any(not isinstance(r, int) for r in ranks) else np.int64)
+    layout[:] = ranks
+    return layout.reshape(dp, sp, tp)
 
 
 def device_mesh(layout: np.ndarray, device_type: str):
@@ -96,16 +101,35 @@ def image_sharding(*args, **kwargs):
     raise NotImplementedError(SP_MESSAGE)
 
 
-def param_shardings(*args, **kwargs):
-    raise NotImplementedError(TP_MESSAGE)
+def _channel_dim(owner: nn.Module, name: str) -> int:
+    """The dim of a parameter that holds its output channels, the last axis
+    of its JAX leaf: 0 of a ``Conv2d`` (O, I/g, kh, kw) or ``Linear`` (out,
+    in) weight, 1 of a ``ConvTranspose2d`` weight (I, O, kh, kw; the JAX
+    ``kernel_t`` is HWIO) and of a per-channel (1, C, 1, 1) parameter such
+    as NAFBlock's ``beta`` (JAX's (1, 1, 1, C))."""
+    if name == "weight" and isinstance(owner, (nn.Conv2d, nn.Linear)):
+        return 0
+    return 1
 
 
-def shard_params(*args, **kwargs):
-    raise NotImplementedError(TP_MESSAGE)
+def param_shardings(module: nn.Module, tp: int, min_size: int = 1 << 16) -> Dict[str, Optional[int]]:
+    """The JAX package's tensor-parallel rule on ``module``'s parameters:
+    for each parameter name, the dim it is split on over tp, or None
+    (replicated). A parameter of at least 2 dims and ``min_size`` elements
+    is split on its output channels where their count divides by tp;
+    1-D parameters (biases, norm scales) never are."""
+    out: Dict[str, Optional[int]] = {}
+    for mname, owner in module.named_modules():
+        for pname, p in owner.named_parameters(recurse=False):
+            dim = _channel_dim(owner, pname)
+            split = tp > 1 and p.ndim >= 2 and p.numel() >= min_size and p.shape[dim] % tp == 0
+            out[f"{mname}.{pname}" if mname else pname] = dim if split else None
+    return out
 
 
-def count_tp_sharded(*args, **kwargs):
-    raise NotImplementedError(TP_MESSAGE)
+def count_tp_sharded(shardings: Dict[str, Optional[int]]) -> int:
+    """Number of parameters that ``param_shardings`` splits over tp."""
+    return sum(dim is not None for dim in shardings.values())
 
 
 def check_mesh_shape(mesh_shape: Sequence[int]) -> Tuple[int, int, int]:

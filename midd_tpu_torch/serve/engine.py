@@ -29,9 +29,22 @@ stage in a space-to-depth layout, and its UNets stage 0 so unless int8
 TPU's 128 lanes with the same function and parameters, not ported: the port
 computes the plain layouts, and ``serving_mode()["layout"]`` says so.
 
-Left out, so asking for them fails: dp/tp/sp parallel serving (ROADMAP.md
-queue 1 items 15b and 15c), AOT pinning and the persistent compilation cache (item
-16).
+``data_parallel`` and ``tensor_parallel`` lay the engine's devices
+(``devices``: by default every local card, or the CPU) out as the JAX
+engine lays out its mesh, without sp: ``tensor_parallel`` alone takes every
+device as tp (dp 1, so batch-1 requests work); with ``data_parallel`` the
+(4, 2, 1) rule of ``parallel/mesh.py`` picks tp; ``tp_size`` sets it. Each
+dp group holds a replica of every model, run on a thread of its own, and
+takes an equal part of a batch's rows (a batch whose rows do not divide
+over dp raises; under batching the buckets round up to multiples of dp).
+Within a replica the layers that the tp rule splits compute each
+output-channel slice on its tp device, and the slices are gathered onto the
+replica's first device, where everything else runs (``parallel/tp.py``).
+With one device, or neither flag, there is no mesh and nothing changes.
+
+Left out, so asking for them fails: sp parallel serving (ROADMAP.md queue 1
+item 15c), int8 under ``tensor_parallel`` (item 15b part 2), AOT pinning and
+the persistent compilation cache (item 16).
 """
 
 from __future__ import annotations
@@ -45,9 +58,9 @@ import sys
 import threading
 import time
 import zlib
-from concurrent.futures import ThreadPoolExecutor
+from concurrent.futures import ThreadPoolExecutor, wait
 from dataclasses import dataclass, field
-from typing import Any, Callable, Deque, Dict, Optional, Tuple
+from typing import Any, Callable, Deque, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -63,6 +76,8 @@ from midd_tpu_torch.models.hybrid import FusionModule, NoiseAnalyzer, hybrid_for
 from midd_tpu_torch.models.nafnet import EnhancedNAFNet
 from midd_tpu_torch.models.unet_diffusion import UNetDiffusion
 from midd_tpu_torch.ops.qconv import calibrate_unet_rollout, load_qscales, with_quant_mode
+from midd_tpu_torch.parallel.mesh import AXES, count_tp_sharded, mesh_layout, param_shardings
+from midd_tpu_torch.parallel.tp import shard_params
 from midd_tpu_torch.serve.batching import MicroBatcher
 from midd_tpu_torch.serve.codec import tensor_to_base64_png
 from midd_tpu_torch.train.data import NOISE_FNS
@@ -134,6 +149,16 @@ class EngineConfig:
     # the JAX engine's NAFNet space-to-depth layout: accepted and ignored,
     # the plain layout is computed (the same function and parameters)
     nafnet_s2d: bool = False
+    # batch rows split over dp replicas of the models (buckets rounded up to
+    # multiples of dp); a no-op on one device
+    data_parallel: bool = False
+    # conv and linear weights of at least tp_min_size elements split over
+    # the tp devices on their output channels; composes with data_parallel
+    tensor_parallel: bool = False
+    tp_min_size: int = 1 << 16
+    # tp size; None = every device when tensor_parallel alone (dp 1), else
+    # the (4, 2, 1) rule with data_parallel
+    tp_size: Optional[int] = None
 
 
 def _eps_kwargs(setting) -> Dict[str, Any]:
@@ -168,7 +193,13 @@ def _demo_generator(name: str) -> torch.Generator:
 
 
 class InferenceEngine:
-    def __init__(self, cfg: EngineConfig = EngineConfig()):
+    """``devices``: the devices the parallel flags lay out (the JAX engine's
+    ``jax.devices()``); default every local card of ``cfg.device``'s type,
+    or ``[cfg.device]`` on the CPU. A list may name one device more than
+    once, so that one card or the CPU holds several dp replicas or tp
+    slices."""
+
+    def __init__(self, cfg: EngineConfig = EngineConfig(), devices: Optional[Sequence] = None):
         self.device = torch.device(cfg.device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -179,9 +210,17 @@ class InferenceEngine:
             raise ValueError(
                 f"quantize_int8 must be False, True, 'dynamic' or 'static', got {cfg.quantize_int8!r}"
             )
+        if cfg.quantize_int8 and cfg.tensor_parallel:
+            raise NotImplementedError(
+                "int8 convolutions under tensor_parallel are not ported yet: ROADMAP.md queue 1 item 15b part 2"
+            )
         if cfg.use_flash_attention is None:
             cfg = dataclasses.replace(cfg, use_flash_attention=self.device.type == "cuda")
         self.cfg = cfg
+        self.mesh = self._layout(devices)
+        if self.mesh is not None:
+            self.device = self.mesh[0, 0, 0]
+        self.n_tp_sharded = 0
         # static int8: each calibrated UNet's scales and calibration time
         self.int8_scales: Dict[str, Dict[str, torch.Tensor]] = {}
         self.calibration_ms: Dict[str, float] = {}
@@ -193,10 +232,41 @@ class InferenceEngine:
             n: collections.deque(maxlen=256) for n in MODEL_NAMES
         }
         self._device = ThreadPoolExecutor(max_workers=1, thread_name_prefix="engine-device")
+        # one thread per dp replica (none without dp)
+        self._replicas: List[ThreadPoolExecutor] = [
+            ThreadPoolExecutor(max_workers=1, thread_name_prefix=f"engine-dp{r}")
+            for r in range(self.mesh.shape[0] if self.mesh is not None and self.mesh.shape[0] > 1 else 0)
+        ]
         self._fused_lock = threading.Lock()
         self._fused_failures = 0
         self.batcher: Optional[MicroBatcher] = None
         self._build()
+
+    def _layout(self, devices: Optional[Sequence]) -> Optional[np.ndarray]:
+        """The (dp, sp, tp) array of devices of the JAX engine's mesh rule
+        (sp 1), or None: no parallel flag, or one device."""
+        cfg = self.cfg
+        if devices is None:
+            cards = torch.cuda.device_count() if self.device.type == "cuda" else 0
+            devices = [torch.device("cuda", i) for i in range(cards)] or [self.device]
+        devices = [torch.device(d) for d in devices]
+        if any(d.type != self.device.type for d in devices):
+            raise ValueError(f"devices {devices} are not all of EngineConfig.device's type {self.device.type}")
+        n = len(devices)
+        if not (cfg.data_parallel or cfg.tensor_parallel) or n == 1:
+            return None
+        tp = 1
+        if cfg.tensor_parallel:
+            tp = cfg.tp_size
+            if tp is None and not cfg.data_parallel:
+                tp = n  # dp 1: batch-1 requests work
+        return mesh_layout(n if cfg.data_parallel else tp, tp, ranks=devices)
+
+    @property
+    def mesh_shape(self) -> Optional[Dict[str, int]]:
+        """``{"dp", "sp", "tp"}`` sizes of the mesh (the JAX engine's
+        ``mesh.shape``), None without one."""
+        return None if self.mesh is None else dict(zip(AXES, self.mesh.shape))
 
     # -- checkpoint plumbing -------------------------------------------------
 
@@ -374,13 +444,6 @@ class InferenceEngine:
             )
         self.diffusion_eps_reuse = dk
 
-        def make_diffusion_fn(eps_setting):
-            def fn(x):
-                out = denoise(unet_eval, x, schedule, cfg.diffusion_steps, **_eps_kwargs(eps_setting))
-                return out.clamp(0.0, 1.0)
-
-            return fn
-
         # NAFNet and expert paths
         naf_cfg = self._nafnet_cfg_from_meta(self._peek_meta("nafnet"), cfg.nafnet_cfg)
         naf = computing(self._load("nafnet", lambda: EnhancedNAFNet(naf_cfg)), dt)
@@ -449,78 +512,125 @@ class InferenceEngine:
                 hk = 2
         self.hybrid_eps_reuse = hk
 
-        def make_hybrid_fn(eps_setting, naf_fn=hyb_naf, rollout=None):
-            def fn(x):
-                out = hybrid_forward(
-                    naf_fn,
-                    rollout or (lambda a: denoise(hyb_unet_eval, a, hschedule, cfg.hybrid_diffusion_steps,
-                                                  **_eps_kwargs(eps_setting))),
-                    router,
-                    fusion,
-                    x,
-                    expert_apply=hyb_expert,
-                )
-                return out.clamp(0.0, 1.0)
-
-            return fn
-
-        paths = {
-            "diffusion": make_diffusion_fn(dk),
-            "nafnet": lambda x: naf(x).clamp(0.0, 1.0),
-            "expert": lambda x: expert(x).clamp(0.0, 1.0),
-            "hybrid": make_hybrid_fn(hk),
-        }
-        self._paths = paths
-        self.fns = {n: self._bind(self._paths, n) for n in paths}
-
-        # The queue-pressure tier of the two rollout paths, each schedule
-        # checked against its own path's rollout length.
-        self._turbo_paths: Dict[str, Callable] = {}
-        self.turbo_fns: Optional[Dict[str, Callable]] = None
-        if cfg.adaptive_turbo:
-            def tier_eps(setting, sched, steps):
-                return setting if _sched_fits(setting, sched, steps) else 2
-
-            self._turbo_paths = {
-                "diffusion": make_diffusion_fn(tier_eps(cfg.adaptive_diffusion_eps, schedule, cfg.diffusion_steps)),
-                "hybrid": make_hybrid_fn(tier_eps(cfg.adaptive_hybrid_eps, hschedule, cfg.hybrid_diffusion_steps)),
-            }
-            self.turbo_fns = {n: self._bind(self._turbo_paths, n) for n in self._turbo_paths}
-
         # The fused request computes the shared NAFNet forward and, where the
         # eps settings and the eval model match too, the rollout once.
         share_rollout = rollout_shareable and hk == dk and hyb_unet_eval is unet_eval
         self.shares = {"backends": share_backends, "rollout": share_rollout}
-        self._fused_path: Optional[Callable] = None
-        self.fused: Optional[Callable[[np.ndarray], Dict[str, np.ndarray]]] = None
-        if cfg.fused_request:
+
+        def tier_eps(setting, sched, steps):
+            return setting if _sched_fits(setting, sched, steps) else 2
+
+        def make_paths(m: Dict[str, Optional[nn.Module]], schedule: Schedule, hschedule: Schedule):
+            """The per-path, turbo and fused functions over one replica's
+            models ``m``."""
+            def make_diffusion_fn(eps_setting):
+                def fn(x):
+                    out = denoise(m["unet_eval"], x, schedule, cfg.diffusion_steps, **_eps_kwargs(eps_setting))
+                    return out.clamp(0.0, 1.0)
+
+                return fn
+
+            def make_hybrid_fn(eps_setting, naf_fn=m["hyb_naf"], rollout=None):
+                def fn(x):
+                    out = hybrid_forward(
+                        naf_fn,
+                        rollout or (lambda a: denoise(m["hyb_unet_eval"], a, hschedule, cfg.hybrid_diffusion_steps,
+                                                      **_eps_kwargs(eps_setting))),
+                        m["router"],
+                        m["fusion"],
+                        x,
+                        expert_apply=m["hyb_expert"],
+                    )
+                    return out.clamp(0.0, 1.0)
+
+                return fn
+
+            paths = {
+                "diffusion": make_diffusion_fn(dk),
+                "nafnet": lambda x: m["naf"](x).clamp(0.0, 1.0),
+                "expert": lambda x: m["expert"](x).clamp(0.0, 1.0),
+                "hybrid": make_hybrid_fn(hk),
+            }
+            # The queue-pressure tier of the two rollout paths, each schedule
+            # checked against its own path's rollout length.
+            turbo = {
+                "diffusion": make_diffusion_fn(tier_eps(cfg.adaptive_diffusion_eps, schedule, cfg.diffusion_steps)),
+                "hybrid": make_hybrid_fn(tier_eps(cfg.adaptive_hybrid_eps, hschedule, cfg.hybrid_diffusion_steps)),
+            } if cfg.adaptive_turbo else {}
+
             def fused_fn(x):
-                naf_raw = naf(x)
-                diff_raw = denoise(unet_eval, x, schedule, cfg.diffusion_steps, **_eps_kwargs(dk))
+                naf_raw = m["naf"](x)
+                diff_raw = denoise(m["unet_eval"], x, schedule, cfg.diffusion_steps, **_eps_kwargs(dk))
                 hybrid = make_hybrid_fn(
                     hk,
-                    naf_fn=(lambda a: naf_raw) if share_backends else hyb_naf,
+                    naf_fn=(lambda a: naf_raw) if share_backends else m["hyb_naf"],
                     rollout=(lambda a: diff_raw) if share_rollout else None,
                 )
                 return {
                     "diffusion": diff_raw.clamp(0.0, 1.0),
                     "nafnet": naf_raw.clamp(0.0, 1.0),
-                    "expert": expert(x).clamp(0.0, 1.0),
+                    "expert": m["expert"](x).clamp(0.0, 1.0),
                     "hybrid": hybrid(x),
                 }
 
-            self._fused_path = fused_fn
-            self.fused = lambda x: self._on_device_thread(self._run_fused, x)
+            return paths, turbo, fused_fn if cfg.fused_request else None
+
+        # The models the paths run, laid out as the JAX engine lays out its
+        # weights over the mesh: one replica of them a dp group, each with
+        # the layers that the tp rule splits sharded over its tp devices
+        # (cast first, so that the slices hold the cast weights).
+        models = {"unet_eval": unet_eval, "hyb_unet_eval": hyb_unet_eval, "naf": naf, "hyb_naf": hyb_naf,
+                  "expert": expert, "hyb_expert": hyb_expert, "router": router, "fusion": fusion}
+        replicas = [models]
+        if self.mesh is not None:
+            dp, _, tp = self.mesh.shape
+            # the weight trees whose split leaves the JAX engine counts
+            trees = [unet, naf, expert, router, fusion] + [groups[g] for g in ("nafnet", "diffusion_unet")
+                                                           if g in groups]
+            if self.hybrid_expert_tree == "expert_ftl2":
+                trees.append(hyb_expert)
+            self.n_tp_sharded = sum(count_tp_sharded(param_shardings(t, tp, cfg.tp_min_size)) for t in trees)
+            replicas += [copy.deepcopy(models) for _ in range(1, dp)]
+            for r, ms in enumerate(replicas):
+                tp_devices = list(self.mesh[r, 0])
+                for mod in {id(mod): mod for mod in ms.values() if mod is not None}.values():
+                    mod.to(tp_devices[0])
+                    if tp > 1:
+                        shard_params(mod, tp_devices, cfg.tp_min_size)
+        self.replicas: List[Dict[str, Optional[nn.Module]]] = replicas
+        built = []
+        for r, ms in enumerate(replicas):
+            lead = self.device if self.mesh is None else self.mesh[r, 0, 0]
+            rep_schedule = schedule.to(lead)
+            built.append(make_paths(ms, rep_schedule, rep_schedule if hschedule is schedule else hschedule.to(lead)))
+        if len(built) == 1:
+            self._paths, self._turbo_paths, self._fused_path = built[0]
+        else:
+            self._paths, self._turbo_paths, self._fused_path = (
+                {n: self._over_dp([b[0][n] for b in built]) for n in built[0][0]},
+                {n: self._over_dp([b[1][n] for b in built]) for n in built[0][1]},
+                self._over_dp([b[2] for b in built]) if cfg.fused_request else None,
+            )
+        self.fns = {n: self._bind(self._paths, n) for n in self._paths}
+        self.turbo_fns: Optional[Dict[str, Callable]] = (
+            {n: self._bind(self._turbo_paths, n) for n in self._turbo_paths} if cfg.adaptive_turbo else None
+        )
+        self.fused: Optional[Callable[[np.ndarray], Dict[str, np.ndarray]]] = (
+            (lambda x: self._on_device_thread(self._run_fused, x)) if cfg.fused_request else None
+        )
 
         s = cfg.img_size
+        dp = len(replicas)
         if cfg.batching:
             buckets = cfg.batch_buckets
             if buckets == "auto":
                 buckets = (1, 2, 4, 8) if s <= 256 else (1,)
-            # the batcher warms every bucket of every function, batch 1 included
+            # a batch splits over dp: each bucket rounds up to a multiple of dp
+            buckets = sorted({-(-int(b) // dp) * dp for b in buckets})
+            # the batcher warms every bucket of every function
             self.batcher = MicroBatcher(
                 self.fns,
-                buckets=tuple(int(b) for b in buckets),
+                buckets=tuple(buckets),
                 max_wait_ms=cfg.batch_max_wait_ms,
                 warmup_shape=(s, s, 1) if cfg.warmup else None,
                 fused_fn=self.fused,
@@ -529,7 +639,7 @@ class InferenceEngine:
                 max_queue_depth=cfg.max_queue_depth,
             )
         elif cfg.warmup:
-            xw = np.zeros((1, s, s, 1), np.float32)
+            xw = np.zeros((dp, s, s, 1), np.float32)
             warm = dict(self.fns)
             if self.fused is not None:
                 warm["fused(all4)"] = self.fused
@@ -563,6 +673,31 @@ class InferenceEngine:
 
     def _bind(self, table: Dict[str, Callable], name: str) -> Callable[[np.ndarray], np.ndarray]:
         return lambda x: self._on_device_thread(self._run, table, name, x)
+
+    def _over_dp(self, fns: List[Callable]) -> Callable:
+        """A function of a batch that runs equal parts of its rows through
+        ``fns``, one per dp replica, each on its replica's thread, and
+        concatenates their outputs (tensors, or dicts of them) in row order
+        on the engine's device."""
+        def fn(x: torch.Tensor):
+            dp = len(fns)
+            if x.shape[0] % dp:
+                raise ValueError(f"a batch of {x.shape[0]} rows does not split over dp={dp} replicas "
+                                 f"(under batching the buckets round up to multiples of dp)")
+            futures = [pool.submit(self._on_replica, f, part.to(lead))
+                       for pool, f, part, lead in zip(self._replicas, fns, x.chunk(dp), self.mesh[:, 0, 0])]
+            wait(futures)
+            outs = [f.result() for f in futures]
+            if isinstance(outs[0], dict):
+                return {k: torch.cat([o[k].to(self.device) for o in outs]) for k in outs[0]}
+            return torch.cat([o.to(self.device) for o in outs])
+
+        return fn
+
+    @staticmethod
+    def _on_replica(fn: Callable, x: torch.Tensor):
+        with torch.inference_mode():
+            return fn(x)
 
     def _run_fused(self, x: np.ndarray) -> Dict[str, np.ndarray]:
         with torch.inference_mode():
@@ -626,10 +761,12 @@ class InferenceEngine:
         return results
 
     def close(self) -> None:
-        """Stop the batcher, then the device thread."""
+        """Stop the batcher, then the device thread and the dp replicas'."""
         if self.batcher is not None:
             self.batcher.stop()
         self._device.shutdown(wait=True)
+        for pool in self._replicas:
+            pool.shutdown(wait=True)
 
     def serving_mode(self) -> Dict:
         """The resolved quality levers; ``exact`` is True only when every

@@ -14,7 +14,9 @@
 Run: ``python -m midd_tpu_torch.serve.server --port 8000`` (on the GPU;
 ``--device cpu`` runs on the CPU), e.g. with ``--batching --adaptive
 --max-queue 6``, ``--int8`` (static int8 convolutions in the diffusion
-UNets, calibrated at startup) or ``--img-size 1024``.
+UNets, calibrated at startup), ``--img-size 1024``, or ``--dp`` / ``--tp``
+(data- and tensor-parallel serving over the local cards; on one card both
+are no-ops, as in the JAX server).
 """
 
 from __future__ import annotations
@@ -154,6 +156,11 @@ def config_from_args(argv=None):
     ap.add_argument("--int8", action="store_true",
                     help="int8 convolutions in the diffusion UNets, their scales "
                          "calibrated at startup (not exact)")
+    ap.add_argument("--dp", action="store_true",
+                    help="data-parallel serving: batch rows split over the local cards")
+    ap.add_argument("--tp", action="store_true",
+                    help="tensor-parallel serving: large conv kernels split over the local "
+                         "cards (output channels)")
     ap.add_argument("--fused", action="store_true",
                     help="all four paths of a request in one fused function, "
                          "sharing the hybrid's backends where their weights are the same")
@@ -182,6 +189,8 @@ def config_from_args(argv=None):
         batching=args.batching,
         fused_request=args.fused or None,
         batch_buckets=tuple(int(b) for b in args.buckets.split(",")) if args.buckets else "auto",
+        data_parallel=args.dp,
+        tensor_parallel=args.tp,
         adaptive_turbo=args.adaptive,
         adaptive_queue_depth=args.queue_depth,
         max_queue_depth=args.max_queue,
