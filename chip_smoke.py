@@ -11,9 +11,10 @@ NAFNet forward and one training step of each model; then serves with int8
 convolutions (``--int8``) and at the 1024² operating point through the
 server, runs the MODEL2_NAFNET variant, runs the xraybench-v1 quality
 benchmark (train, score, variants, turbo gate, seed study) at serve widths,
-trains with rematerialisation and data parallel over two processes, and
+trains with rematerialisation and data parallel over two processes,
 serves tensor- and data-parallel (the engine's ``--tp`` / ``--dp``) on the
-one card.
+one card, trains tensor parallel (tp 2, and dp 2 x tp 2) and serves int8
+under tp.
 
     python3 chip_smoke.py [--report FILE] [--naf-only]
 
@@ -175,8 +176,22 @@ Phases (any failure exits non-zero, and no result line is printed):
    and 240 ln2d launches, and a 2-row batch against each image served alone
    (``DP_VS_ONE_BOUND``); (c) the default engine (bf16 UNet evals) at tp 2
    against unsharded (``TP_BF16_BOUND`` on the rollout paths), its conv
-   slices in bf16; (d) the server's ``--int8 --tp`` refused, naming ROADMAP.md
-   queue 1 item 15b part 2.
+   slices in bf16;
+18. tensor-parallel training and int8 under tp on the one card, 512², TF32
+   off, seeded weights, ranks under ``python -m torch.distributed.run``
+   (this script's ``--dp-rank`` mode; gloo, the ranks share the card): (b)
+   the recipes CLI at ``--mesh 2,1,2`` (4 ranks), SERVE_NAFNET at batch 2
+   for 2 steps, and (a) at ``--mesh 1,1,2`` (2 ranks), SERVE_DIFFUSION at
+   batch 1 for 3 steps, each against the same CLI in this process: every
+   rank's launches a step (60 ln2d; 6/6/6 flash) and split count (the JAX
+   trainer's, ``TP2_TRAIN_SHARDED``), equal losses on every rank, losses and
+   ``.pth`` weights to phase 16's ``DP_*`` bounds, the ``.pth`` in the
+   single-process layout; (b)'s ``.pth`` resumed in this process and at
+   tp 2, each restored state equal to its file; (c) the server's ``--int8
+   --tp`` (static int8) at tp 2 against the unsharded static-int8 engine on
+   the same scales, fp32 evals, fused and turbo on: ``n_tp_sharded``, 48
+   flash forward and 120 ln2d launches a request, every path's, the fused
+   and the turbo functions' outputs to ``INT8_TP_BOUND``.
 Where ``torch.profiler`` records no device kernel three times running, it
 is off for the rest of the run and device times are taken by CUDA events
 behind a sleep kernel instead (``device_ms_events``). A profile that holds
@@ -188,7 +203,8 @@ The second-to-last line is the kernels JSON (each flash entry with an
 ``fp32`` object and the times of every timed shape), the last
 {"ok": true, ...}.
 
-``--dp-rank JOB`` is phase 16b's rank mode (run by torchrun, not by hand).
+``--dp-rank JOB`` is phase 16b's and 18's rank mode (run by torchrun, not by
+hand).
 ``--naf-only`` runs phases 1, 2 (ln2d and naf_ffn), 6 and 7 (with
 phase 7's profile) and prints the kernels line without a result line: an
 A/B of the NAFNet kernels, each tree's own package beside this script.
@@ -256,6 +272,7 @@ from midd_tpu_torch.ops import naf_ffn as ffn
 from midd_tpu_torch.ops import qconv
 from midd_tpu_torch.ops.naf_fast import nafnet_apply_fused
 from midd_tpu_torch.parallel import ColumnParallel
+from midd_tpu_torch.serve import engine as engine_module
 from midd_tpu_torch.serve import server
 from midd_tpu_torch.serve.engine import MODEL_NAMES, EngineConfig, InferenceEngine, calibration_batches
 from midd_tpu_torch.serve.server import make_server
@@ -555,6 +572,21 @@ TP_BF16_BOUND = 5e-2
 # dp 2 on one card: each replica runs its row at batch 1 on its own thread,
 # the unsharded engine's shapes, so the same kernels
 DP_VS_ONE_BOUND = 1e-6
+# Tensor-parallel training on the one card (phase 18a, 18b), 512², fp32
+# with TF32 off: the recipes CLI at --mesh 1,1,2 (diffusion) and 2,1,2
+# (NAFNet), ranks under torchrun over gloo, against the same CLI in one
+# process, held to phase 16's bounds (DP_*). The split counts are the JAX
+# trainer's ``count_tp_sharded`` at tp 2 (computed with JAX by
+# tests/test_torch_tp_train.py).
+TP_MODELS = ("nafnet", "diffusion")
+TP_MESH = {"nafnet": "2,1,2", "diffusion": "1,1,2"}
+TP_BATCH = {"nafnet": 2, "diffusion": 1}
+TP_STEPS = {"nafnet": 2, "diffusion": 3}
+TP_PAIRS = {m: TP_STEPS[m] * TP_BATCH[m] for m in TP_MODELS}
+TP2_TRAIN_SHARDED = {"nafnet": 85, "diffusion": 48}
+# int8 under tp 2 (phase 18c) against the unsharded int8 engine on the same
+# calibrated scales: each slice computes its rows' exact int32 products
+INT8_TP_BOUND = 1e-4
 
 
 def phase(name: str) -> None:
@@ -1320,11 +1352,13 @@ def write_pairs(root: str, n: int, size: int):
 def trainer_probe():
     """While the block runs, every Trainer step is timed and counted, every
     validation counted, and every resume checked against its file
-    (``restored_matches``). Yields the record."""
-    rec = {"steps": [], "vals": [], "resumed": []}
+    (``restored_matches``), and the trainer's tp split count kept
+    (``n_sharded``, 0 unsplit). Yields the record."""
+    rec = {"steps": [], "vals": [], "resumed": [], "n_sharded": 0}
     orig_step, orig_validate, orig_resume = Trainer.train_step, Trainer.validate, Trainer.resume
 
     def timed_step(self, batch):
+        rec["n_sharded"] = 0 if self.shards is None else self.shards.n_sharded
         before, t0 = counts(), time.perf_counter()
         loss = orig_step(self, batch)  # returns a host float: the step has finished
         rec["steps"].append({"ms": (time.perf_counter() - t0) * 1e3, "loss": loss, "launches": since(before)})
@@ -1350,11 +1384,12 @@ def trainer_probe():
 def restored_matches(trainer, path: str) -> bool:
     """Whether ``trainer`` holds exactly the state that ``path`` saved:
     weights and buffers, AdamW's state, the next epoch, best metrics and
-    histories."""
+    histories (in the single-process layout: at tp > 1 gathered, so every
+    rank of the mesh calls it)."""
     ckpt = torch.load(path, map_location="cpu", weights_only=True)
     st = trainer.state
-    model = st.model.state_dict()
-    opt, want = st.optimizer.state_dict(), ckpt["optimizer_state_dict"]
+    model, opt = trainer.state_dicts()
+    want = ckpt["optimizer_state_dict"]
     return bool(model.keys() == ckpt["model_state_dict"].keys()
                 and all(torch.equal(v.cpu(), ckpt["model_state_dict"][k]) for k, v in model.items())
                 and opt["param_groups"] == want["param_groups"] and opt["state"].keys() == want["state"].keys()
@@ -1391,7 +1426,7 @@ def recipe_run(cwd: str, argv: list) -> tuple:
         "step_ms_median_after_first": statistics.median(step_ms[1:]) if len(step_ms) > 1 else None,
         "launches_per_step": [st["launches"] for st in rec["steps"]], "validation_launches": rec["vals"],
         "resumed": rec["resumed"], "launches": launched, "wall_s": wall_s, "peak_memory_gib": peak_gib,
-        "history": state.history,
+        "history": state.history, "n_sharded": rec["n_sharded"],
     }, state
 
 
@@ -3149,7 +3184,8 @@ def remat_slice(report: dict, smi: str) -> dict:
 
 
 def dp_rank_main(job_path: str) -> int:
-    """One rank of phase 16b's torchrun launch (``--dp-rank JOB``): each run
+    """One rank of phase 16b's and 18's torchrun launches (``--dp-rank
+    JOB``): each run
     of the job through ``recipes.main`` in its directory, with TF32 off,
     under ``trainer_probe``; writes ``JOB.rank<RANK>.json``."""
     import torch.distributed as dist
@@ -3168,16 +3204,16 @@ def dp_rank_main(job_path: str) -> int:
     return 0
 
 
-def torchrun(job: dict, tmp: str) -> tuple:
-    """Run ``job`` in two ranks on the one card: ``python -m
-    torch.distributed.run --standalone --nproc_per_node 2`` of this script's
-    ``--dp-rank`` mode, bounded by DP_TIMEOUT_S (on expiry the whole process
-    group is killed and the phase fails). Returns both ranks' records and
-    the launch's wall."""
-    path = os.path.join(tmp, "dp_job.json")
+def torchrun(job: dict, tmp: str, nproc: int = 2, name: str = "dp_job") -> tuple:
+    """Run ``job`` in ``nproc`` ranks on the one card: ``python -m
+    torch.distributed.run --standalone --nproc_per_node NPROC`` of this
+    script's ``--dp-rank`` mode, bounded by DP_TIMEOUT_S (on expiry the
+    whole process group is killed and the phase fails). Returns every
+    rank's record and the launch's wall."""
+    path = os.path.join(tmp, f"{name}.json")
     with open(path, "w") as f:
         json.dump(job, f)
-    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node", "2",
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node", str(nproc),
            os.path.abspath(__file__), "--dp-rank", path]
     t0 = time.perf_counter()
     proc = subprocess.Popen(cmd, cwd=tmp, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
@@ -3187,13 +3223,13 @@ def torchrun(job: dict, tmp: str) -> tuple:
     except subprocess.TimeoutExpired:
         os.killpg(proc.pid, signal.SIGKILL)
         out, _ = proc.communicate()
-        raise AssertionError(f"dp ranks did not finish in {DP_TIMEOUT_S} s:\n{out[-6000:]}")
+        raise AssertionError(f"{nproc} ranks did not finish in {DP_TIMEOUT_S} s:\n{out[-6000:]}")
     wall_s = time.perf_counter() - t0
     print("\n".join(line for line in out.splitlines() if "init_distributed" in line or "epoch" in line), flush=True)
     if proc.returncode != 0:
         raise AssertionError(f"torchrun exited {proc.returncode}:\n{out[-6000:]}")
     ranks = []
-    for r in range(2):
+    for r in range(nproc):
         with open(f"{path}.rank{r}.json") as f:
             ranks.append(json.load(f))
     return ranks, wall_s
@@ -3296,9 +3332,9 @@ def parallel_serving_slice(report: dict, smi: str) -> dict:
     engine's; (b) dp 2 with batching, buckets (1, 2) -> (2,): 3 requests
     through the server, one 2-row batch each (96 flash, 240 ln2d), then a
     batch of two images against each served alone by the unsharded engine;
-    (c) the default engine (bf16 UNet evals) at tp 2 against unsharded;
-    (d) the server's ``--int8 --tp`` refused. Returns the launches of (a)'s
-    and (b)'s requests."""
+    (c) the default engine (bf16 UNet evals) at tp 2 against unsharded.
+    (Int8 under tp is phase 18c.) Returns the launches of (a)'s and (b)'s
+    requests."""
     set_tf32(False)
     fp32 = dict(diffusion_eval_bf16=False, hybrid_rollout_bf16=False, warmup=False)
     pngs = [xray_png(512, 512, seed=5000 + i) for i in range(PARALLEL_REQUESTS)]
@@ -3389,16 +3425,7 @@ def parallel_serving_slice(report: dict, smi: str) -> dict:
     finally:
         default.close()
     print(json.dumps({"parallel_tp_bf16": res["tp_bf16"]}), flush=True)
-
-    _, cfg = server.config_from_args(["--int8", "--tp"])
-    try:
-        InferenceEngine(cfg)
-    except NotImplementedError as e:
-        res["int8_tp_refused"] = str(e)
-    else:
-        raise AssertionError("--int8 --tp built an engine")
     report["parallel_serving"] = res
-    print(json.dumps({"int8_tp_refused": res["int8_tp_refused"]}), flush=True)
 
     tp_res, dp_res, bf = res["tp"], res["dp"], res["tp_bf16"]
     assert tp_res["mesh_shape"] == {"dp": 1, "sp": 1, "tp": 2}, tp_res["mesh_shape"]
@@ -3414,7 +3441,157 @@ def parallel_serving_slice(report: dict, smi: str) -> dict:
     assert max(dp_res["max_abs_diff_vs_unsharded"].values()) <= DP_VS_ONE_BOUND, dp_res
     assert bf["unet_eval_shard_dtypes"] == ["torch.bfloat16"], bf
     assert all(bf["max_abs_diff"][n] <= bf["bound"][n] for n in MODEL_NAMES), bf
-    assert "ROADMAP.md queue 1 item 15b part 2" in res["int8_tp_refused"], res["int8_tp_refused"]
+    return launched
+
+
+def tp_train_slice(report: dict, smi: str) -> dict:
+    """Phase 18a and 18b: training at tp > 1 through the recipes CLI, ranks
+    launched by torchrun on the one card (gloo), 512², TF32 off, seeded
+    weights. (b) first: ``--mesh 2,1,2`` (4 ranks), SERVE_NAFNET at batch 2
+    for 2 steps (60 ln2d launches a step on every rank), against the same
+    CLI in this process; its ``.pth`` (the single-process layout) resumed
+    in this process for one more epoch. Then (a): ``--mesh 1,1,2`` (2
+    ranks), SERVE_DIFFUSION at batch 1 for 3 steps (6 flash forward, 6 dq
+    and 6 dk/dv launches a step on every rank, as unsharded; the split count
+    ``TP2_TRAIN_SHARDED``), against the same CLI in this process; in the
+    same launch, (b)'s ``.pth`` resumed at tp 2 for one more epoch. Every
+    resume checked against its file (``restored_matches``). Ranks that
+    share one card are a correctness run, not a speed result. Returns each
+    tp run's launches, all ranks summed."""
+    set_tf32(False)
+    res = {"card": smi, "note": "tp ranks share one card over gloo: a correctness run, not a speed result"}
+    with tempfile.TemporaryDirectory() as tmp:
+        data = {m: write_pairs(os.path.join(tmp, "data", m), TP_PAIRS[m], TRAIN_SIZE) for m in TP_MODELS}
+
+        def argv(m, epochs=1):
+            return ["--model", m, "--clear-dir", data[m][0], "--noisy-dirs", data[m][1],
+                    "--img-size", str(TRAIN_SIZE), "--epochs", str(epochs), "--max-samples", str(TP_PAIRS[m]),
+                    "--batch-size", str(TP_BATCH[m])]
+
+        def pth(kind, m):
+            return os.path.join(tmp, kind, m, "checkpoints", f"{m}.pth")
+
+        single = {m: recipe_run(os.path.join(tmp, "one", m), argv(m))[0] for m in TP_MODELS}
+        b_job = {"runs": [{"name": "nafnet", "cwd": os.path.join(tmp, "tp", "nafnet"),
+                           "argv": argv("nafnet") + ["--mesh", TP_MESH["nafnet"]]}]}
+        b_ranks, b_s = torchrun(b_job, tmp, nproc=4, name="tp_nafnet_job")
+        resumed_one, _ = recipe_run(os.path.join(tmp, "one_resume", "nafnet"),
+                                    argv("nafnet", epochs=2) + ["--resume", pth("tp", "nafnet")])
+        a_job = {"runs": [{"name": "diffusion", "cwd": os.path.join(tmp, "tp", "diffusion"),
+                           "argv": argv("diffusion") + ["--mesh", TP_MESH["diffusion"]]},
+                          {"name": "resume_nafnet_at_tp2", "cwd": os.path.join(tmp, "tp_resume", "nafnet"),
+                           "argv": argv("nafnet", epochs=2) + ["--mesh", "1,1,2", "--resume",
+                                                                pth("tp", "nafnet")]}]}
+        a_ranks, a_s = torchrun(a_job, tmp, nproc=2, name="tp_diffusion_job")
+        fresh = {"diffusion": UNetDiffusion(config.SERVE_DIFFUSION), "nafnet": EnhancedNAFNet(config.SERVE_NAFNET)}
+        for m, ranks, launch_s in (("nafnet", b_ranks, b_s), ("diffusion", a_ranks, a_s)):
+            runs = [r["runs"][0] for r in ranks]
+            w0 = init_weights(fresh[m], torch.Generator().manual_seed(42)).state_dict()
+            tp_pth = torch.load(pth("tp", m), map_location="cpu", weights_only=True)
+            one_pth = torch.load(pth("one", m), map_location="cpu", weights_only=True)
+            res[m] = {
+                "mesh": TP_MESH[m], "launch_s": launch_s, "backend": [r["backend"] for r in ranks],
+                "world": [r["world"] for r in ranks], "batch": TP_BATCH[m], "steps": [r["steps"] for r in runs],
+                "devices": [r["device"] for r in runs], "n_sharded": [r["n_sharded"] for r in runs],
+                "losses_tp": [r["losses"] for r in runs], "losses_one": single[m]["losses"],
+                "loss_max_rel_diff": max(abs(a - b) / abs(b) for a, b in zip(runs[0]["losses"],
+                                                                            single[m]["losses"])),
+                "step_ms_tp": [r["step_ms"] for r in runs], "step_ms_one": single[m]["step_ms"],
+                "launches_per_step_per_rank": [r["launches_per_step"] for r in runs],
+                "launches_per_rank": [r["launches"] for r in runs],
+                "peak_gib_per_rank": [r["peak_memory_gib"] for r in runs],
+                "peak_gib_one": single[m]["peak_memory_gib"],
+                "pth_keys_unsharded": list(tp_pth["model_state_dict"]) == list(w0),
+                **_weights_compare(tp_pth["model_state_dict"], one_pth["model_state_dict"], w0),
+            }
+            print(json.dumps({f"tp_train_{m}": res[m]}), flush=True)
+        res["resume"] = {"dp2tp2_in_one": resumed_one["resumed"],
+                         "dp2tp2_in_one_epochs": len(resumed_one["history"]["losses"]),
+                         "dp2tp2_at_tp2": [r["runs"][1]["resumed"] for r in a_ranks],
+                         "dp2tp2_at_tp2_epochs": [len(r["runs"][1]["history"]["losses"]) for r in a_ranks]}
+    report["tp_train"] = res
+    print(json.dumps({"tp_train_resume": res["resume"]}), flush=True)
+    for m, nproc in (("nafnet", 4), ("diffusion", 2)):
+        r = res[m]
+        assert r["backend"] == ["gloo"] * nproc and r["world"] == [nproc] * nproc, (m, r)
+        assert r["steps"] == [TP_STEPS[m]] * nproc and r["devices"] == ["cuda:0"] * nproc, (m, r)
+        assert r["n_sharded"] == [TP2_TRAIN_SHARDED[m]] * nproc, (m, r["n_sharded"])
+        assert all(losses == r["losses_tp"][0] for losses in r["losses_tp"]), (m, r["losses_tp"])
+        assert all(n == DP_PER_STEP[m] for rank in r["launches_per_step_per_rank"] for n in rank), m
+        assert r["loss_max_rel_diff"] <= DP_LOSS_REL and r["update_rel_l2"] <= DP_UPDATE_REL_L2[m], (m, r)
+        assert r["weight_max_abs_diff"] <= 2 * TP_STEPS[m] * recipes.default_train_config(m).lr, (m, r)
+        assert r["pth_keys_unsharded"], m
+    rs = res["resume"]
+    assert rs["dp2tp2_in_one"] == [True] and rs["dp2tp2_in_one_epochs"] == 2, rs
+    assert rs["dp2tp2_at_tp2"] == [[True], [True]] and rs["dp2tp2_at_tp2_epochs"] == [2, 2], rs
+    return {f"train_tp_{m}": {k: sum(r[k] for r in res[m]["launches_per_rank"]) for k in NO_LAUNCHES}
+            for m in TP_MODELS}
+
+
+def int8_tp_slice(report: dict, smi: str) -> dict:
+    """Phase 18c: the server's ``--int8 --tp`` configuration (static int8)
+    at tp 2 on the one card (``devices=["cuda:0"] * 2``) against the
+    unsharded static-int8 engine, 512², fp32 evals, TF32 off, fused requests
+    and the turbo tier on, both serving the scales that the unsharded
+    engine calibrated (calibrated whole, then split): ``n_tp_sharded``, 3
+    requests through ``process_all`` (48 flash forward and 120 ln2d
+    launches each), each path's, the fused and the turbo functions' max abs
+    difference (``INT8_TP_BOUND``). Returns the requests' launches."""
+    set_tf32(False)
+    fp32 = dict(diffusion_eval_bf16=False, hybrid_rollout_bf16=False, warmup=False, fused_request=True,
+                adaptive_turbo=True)
+    _, cfg = server.config_from_args(["--int8", "--tp"])
+    assert cfg.quantize_int8 == "static" and cfg.tensor_parallel, cfg
+    t = time.time()
+    plain = InferenceEngine(dataclasses.replace(cfg, tensor_parallel=False, **fp32))
+    res = {"card": smi, "note": "the tp slices share one card: a correctness run, not a speed result",
+           "unsharded_build_s": time.time() - t, "calibration_ms": plain.calibration_ms}
+    try:
+        calibrate, scales = engine_module.calibrate_unet_rollout, iter(list(plain.int8_scales.values()))
+        engine_module.calibrate_unet_rollout = lambda *args: next(scales)
+        try:
+            tp = InferenceEngine(dataclasses.replace(cfg, **fp32), devices=["cuda:0"] * 2)
+        finally:
+            engine_module.calibrate_unet_rollout = calibrate
+        try:
+            slices = [s for key in ("unet_eval", "hyb_unet_eval") for m in tp.replicas[0][key].modules()
+                      if isinstance(m, ColumnParallel) for s in m.shards if isinstance(s, qconv.QuantConv2d)]
+            res.update({"mesh_shape": tp.mesh_shape, "n_tp_sharded": tp.n_tp_sharded, "int8_slices": len(slices),
+                        "slices_static_on_their_device": all(
+                            s.mode == "static" and s.act_absmax.device == s.weight.device for s in slices)})
+            pngs = [xray_png(512, 512, seed=6000 + i) for i in range(PARALLEL_REQUESTS)]
+            zero_counts()
+            per_request = []
+            for i, png in enumerate(pngs):
+                before = counts()
+                out = tp.process_all(_png_array(png), (512, 512))
+                per_request.append(since(before))
+                assert all(out[n] is not None for n in MODEL_NAMES), f"int8 tp request {i}: a path answered null"
+            launched = counts()
+            x = _png_array(pngs[0])
+            fused_got, fused_want = tp.fused(x), plain.fused(x)
+            res.update({
+                "launches_per_request": per_request,
+                "max_abs_diff": {n: float(np.abs(tp.fns[n](x) - plain.fns[n](x)).max()) for n in MODEL_NAMES},
+                "fused_max_abs_diff": {n: float(np.abs(fused_got[n] - fused_want[n]).max()) for n in MODEL_NAMES},
+                "turbo_max_abs_diff": {n: float(np.abs(tp.turbo_fns[n](x) - plain.turbo_fns[n](x)).max())
+                                       for n in tp.turbo_fns},
+                "bound": INT8_TP_BOUND,
+                "paths": {e: {n: {k: p[k] for k in ("wall_p50_ms", "device_ms", "idle_share")}
+                              for n, p in path_times(eng, x, ("diffusion", "hybrid")).items()}
+                          for e, eng in (("int8_tp2", tp), ("int8_unsharded", plain))},
+            })
+        finally:
+            tp.close()
+    finally:
+        plain.close()
+    report["int8_tp"] = res
+    print(json.dumps({"int8_tp": res}), flush=True)
+    assert res["mesh_shape"] == {"dp": 1, "sp": 1, "tp": 2} and res["n_tp_sharded"] == TP2_SERVE_SHARDED, res
+    assert res["int8_slices"] > 0 and res["slices_static_on_their_device"], res
+    assert all(r == PER_REQUEST for r in res["launches_per_request"]), res["launches_per_request"]
+    for key in ("max_abs_diff", "fused_max_abs_diff", "turbo_max_abs_diff"):
+        assert max(res[key].values()) <= INT8_TP_BOUND, (key, res[key])
     return launched
 
 
@@ -3428,7 +3605,7 @@ def main(argv=None) -> int:
                     help="run only the device and build phases and phases 6 and 7 (an A/B of the "
                          "NAFNet kernels); prints no result line")
     ap.add_argument("--dp-rank", default=None, metavar="JOB",
-                    help="(phase 16b's ranks, under torchrun) run JOB's recipes; prints no result line")
+                    help="(phase 16b's and 18's ranks, under torchrun) run JOB's recipes; prints no result line")
     args = ap.parse_args(argv)
     t_all = time.time()
     phase("device")
@@ -3573,6 +3750,15 @@ def main(argv=None) -> int:
     paths.update(parallel_serving_slice(report, smi))
     report["phase_17_s"] = time.time() - t
     print(json.dumps({"phase_17_s": report["phase_17_s"]}), flush=True)
+
+    phase("slice: tensor-parallel training (dp 2 x tp 2 and tp 2) under torchrun, and int8 under tp, at 512²")
+    t = time.time()
+    torch.cuda.empty_cache()  # the ranks share the card
+    paths.update(tp_train_slice(report, smi))
+    torch.cuda.empty_cache()
+    paths["serve_int8_tp"] = int8_tp_slice(report, smi)
+    report["phase_18_s"] = time.time() - t
+    print(json.dumps({"phase_18_s": report["phase_18_s"]}), flush=True)
 
     for entry in entries:
         by_path = {p: launched[entry["name"]] for p, launched in paths.items()}

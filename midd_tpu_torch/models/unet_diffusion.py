@@ -39,7 +39,7 @@ from midd_tpu_torch.models.blocks import (
     sinusoidal_embedding,
 )
 from midd_tpu_torch.ops.image import resize_bilinear
-from midd_tpu_torch.parallel.tp import ColumnParallel
+from midd_tpu_torch.parallel.tp import SplitLayer
 
 # pool tap m of the 2x2 mean picks transposed-conv taps {2m+1, 2m+2}
 _UPDOWN_A = ((1.0, 0.0, 0.0, 0.0), (0.0, 1.0, 1.0, 0.0), (0.0, 0.0, 0.0, 1.0))
@@ -50,13 +50,17 @@ def fused_updown(up: ConvTransposeTorch, x: torch.Tensor) -> torch.Tensor:
     conv: with k the kernel in correlation form (spatially flipped), the
     fused kernel is 0.25 * A k A^T per (in, out) slice. Derived in fp32, then
     cast to the input dtype. A tensor-parallel ``up`` computes it for each of
-    its output-channel slices."""
-    if isinstance(up, ColumnParallel):
+    its output-channel slices (differentiably in a slice's weight, under
+    training at tp > 1). The convolution reads ``x`` in NCHW: an int8 UNet
+    hands it a channels-last activation, and cuDNN's channels-last kernels
+    sum a slice of the output channels in another order than the whole
+    convolution (~3e-4 apart on an H100), which int8 rollouts amplify."""
+    if isinstance(up, SplitLayer):
         return up.map(fused_updown, x)
     a = torch.tensor(_UPDOWN_A, dtype=up.weight.dtype, device=up.weight.device)
     k = up.weight.flip(-1, -2)  # (I, O, 4, 4), correlation form
     w2 = 0.25 * torch.einsum("ap,bq,iopq->oiab", a, a, k)
-    return F.conv2d(x, w2.to(x.dtype), up.bias.to(x.dtype), padding=1)
+    return F.conv2d(x.contiguous(), w2.to(x.dtype), up.bias.to(x.dtype), padding=1)
 
 
 def _build_specs(cfg: DiffusionUNetConfig) -> Tuple[List, List, int]:

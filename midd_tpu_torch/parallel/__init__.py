@@ -1,7 +1,7 @@
 """Parallelism of the port (counterpart of ``midd_tpu/parallel``):
-data-parallel training over ``torch.distributed``, one process per rank,
-and the tensor-parallel layout of the serving engine, in one process over
-local devices. ``image_sharding`` (sp) is not exported: it raises until
+data- and tensor-parallel training over ``torch.distributed``, one process
+per rank, and the tensor-parallel layout of the serving engine, in one
+process over local devices. ``image_sharding`` (sp) is not exported: it raises until
 ROADMAP.md queue 1 item 15c ports it. ``host_local_batch_to_global`` has no
 counterpart (``multihost``'s docstring says why)."""
 
@@ -19,5 +19,11 @@ from midd_tpu_torch.parallel.multihost import (  # noqa: F401
     mesh_fabric_report,
     process_batch_slice,
 )
-from midd_tpu_torch.parallel.tp import ColumnParallel, gather_shards, shard_params  # noqa: F401
+from midd_tpu_torch.parallel.tp import (  # noqa: F401
+    ColumnParallel,
+    RankColumnParallel,
+    gather_shards,
+    shard_over_group,
+    shard_params,
+)
 from midd_tpu_torch.parallel.train_dp import make_sharded_train_step  # noqa: F401

@@ -11,11 +11,11 @@ Axes, as in the JAX package: dp shards the batch; sp the image rows; tp the
 convolutions' output channels. Mesh policy: tp is the largest of (4, 2, 1)
 dividing the device count (over sp) when it is not given; dp gets the rest.
 
-Ported: dp (the batch rows that one dp rank holds are ``batch_sharding``'s)
-and tp's layout rule (``param_shardings``, ``count_tp_sharded``; the engine
-applies it with ``parallel/tp.py``). Not ported yet: sp (``image_sharding``,
-ROADMAP.md queue 1 item 15c) and training at tp > 1 (item 15b part 2):
-those raise.
+Ported: dp (the batch rows that one dp rank holds are ``batch_sharding``'s,
+replicated over tp) and tp's layout rule (``param_shardings``,
+``count_tp_sharded``), which ``parallel/tp.py`` applies: over local devices
+in the engine, over the mesh's tp group in the trainer. Not ported yet: sp
+(``image_sharding``, ROADMAP.md queue 1 item 15c): it raises.
 """
 
 from __future__ import annotations
@@ -28,7 +28,6 @@ import torch.distributed as dist
 import torch.nn as nn
 
 AXES = ("dp", "sp", "tp")
-TP_MESSAGE = "tensor-parallel training (tp > 1) is not ported yet: ROADMAP.md queue 1 item 15b part 2"
 SP_MESSAGE = "spatial parallelism (sp > 1) is not ported yet: ROADMAP.md queue 1 item 15c"
 
 
@@ -133,11 +132,9 @@ def count_tp_sharded(shardings: Dict[str, Optional[int]]) -> int:
 
 
 def check_mesh_shape(mesh_shape: Sequence[int]) -> Tuple[int, int, int]:
-    """(dp, sp, tp) of a mesh shape the port can train on; sp > 1 and
-    tp > 1 raise, naming the ROADMAP item."""
+    """(dp, sp, tp) of a mesh shape the port can train on; sp > 1 raises,
+    naming the ROADMAP item."""
     dp, sp, tp = (int(x) for x in mesh_shape)
-    if tp > 1:
-        raise NotImplementedError(TP_MESSAGE)
     if sp > 1:
         raise NotImplementedError(SP_MESSAGE)
     if min(dp, sp, tp) < 1:

@@ -1,5 +1,6 @@
-"""The data-parallel training step of the port (counterpart of
-``midd_tpu/parallel/train_dp.py``).
+"""The data- and tensor-parallel training step of the port (counterpart of
+``midd_tpu/parallel/train_dp.py``, and of the JAX trainer's step over a
+(dp, 1, tp) mesh).
 
 The JAX package runs one program on a batch sharded over dp, and XLA
 inserts the gradient psum. The port runs one process per rank, each with a
@@ -21,7 +22,19 @@ across the mesh's dp group itself:
   by ``all_reduce_sum``, whose backward sums the gradients the same way, as
   XLA's partitioned reduction does.
 
-Meshes with sp > 1 or tp > 1 raise (ROADMAP.md queue 1 items 15b and 15c).
+At tp > 1 the model is split over the mesh's tp group
+(``parallel/tp.py::shard_over_group``): the ranks of a tp group hold the
+same rows, draw the same noise and compute the same loss, each with its
+slices of the split parameters. The dp reduction above runs over the dp
+group only (the ranks with the same tp coordinate hold the same slices).
+The gradients of the parameters that every tp rank holds whole are then
+averaged over the tp group, with the loss, in one more ``all_reduce``:
+they are equal in exact arithmetic, but a backward kernel that sums with
+atomics (the bilinear resize's on CUDA) leaves them a last bit apart, and
+the replicas would drift. The clip takes the norm of the whole, unsharded
+gradient, summing the slices' squares over the tp group
+(``trainer.global_norm``). Meshes with sp > 1 raise (ROADMAP.md queue 1
+item 15c).
 """
 
 from __future__ import annotations
@@ -59,13 +72,23 @@ def all_reduce_sum(x: torch.Tensor, group) -> torch.Tensor:
     return _AllReduceSum.apply(x, group)
 
 
+def _axis_group(mesh, axis: str):
+    if mesh is None:
+        return None
+    sizes = dict(zip(AXES, check_mesh_shape(mesh.mesh.shape)))
+    return mesh.get_group(axis) if sizes[axis] > 1 else None
+
+
 def dp_group(mesh):
     """The process group of the mesh's dp axis, or None where there is no
     mesh or dp is 1 (this process holds the whole batch)."""
-    if mesh is None:
-        return None
-    dp, _, _ = check_mesh_shape(mesh.mesh.shape)
-    return mesh.get_group(AXES[0]) if dp > 1 else None
+    return _axis_group(mesh, "dp")
+
+
+def tp_group(mesh):
+    """The process group of the mesh's tp axis, or None where there is no
+    mesh or tp is 1 (this process holds every parameter whole)."""
+    return _axis_group(mesh, "tp")
 
 
 def sync_batch_stats(model: nn.Module, group) -> None:
@@ -95,7 +118,7 @@ def average_gradients(loss: torch.Tensor, params: List[nn.Parameter], group) -> 
 
 
 def make_sharded_train_step(loss_fn: Callable, optimizer: torch.optim.Optimizer, model: nn.Module,
-                            mesh=None, grad_clip: float = 1.0) -> Callable:
+                            mesh=None, grad_clip: float = 1.0, shards=None) -> Callable:
     """``step(batch, draw, *args) -> loss``: one update of ``model`` from this
     rank's rows of the global batch, the same update on every rank of the
     mesh's dp group as the single-process step computes on the global batch.
@@ -106,12 +129,19 @@ def make_sharded_train_step(loss_fn: Callable, optimizer: torch.optim.Optimizer,
     every rank. The trained parameters are those of ``model`` that require
     a gradient. ``mesh=None`` or dp 1: the single-process step. Sets
     ``model``'s BatchNorm statistics to the global batch's
-    (``sync_batch_stats``)."""
+    (``sync_batch_stats``). ``shards``: the ``RankShards`` of a ``model``
+    split over the mesh's tp group, whose ``params()`` are the trained
+    ones."""
     from midd_tpu_torch.train.trainer import finite_update  # the trainer imports this module
 
     group = dp_group(mesh)
     sync_batch_stats(model, group)
-    params = [p for p in model.parameters() if p.requires_grad]
+    if shards is None:
+        params, sliced = [p for p in model.parameters() if p.requires_grad], None
+    else:
+        params, sliced = shards.params(), [d is not None for d in shards.param_dims()]
+    tp = tp_group(mesh)
+    whole = params if sliced is None else [p for p, s in zip(params, sliced) if not s]
 
     def step(batch, draw, *args) -> torch.Tensor:
         model.train()
@@ -119,7 +149,8 @@ def make_sharded_train_step(loss_fn: Callable, optimizer: torch.optim.Optimizer,
         loss, _ = loss_fn(model, batch, draw, *args)
         loss.backward()
         loss = average_gradients(loss.detach(), params, group)
-        finite_update(loss, params, optimizer, grad_clip)
+        loss = average_gradients(loss, whole, tp)
+        finite_update(loss, params, optimizer, grad_clip, sliced, tp)
         return loss
 
     return step

@@ -16,7 +16,10 @@ back per request. Per-request latency stays bounded by ``max_wait_ms``.
   ``max_queue_depth`` requests already wait (the server answers 503);
 - a fused function, when given, computes every model's output in one call;
   if it raises, the batch falls back to the per-model functions, and the
-  failure is logged and counted in ``stats["fused_failures"]``.
+  failure is logged (``fused_dispatch_failed``, the JAX engine's event) and
+  counted in ``stats["fused_failures"]``. A model that raises is logged as
+  ``model_failed``. (The JAX batcher logs neither: its functions' failures
+  surface in its engine.)
 
 The model functions take and return numpy arrays (B, H, W, C). This module
 holds no device state: the engine's functions run their work on its one
@@ -26,9 +29,7 @@ device thread, so the collector only hands each batch over.
 from __future__ import annotations
 
 import collections
-import json
 import queue
-import sys
 import threading
 import time
 from concurrent.futures import Future
@@ -36,14 +37,12 @@ from typing import Callable, Deque, Dict, Optional, Sequence
 
 import numpy as np
 
+from midd_tpu_torch.utils.logging import get_logger
+
+log = get_logger("batcher")
 
 class QueueFull(RuntimeError):
     """Raised by ``submit`` when bounded admission rejects a request."""
-
-
-def _log(event: str, **fields) -> None:
-    payload = {"ts": round(time.time(), 3), "component": "batcher", "event": event, **fields}
-    print(json.dumps(payload), file=sys.stderr, flush=True)
 
 
 class MicroBatcher:
@@ -157,14 +156,14 @@ class MicroBatcher:
             except Exception as e:  # noqa: BLE001  fall back to the per-model functions
                 with self._lock:
                     self._stats["fused_failures"] += 1
-                _log("fused_failed", error=repr(e))
+                log.log("fused_dispatch_failed", error=str(e))
         fns = {**self.fns, **self.turbo_fns} if turbo else self.fns
         outs: Dict[str, Optional[np.ndarray]] = {}
         for name, fn in fns.items():
             try:
                 outs[name] = fn(arr)
             except Exception as e:  # noqa: BLE001  per-model isolation
-                _log("model_failed", model=name, error=repr(e))
+                log.log("model_failed", model=name, error=str(e))
                 outs[name] = None
         return outs
 

@@ -42,9 +42,13 @@ output-channel slice on its tp device, and the slices are gathered onto the
 replica's first device, where everything else runs (``parallel/tp.py``).
 With one device, or neither flag, there is no mesh and nothing changes.
 
+int8 under ``tensor_parallel`` keeps the JAX engine's order: each UNet is
+calibrated whole, then split; a slice of a ``QuantConv2d`` keeps the
+layer's activation scale (on the slice's device) and computes its weight
+scales from its own output channels, which are the whole layer's.
+
 Left out, so asking for them fails: sp parallel serving (ROADMAP.md queue 1
-item 15c), int8 under ``tensor_parallel`` (item 15b part 2), AOT pinning and
-the persistent compilation cache (item 16).
+item 15c), AOT pinning and the persistent compilation cache (item 16).
 """
 
 from __future__ import annotations
@@ -52,9 +56,7 @@ from __future__ import annotations
 import collections
 import copy
 import dataclasses
-import json
 import os
-import sys
 import threading
 import time
 import zlib
@@ -82,14 +84,11 @@ from midd_tpu_torch.serve.batching import MicroBatcher
 from midd_tpu_torch.serve.codec import tensor_to_base64_png
 from midd_tpu_torch.train.data import NOISE_FNS
 from midd_tpu_torch.utils.checkpoint import orbax_message
+from midd_tpu_torch.utils.logging import get_logger
 
 MODEL_NAMES = ("diffusion", "nafnet", "expert", "hybrid")
 STUDIED_SCHEDULE = (0, 2, 6, 7)  # the gated refresh schedule of the 8-step rollout
-
-
-def _log(event: str, **fields: Any) -> None:
-    payload = {"ts": round(time.time(), 3), "component": "engine", "event": event, **fields}
-    print(json.dumps(payload), file=sys.stderr, flush=True)
+log = get_logger("engine")
 
 
 @dataclass
@@ -209,10 +208,6 @@ class InferenceEngine:
         if cfg.quantize_int8 not in (False, True, "dynamic", "static"):
             raise ValueError(
                 f"quantize_int8 must be False, True, 'dynamic' or 'static', got {cfg.quantize_int8!r}"
-            )
-        if cfg.quantize_int8 and cfg.tensor_parallel:
-            raise NotImplementedError(
-                "int8 convolutions under tensor_parallel are not ported yet: ROADMAP.md queue 1 item 15b part 2"
             )
         if cfg.use_flash_attention is None:
             cfg = dataclasses.replace(cfg, use_flash_attention=self.device.type == "cuda")
@@ -380,8 +375,8 @@ class InferenceEngine:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         self.calibration_ms[name] = (time.time() - t) * 1e3
-        _log("int8_calibration", model=name, latency_ms=round(self.calibration_ms[name], 2),
-             steps=steps, batches=len(batches))
+        log.latency("int8_calibration", self.calibration_ms[name] / 1e3, model=name, steps=steps,
+                    batches=len(batches))
 
     def _load_hybrid(self, router_cfg, fusion_cfg, naf_cfg, unet_cfg) -> Dict[str, nn.Module]:
         """Hybrid groups from one ``hybrid.pth`` whose state_dict carries
@@ -578,7 +573,8 @@ class InferenceEngine:
         # The models the paths run, laid out as the JAX engine lays out its
         # weights over the mesh: one replica of them a dp group, each with
         # the layers that the tp rule splits sharded over its tp devices
-        # (cast first, so that the slices hold the cast weights).
+        # (cast and int8-calibrated first, so that the slices hold the cast
+        # weights and the calibrated scales).
         models = {"unet_eval": unet_eval, "hyb_unet_eval": hyb_unet_eval, "naf": naf, "hyb_naf": hyb_naf,
                   "expert": expert, "hyb_expert": hyb_expert, "router": router, "fusion": fusion}
         replicas = [models]
@@ -646,7 +642,7 @@ class InferenceEngine:
             for name, fn in warm.items():
                 t = time.time()
                 fn(xw)
-                _log("warmup", model=name, latency_ms=round((time.time() - t) * 1e3, 2))
+                log.latency("warmup_compile", time.time() - t, model=name)
 
         for n in MODEL_NAMES:
             self.loaded[n] = True
@@ -714,7 +710,8 @@ class InferenceEngine:
     # -- request processing --------------------------------------------------
 
     def _run_all(self, x: np.ndarray) -> Dict[str, Optional[np.ndarray]]:
-        """The four paths on the device thread; a path that raises gives None."""
+        """The four paths on the device thread, each one's wall kept in
+        ``path_ms``; a path that raises gives None."""
         outs: Dict[str, Optional[np.ndarray]] = {}
         with torch.inference_mode():
             xt = self._to_device(x)
@@ -722,11 +719,9 @@ class InferenceEngine:
                 try:
                     t0 = time.time()
                     outs[name] = self._to_host(self._paths[name](xt))
-                    ms = (time.time() - t0) * 1e3
-                    self.path_ms[name].append(ms)
-                    _log("request", model=name, latency_ms=round(ms, 2))
+                    self.path_ms[name].append((time.time() - t0) * 1e3)
                 except Exception as e:  # noqa: BLE001  per-path isolation
-                    _log("model_failed", model=name, error=repr(e))
+                    log.log("model_failed", model=name, error=str(e))
                     outs[name] = None
         return outs
 
@@ -739,25 +734,33 @@ class InferenceEngine:
             except Exception as e:  # noqa: BLE001  fall back to the per-path functions
                 with self._fused_lock:
                     self._fused_failures += 1
-                _log("fused_failed", error=repr(e))
+                log.log("fused_dispatch_failed", error=str(e))
         return self._on_device_thread(self._run_all, x), "per_path"
 
     def process_all(self, x: np.ndarray, original_size) -> Dict[str, Optional[str]]:
         """All four paths with per-path failure isolation (run.py:85-101): a
         path that fails answers None and the others still answer. The PNG
         encode runs on the calling thread, beside the next request's or
-        batch's device work."""
+        batch's device work. The log events are the JAX engine's: ``encode``
+        for each path encoded (fused or per path; a batched request logs
+        none), then ``request_all``."""
         t_start = time.time()
         outs, mode = self._outputs(x)
         results: Dict[str, Optional[str]] = {}
         for name in MODEL_NAMES:
             out = outs.get(name)
-            try:
-                results[name] = None if out is None else tensor_to_base64_png(out, original_size)
-            except Exception as e:  # noqa: BLE001  per-path isolation
-                _log("model_failed", model=name, error=repr(e))
+            if out is None:
                 results[name] = None
-        _log("request_all", mode=mode, latency_ms=round((time.time() - t_start) * 1e3, 2))
+                continue
+            try:
+                t0 = time.time()
+                results[name] = tensor_to_base64_png(out, original_size)
+                if mode != "batched":
+                    log.latency("encode", time.time() - t0, model=name)
+            except Exception as e:  # noqa: BLE001  per-path isolation
+                log.log("model_failed", model=name, error=str(e))
+                results[name] = None
+        log.latency("request_all", time.time() - t_start, mode="per_path" if mode == "fused" else mode)
         return results
 
     def close(self) -> None:

@@ -31,11 +31,15 @@ weights; the port's serving engine reads each of them.
 CLI:
     python -m midd_tpu_torch.train.recipes --model diffusion|nafnet|expert|hybrid|cddpm|tiny \\
         --clear-dir data/clean --noisy-dirs data/noisy [--device cuda|cpu] \\
-        [--nafnet-ckpt N.pth --diffusion-ckpt D.pth] [--mesh DP,1,1] ...
+        [--nafnet-ckpt N.pth --diffusion-ckpt D.pth] [--mesh DP,1,TP] ...
 
-Data parallel over two ranks (one process each; gloo on the CPU, or when
-the ranks share a card; NCCL when each has its own):
+Data parallel over two ranks, or dp 2 x tp 2 over four (one process a rank;
+gloo on the CPU, or when the ranks share a card; NCCL when each has its
+own). At tp > 1 each rank holds its slice of the convolutions that the JAX
+rule splits (``TrainConfig.tp_min_size``), and the ``.pth`` is written in
+the single-process layout:
     torchrun --nproc_per_node 2 -m midd_tpu_torch.train.recipes --mesh 2,1,1 ...
+    torchrun --nproc_per_node 4 -m midd_tpu_torch.train.recipes --mesh 2,1,2 ...
 """
 
 from __future__ import annotations
@@ -386,8 +390,11 @@ def main(argv: Optional[Sequence[str]] = None) -> TrainerState:
                     help="tiny = smoke-test widths")
     ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
     ap.add_argument("--mesh", default=None, metavar="DP,SP,TP",
-                    help="training mesh, e.g. '2,1,1' for 2-way data parallelism over 2 ranks "
-                         "started by torchrun (sp and tp > 1 are not ported yet)")
+                    help="multi-chip training mesh, e.g. '4,1,1' for 4-way "
+                         "data parallelism or '2,1,2' for dp2 x tp2; batches "
+                         "shard over dp, image rows over sp, large kernels "
+                         "over tp (one process a rank, started by torchrun; "
+                         "sp > 1 is not ported yet)")
     args = ap.parse_args(argv)
     if args.model == "tiny" and args.resume:
         ap.error("--model tiny: the tiny recipe takes no --resume")

@@ -28,14 +28,19 @@ package's draws instead.
 
 ``TrainConfig.remat`` recomputes the whole loss function in the backward
 pass (``torch.utils.checkpoint``), as the JAX trainer wraps its loss in
-``jax.checkpoint``. ``TrainConfig.mesh_shape = (dp, 1, 1)`` trains data
-parallel over dp ranks, one process each (``parallel/``): every rank draws
-for the global batch and keeps its rows, loads only its rows of each
-global batch, and applies the update of the global batch
-(``parallel.train_dp``); validation runs on every rank and rank 0's
-numbers decide; rank 0 writes the ``.pth``, which holds the whole state, so
-a checkpoint resumes at any dp. Not ported yet: sp > 1 and tp > 1
-(ROADMAP.md queue 1 items 15b and 15c).
+``jax.checkpoint``. ``TrainConfig.mesh_shape = (dp, 1, tp)`` trains over
+dp x tp ranks, one process each (``parallel/``): every rank starts from
+rank 0's weights, then keeps its tp slice of each parameter that
+``param_shardings(model, tp, cfg.tp_min_size)`` splits
+(``parallel.tp.shard_over_group``); every rank draws for the global batch
+and keeps its dp group's rows, loads only those rows of each global batch,
+and applies the update of the global batch (``parallel.train_dp``);
+validation runs on every rank (the split forward needs every rank) and rank
+0's numbers decide; rank 0 writes the ``.pth`` in the single-process layout
+(the unsharded ``state_dict`` and AdamW's state gathered slice by slice), so
+a checkpoint resumes at any (dp, tp), and each rank slices what it holds.
+Frozen modules stay whole on every rank. Not ported yet: sp > 1
+(ROADMAP.md queue 1 item 15c).
 """
 
 from __future__ import annotations
@@ -59,7 +64,8 @@ from midd_tpu_torch.models.blocks import BatchNorm2d
 from midd_tpu_torch.models.hybrid import hybrid_forward
 from midd_tpu_torch.parallel.mesh import batch_sharding, check_mesh_shape, make_mesh, replicated
 from midd_tpu_torch.parallel.multihost import local_device
-from midd_tpu_torch.parallel.train_dp import make_sharded_train_step
+from midd_tpu_torch.parallel.tp import shard_over_group
+from midd_tpu_torch.parallel.train_dp import make_sharded_train_step, tp_group
 from midd_tpu_torch.train import losses
 from midd_tpu_torch.train.data import batches, prefetch_to_device, to_device
 from midd_tpu_torch.train.metrics import compute_metrics
@@ -85,10 +91,10 @@ class TrainConfig:
     prefetch: int = 2
     # rematerialise the loss's forward in the backward pass
     remat: bool = False
-    # (dp, sp, tp): data parallel over dp ranks (one process each, the
-    # process group started); sp and tp must be 1 (not ported yet)
+    # (dp, sp, tp): data parallel over dp and tensor parallel over tp, one
+    # process a rank (the process group started); sp must be 1 (not ported yet)
     mesh_shape: Optional[Tuple[int, int, int]] = None
-    tp_min_size: int = 1 << 16  # the JAX trainer's tp threshold; unused while tp is 1
+    tp_min_size: int = 1 << 16  # the JAX trainer's tp threshold: smaller parameters stay whole
 
 
 def lr_schedule_per_epoch(cfg: TrainConfig) -> Callable[[int], float]:
@@ -118,10 +124,28 @@ def set_lr(optimizer: torch.optim.Optimizer, lr: float) -> None:
         group["lr"] = lr
 
 
-def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float) -> torch.Tensor:
+def global_norm(grads: List[torch.Tensor], sliced: Optional[List[bool]] = None, group=None) -> torch.Tensor:
+    """The norm of all gradients together. With a tp ``group``, the
+    gradients flagged in ``sliced`` are this rank's slices of split
+    parameters: their squares are summed over the group and the others
+    (replicated on every rank) counted once, which is the norm of the
+    whole, unsharded gradient, as ``optax.clip_by_global_norm`` sees it."""
+    if group is None:
+        return torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(g) for g in grads]))
+    squares = [torch.linalg.vector_norm(g).square() for g in grads]
+    zero = torch.zeros_like(squares[0])
+    split = torch.stack([q for q, s in zip(squares, sliced) if s] or [zero]).sum()
+    whole = torch.stack([q for q, s in zip(squares, sliced) if not s] or [zero]).sum()
+    dist.all_reduce(split, group=group)
+    return (split + whole).sqrt()
+
+
+def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float, sliced: Optional[List[bool]] = None,
+                         group=None) -> torch.Tensor:
     """``optax.clip_by_global_norm`` in place: g <- g * min(1, max_norm/||g||)
-    over all gradients together. Returns the norm before clipping."""
-    norm = torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(g) for g in grads]))
+    over all gradients together (``global_norm``). Returns the norm before
+    clipping."""
+    norm = global_norm(grads, sliced, group)
     factor = torch.where(norm < max_norm, torch.ones_like(norm), max_norm / norm)
     for g in grads:
         g.mul_(factor)
@@ -129,14 +153,18 @@ def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float) -> torch.Te
 
 
 def finite_update(loss: torch.Tensor, params: List[nn.Parameter],
-                  optimizer: torch.optim.Optimizer, grad_clip: float) -> bool:
+                  optimizer: torch.optim.Optimizer, grad_clip: float,
+                  sliced: Optional[List[bool]] = None, tp_group=None) -> bool:
     """Apply the clipped optimizer update from the parameters' ``.grad`` only
     when ``loss`` is finite; otherwise leave the parameters and the
     optimizer's state (moments, step count) untouched. Returns whether the
-    update was applied. Reading the loss waits for the device."""
+    update was applied. Reading the loss waits for the device. ``sliced``
+    and ``tp_group``: which of ``params`` are this rank's slices of
+    parameters split over the tp group (``global_norm``)."""
     if not bool(torch.isfinite(loss)):
         return False
-    clip_by_global_norm_([p.grad for p in params if p.grad is not None], grad_clip)
+    held = [(p.grad, s) for p, s in zip(params, sliced or [False] * len(params)) if p.grad is not None]
+    clip_by_global_norm_([g for g, _ in held], grad_clip, [s for _, s in held], tp_group)
     optimizer.step()
     return True
 
@@ -355,9 +383,11 @@ def rematerialise(loss_fn: Callable) -> Callable:
 
 class Trainer:
     """Epoch loop with validation, best checkpoints, resume and early
-    stopping, on one device, or on each of dp ranks (``cfg.mesh_shape``;
-    ``device`` "cuda" is then each rank's own card, or the card the ranks
-    share).
+    stopping, on one device, or on each of dp x tp ranks
+    (``cfg.mesh_shape``; ``device`` "cuda" is then each rank's own card, or
+    the card the ranks share). At tp > 1 ``state.model`` is this rank's
+    split module and ``shards`` its map to the unsharded one
+    (``state_dicts`` gives the unsharded state).
 
     ``loss_fn(model, batch, draw) -> (loss, parts)``, ``draw_fn(batch,
     generator) -> draw`` and ``eval_fn(model, extra, clean, noisy) -> pred``
@@ -390,7 +420,7 @@ class Trainer:
         if has_bn != has_batch_stats:
             raise ValueError(f"has_batch_stats={has_batch_stats}, but the model "
                              f"{'holds' if has_bn else 'holds no'} BatchNorm statistics")
-        self.mesh, self.rows = None, None  # dp > 1: the mesh, and this rank's rows of a batch
+        self.mesh, self.rows = None, None  # dp or tp > 1: the mesh, and this rank's rows of a batch
         if cfg.mesh_shape is not None:
             dp, sp, tp = check_mesh_shape(cfg.mesh_shape)
             n = dp * sp * tp
@@ -401,7 +431,7 @@ class Trainer:
                 raise ValueError(f"mesh_shape {cfg.mesh_shape} needs {n} devices, but {world} ranks run")
             if cfg.batch_size % dp:
                 raise ValueError(f"batch_size {cfg.batch_size} not divisible by dp={dp}")
-            if dp > 1:
+            if dp > 1 or tp > 1:
                 if torch.device(device) == torch.device("cuda") and torch.cuda.is_available():
                     device = local_device("cuda")
                 self.mesh = make_mesh(n, tp=tp, sp=sp, device_type=torch.device(device).type)
@@ -418,14 +448,20 @@ class Trainer:
         model = model.to(self.device)
         if self.mesh is not None:  # every replica starts from rank 0's weights and statistics
             replicated([*model.parameters(), *model.buffers()], self.mesh)
+        group = tp_group(self.mesh)
+        self.shards = None if group is None else shard_over_group(model, group, cfg.tp_min_size)
         self.frozen = None if frozen is None else {
             k: m.to(self.device).eval().requires_grad_(False) for k, m in frozen.items()
         }
         self._frozen_args = () if frozen is None else (self.frozen,)
-        self.params = [p for p in model.parameters() if p.requires_grad]
+        # the trained parameters, in the unsharded model's order (a
+        # single-process optimizer's indices, which the checkpoint keeps)
+        self.params = (self.shards.params() if self.shards is not None
+                       else [p for p in model.parameters() if p.requires_grad])
         self.state = TrainerState(model=model, optimizer=make_optimizer(cfg, self.params),
                                   extra=extra or {})
-        self._step = make_sharded_train_step(self.loss_fn, self.state.optimizer, model, self.mesh, cfg.grad_clip)
+        self._step = make_sharded_train_step(self.loss_fn, self.state.optimizer, model, self.mesh, cfg.grad_clip,
+                                             self.shards)
         self.schedule = lr_schedule_per_epoch(cfg)
         self.generator = torch.Generator(device=self.device).manual_seed(cfg.seed)
 
@@ -435,10 +471,11 @@ class Trainer:
         return self.mesh is None or dist.get_rank() == 0
 
     def _draw(self, batch: Tuple[torch.Tensor, ...]):
-        """The step's draws for ``batch``. Under dp, drawn for the global
-        batch (this rank's rows in place, zeros elsewhere) from the one
-        seeded generator, and this rank's rows kept, so that every rank
-        draws what the single-process step draws."""
+        """The step's draws for ``batch``. Under a mesh, drawn for the
+        global batch (this rank's rows in place, zeros elsewhere) from the
+        one seeded generator, and this rank's rows kept, so that every rank
+        draws what the single-process step draws (the tp ranks of a dp
+        group the same)."""
         if self.rows is None:
             return self.draw_fn(batch, self.generator)
         start, n = self.rows
@@ -459,8 +496,9 @@ class Trainer:
     @torch.no_grad()
     def validate(self, val_samples: List[Tuple[np.ndarray, np.ndarray]]) -> Tuple[float, float]:
         """Mean (PSNR, SSIM) of the clamped predictions over the finite
-        ones; (0, 0) when none is finite. Under dp every rank validates and
-        rank 0's numbers are returned on all, so that every rank takes the
+        ones; (0, 0) when none is finite. Under a mesh every rank validates
+        (a split forward needs every rank of its tp group) and rank 0's
+        numbers are returned on all, so that every rank takes the
         same checkpoint and early-stopping decisions."""
         st = self.state
         st.model.eval()
@@ -480,22 +518,36 @@ class Trainer:
         return result
 
     def resume(self, ckpt_path: str) -> None:
-        """Full resume from a checkpoint written by ``save``: weights,
-        optimizer state, epoch, best metrics and histories."""
+        """Full resume from a checkpoint written by ``save``, at any (dp,
+        tp): weights, optimizer state, epoch, best metrics and histories."""
         ckpt = load_checkpoint(ckpt_path)
         st = self.state
-        st.model.load_state_dict(ckpt["model_state_dict"], strict=True)
+        if self.shards is None:
+            st.model.load_state_dict(ckpt["model_state_dict"], strict=True)
+        else:
+            self.shards.load_full_state_dict(ckpt["model_state_dict"])
         if "optimizer_state_dict" in ckpt:
-            st.optimizer.load_state_dict(ckpt["optimizer_state_dict"])
+            opt = ckpt["optimizer_state_dict"]
+            st.optimizer.load_state_dict(opt if self.shards is None else self.shards.sliced_optimizer_state(opt))
         st.epoch = int(ckpt.get("epoch", -1)) + 1
         st.best_psnr = float(ckpt.get("best_psnr", 0.0))
         st.best_ssim = float(ckpt.get("best_ssim", 0.0))
         for k in st.history:
             st.history[k] = list(ckpt.get(k, []))
 
+    def state_dicts(self) -> Tuple[Dict[str, torch.Tensor], Dict]:
+        """(model, optimizer) ``state_dict``s in the single-process layout:
+        at tp > 1 the unsharded keys and AdamW's state gathered slice by
+        slice (every rank must call it then)."""
+        st = self.state
+        if self.shards is None:
+            return st.model.state_dict(), st.optimizer.state_dict()
+        return self.shards.full_state_dict(), self.shards.full_optimizer_state(st.optimizer.state_dict())
+
     def save(self, metadata: Optional[Dict] = None) -> str:
-        """Write ``<ckpt_dir>/<ckpt_name>.pth`` (under dp, rank 0 writes it
-        and every rank returns once it is written); returns its path."""
+        """Write ``<ckpt_dir>/<ckpt_name>.pth`` (under a mesh, every rank
+        calls it, rank 0 writes it and every rank returns once it is
+        written); returns its path."""
         st = self.state
         meta = {
             "epoch": st.epoch,
@@ -506,7 +558,7 @@ class Trainer:
         }
         return save_checkpoint(
             os.path.join(self.cfg.ckpt_dir, f"{self.cfg.ckpt_name}.pth"),
-            st.model.state_dict(), st.optimizer.state_dict(), meta,
+            *self.state_dicts(), meta,
             replicas=None if self.mesh is None else dist.group.WORLD,
         )
 

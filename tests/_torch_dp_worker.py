@@ -39,11 +39,11 @@ def cli_argv(model, clean_dir, noisy_dir, epochs=1):
 def restored_matches(trainer, path) -> bool:
     """Whether ``trainer`` holds exactly the state that ``path`` saved:
     weights and buffers, AdamW's state, the next epoch, best metrics and
-    histories."""
+    histories (at tp > 1 every rank must call it: the state is gathered)."""
     ckpt = torch.load(path, map_location="cpu", weights_only=True)
     st = trainer.state
-    model = st.model.state_dict()
-    opt, want = st.optimizer.state_dict(), ckpt["optimizer_state_dict"]
+    model, opt = trainer.state_dicts()
+    want = ckpt["optimizer_state_dict"]
     return (model.keys() == ckpt["model_state_dict"].keys()
             and all(torch.equal(v.cpu(), ckpt["model_state_dict"][k]) for k, v in model.items())
             and opt["param_groups"] == want["param_groups"] and opt["state"].keys() == want["state"].keys()
@@ -64,7 +64,7 @@ def _tiny(name):
             "diffusion": lambda: UNetDiffusion(config.DiffusionUNetConfig(**recipes.TINY_UNET))}[name]()
 
 
-def _trainer(name, job, ckpt_dir, draw=None, mesh_shape=(2, 1, 1), remat=False):
+def _trainer(name, job, ckpt_dir, draw=None, mesh_shape=(2, 1, 1), remat=False, tp_min_size=1 << 16):
     """The job's trainer for ``name`` at ``mesh_shape`` (None: one process)."""
     from midd_tpu_torch import config
     from midd_tpu_torch.diffusion.schedule import make_schedule
@@ -72,7 +72,7 @@ def _trainer(name, job, ckpt_dir, draw=None, mesh_shape=(2, 1, 1), remat=False):
 
     cfg = tt.TrainConfig(epochs=1, batch_size=job["batch"], lr=1e-3, weight_decay=job["weight_decay"],
                          mesh_shape=mesh_shape, remat=remat, ckpt_dir=ckpt_dir, ckpt_name=name, num_workers=0,
-                         prefetch=0)
+                         prefetch=0, tp_min_size=tp_min_size)
     model = _tiny(name)
     model.load_state_dict(job[name]["state"])
     loss_fn = {"nafnet": tt.nafnet_loss_fn(), "expert": tt.expert_loss_fn(),

@@ -640,3 +640,32 @@ def test_xray_bench_score_fn_card_vs_cpu(cuda):
         assert got["n"] == want["n"] and np.isfinite(got["psnr"]), key
         assert abs(got["psnr"] - want["psnr"]) <= 1e-3, (key, got, want)
         assert abs(got["ssim"] - want["ssim"]) <= 1e-5, (key, got, want)
+
+
+@pytest.mark.parametrize("quant", ["dynamic", "static"])
+def test_int8_unet_split_over_tp2_equals_the_whole_on_the_card(cuda, quant):
+    """SERVE_DIFFUSION in int8 split over two tp slices of the card
+    (``shard_params``) computes one eval bit for bit as the whole model: each
+    slice's int32 product is exact, and the fused up/down convolution reads
+    NCHW (cuDNN's channels-last kernels sum a half-width convolution in
+    another order, which int8 would carry)."""
+    import copy
+
+    from midd_tpu_torch import config
+    from midd_tpu_torch.models.blocks import init_weights
+    from midd_tpu_torch.models.unet_diffusion import UNetDiffusion
+    from midd_tpu_torch.ops.qconv import QuantConv2d
+    from midd_tpu_torch.parallel import shard_params
+
+    model = init_weights(UNetDiffusion(config.SERVE_DIFFUSION, use_flash=True, quant=quant),
+                         torch.Generator().manual_seed(1)).to(cuda).eval()
+    for m in model.modules():
+        if isinstance(m, QuantConv2d):
+            m.act_absmax = torch.tensor(3.0, device=cuda)
+    split = copy.deepcopy(model)
+    assert shard_params(split, [cuda] * 2) > 0
+    gen = torch.Generator().manual_seed(5)
+    x, cond = (torch.rand(1, 1, 256, 256, generator=gen).to(cuda) for _ in range(2))
+    t = torch.tensor([30], device=cuda)
+    with torch.no_grad():
+        assert torch.equal(split(x, cond, t), model(x, cond, t))

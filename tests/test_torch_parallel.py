@@ -14,7 +14,7 @@ JAX package's, on the CPU:
 (d) the recipes CLI under ``torchrun --mesh 2,1,1``: all six recipes train,
     three of them against the same CLI in one process, and a dp-2
     checkpoint resumes in one process (one resumed the other way in the
-    ranks); sp > 1 and tp > 1 are refused naming the ROADMAP item.
+    ranks); sp > 1 is refused naming the ROADMAP item.
 """
 
 import os
@@ -376,12 +376,12 @@ def test_resume_across_world_sizes_through_the_cli(cli_runs, monkeypatch):
     assert st.history["losses"][:1] == ckpt["losses"] and len(st.history["losses"]) == 2
 
 
-@pytest.mark.parametrize("mesh", ["1,2,1", "1,1,2"])
+@pytest.mark.parametrize("mesh", ["1,2,1"])
 def test_sp_and_tp_are_refused_naming_the_roadmap_item(tmp_path, mesh):
-    """Training at sp > 1 (item 15c) or tp > 1 (item 15b part 2) refuses;
-    of the mesh helpers only ``image_sharding`` still raises (the tp rule
-    serves the engine: tests/test_torch_tp_serve.py)."""
-    item = "ROADMAP.md queue 1 item 15c" if mesh == "1,2,1" else "ROADMAP.md queue 1 item 15b part 2"
+    """Training at sp > 1 (item 15c) refuses; of the mesh helpers only
+    ``image_sharding`` still raises. Training at tp > 1 is ported
+    (tests/test_torch_tp_train.py)."""
+    item = "ROADMAP.md queue 1 item 15c"
     dirs = _write_pairs(tmp_path, n=2)
     with pytest.raises(NotImplementedError, match=item):
         trecipes.main(worker.cli_argv("nafnet", *dirs) + ["--mesh", mesh])
