@@ -11,10 +11,11 @@ NAFNet forward and one training step of each model; then serves with int8
 convolutions (``--int8``) and at the 1024² operating point through the
 server, runs the MODEL2_NAFNET variant, runs the xraybench-v1 quality
 benchmark (train, score, variants, turbo gate, seed study) at serve widths,
-trains with rematerialisation and data parallel over two processes,
-serves tensor- and data-parallel (the engine's ``--tp`` / ``--dp``) on the
-one card, trains tensor parallel (tp 2, and dp 2 x tp 2) and serves int8
-under tp.
+trains with rematerialisation, serves tensor- and data-parallel (the
+engine's ``--tp`` / ``--dp``) on the one card, trains data, tensor and
+spatial parallel (dp 2, tp 2, dp 2 x tp 2, sp 2, dp 2 x sp 2) over ranks,
+serves int8 under tp, and serves spatial-parallel (``--sp``, with dp, tp
+and int8).
 
     python3 chip_smoke.py [--report FILE] [--naf-only]
 
@@ -117,10 +118,10 @@ Phases (any failure exits non-zero, and no result line is printed):
    and 120 ln2d launches and 8 UNet evals' int8 products a request; the
    rollout paths' wall, device time and peak memory against a default
    engine's, and max|int8 - fp32| per path as information; (c) card vs CPU,
-   fp32 with TF32 off, same seeded weights: the calibration at 256²
-   (``INT8_ABSMAX_REL``) and, on the card's scales, one int8 UNet eval and
-   one 256² int8 rollout, each against twice the CPU's own spread when its
-   attention sums in another order (``INT8_SPREAD_RATIO``), the rollout
+   fp32 with TF32 off, same seeded weights: the calibration at 128² on the
+   first noise family's batch (``INT8_ABSMAX_REL``) and, on the CPU's
+   scales, one int8 UNet eval and one 128² int8 rollout, each against twice
+   the CPU's own spread when its attention sums in another order (``INT8_SPREAD_RATIO``), the rollout
    also to ``INT8_ROLLOUT_MAX`` and ``INT8_ROLLOUT_CORR``;
 13. 1024² at full width: the server's ``--img-size 1024`` configuration, 3
    requests of other sizes, 48 flash forward (N 16384) and 120 ln2d launches
@@ -135,34 +136,26 @@ Phases (any failure exits non-zero, and no result line is printed):
    naf_ffn launch per NAFBlock (23);
 15. xraybench-v1 (``midd_tpu_torch.benchmarks.xray_bench``'s CLI, in this
    process) at serve widths, 256², the tpu hybrid profile, 8 training
-   phantoms, every recipe at its 2-epoch floor: (a) ``--train`` and
+   phantoms, every recipe at its 2-epoch floor, one eval image a noise
+   family: (a) ``--train`` and
    ``--train-wide --train-ddim50`` into one directory, every run marked
    finished; (b) the score: the rows of ``XB_ROWS``, each finite (a PSNR of
    None only for an exact reconstruction), the JAX CLI's payload keys, the
    ``_input`` row equal to the CPU's to 1e-5, and per scored batch exactly
    54 flash forward launches a 9-step rollout (300 at 50 steps) and 60 ln2d
-   a NAFNet; (c) card against CPU on the trained nafnet, diffusion and
-   hybrid on the eval set's first image, TF32 off (``XB_PSNR_*``,
+   a NAFNet; (c) card against CPU on the trained nafnet and hybrid (whose
+   rollout is the diffusion row's UNet) on the eval set's first image,
+   TF32 off (``XB_PSNR_*``,
    ``XB_SSIM_*``); (d) ``--turbo-gate`` (k = 1 launches as exact, k = 2, 3
    fewer); (e) ``--seeds 1 --seed-models diffusion`` twice, the second
    reusing the marked run and training nothing. Each step's wall is printed
    (``utils.profiling.Timer``), and the CLI's own per-row walls;
-16. rematerialisation and data parallelism at 512², fp32 with TF32 off:
-   (a) ``TrainConfig(remat=True)`` against the plain step from the same
-   weights and draws, SERVE_DIFFUSION at batch 1 (12 flash forward
-   launches a step against 6: the backward recomputes the whole loss; 6 dq
-   and 6 dk/dv) and SERVE_EXPERT at batch 4 (BatchNorm buffers bit for bit,
-   moved once), loss, gradients and weights to ``REMAT_*``, each step's
-   wall and the peak memory; (b) the recipes CLI at ``--mesh 2,1,1`` in two
-   ranks under ``python -m torch.distributed.run`` (this script's
-   ``--dp-rank`` mode; gloo, the ranks share the card), diffusion (batch
-   2), nafnet (2) and expert (4) for 4 steps on 512² PNG pairs, against the
-   same CLI in this process: every rank's launches a step (6/6/6 flash, 60
-   ln2d), equal losses on both ranks, the ``.pth`` weights and the expert's
-   buffers to ``DP_*``, the step walls (a correctness run: two ranks on
-   one card are not a speed result); (c) the one-process diffusion ``.pth``
-   resumed at dp 2 and the dp-2 one resumed in this process, each restored
-   state equal to its file;
+16. rematerialisation at 512², fp32 with TF32 off: ``TrainConfig(remat=True)``
+   against the plain step from the same weights and draws, SERVE_DIFFUSION
+   at batch 1 (12 flash forward launches a step against 6: the backward
+   recomputes the whole loss; 6 dq and 6 dk/dv) and SERVE_EXPERT at batch 4
+   (BatchNorm buffers bit for bit, moved once), loss, gradients and weights
+   to ``REMAT_*``, each step's wall and the peak memory;
 17. tensor- and data-parallel serving on the one card
    (``devices=["cuda:0"] * 2``), SERVE_* widths, 512², TF32 off, seeded
    demo weights: (a) tp 2 against the unsharded engine (fp32 evals, fused
@@ -177,21 +170,44 @@ Phases (any failure exits non-zero, and no result line is printed):
    (``DP_VS_ONE_BOUND``); (c) the default engine (bf16 UNet evals) at tp 2
    against unsharded (``TP_BF16_BOUND`` on the rollout paths), its conv
    slices in bf16;
-18. tensor-parallel training and int8 under tp on the one card, 512², TF32
-   off, seeded weights, ranks under ``python -m torch.distributed.run``
-   (this script's ``--dp-rank`` mode; gloo, the ranks share the card): (b)
-   the recipes CLI at ``--mesh 2,1,2`` (4 ranks), SERVE_NAFNET at batch 2
-   for 2 steps, and (a) at ``--mesh 1,1,2`` (2 ranks), SERVE_DIFFUSION at
-   batch 1 for 3 steps, each against the same CLI in this process: every
-   rank's launches a step (60 ln2d; 6/6/6 flash) and split count (the JAX
-   trainer's, ``TP2_TRAIN_SHARDED``), equal losses on every rank, losses and
-   ``.pth`` weights to phase 16's ``DP_*`` bounds, the ``.pth`` in the
-   single-process layout; (b)'s ``.pth`` resumed in this process and at
-   tp 2, each restored state equal to its file; (c) the server's ``--int8
-   --tp`` (static int8) at tp 2 against the unsharded static-int8 engine on
-   the same scales, fp32 evals, fused and turbo on: ``n_tp_sharded``, 48
-   flash forward and 120 ln2d launches a request, every path's, the fused
-   and the turbo functions' outputs to ``INT8_TP_BOUND``.
+18. training under ``python -m torch.distributed.run`` on the one card
+   (this script's ``--dp-rank`` mode; gloo, the ranks share the card),
+   512², TF32 off, seeded weights, in two launches that run at once, each
+   run against the same CLI in this process: 4 ranks, the recipes CLI at
+   ``--mesh 2,1,2`` (18b) and ``--mesh 2,2,1`` (19b), SERVE_NAFNET at batch 2
+   for 2 steps; 2 ranks, ``--mesh 2,1,1`` (16b) for diffusion (batch 2),
+   nafnet (2) and expert (4), 4 steps each, ``--mesh 1,1,2`` (18a) and
+   ``--mesh 1,2,1`` (19b) for SERVE_DIFFUSION at batch 1 for 3 steps, the
+   one-process diffusion ``.pth`` resumed at dp 2 (16c) and, once the 4-rank
+   launch has ended, its two NAFNet ``.pth`` files resumed at tp 2 and at
+   sp 2; every parallel ``.pth`` also resumed in this process. Every rank's
+   launches a step (6/6/6 flash, 60 ln2d), split count (tp: the JAX
+   trainer's, ``TP2_TRAIN_SHARDED``) and row-split parameters (sp: every
+   convolution's but SCA's), equal losses on every rank, losses and
+   ``.pth`` weights to ``DP_*``, the expert's buffers to ``DP_STATS_REL``,
+   the ``.pth`` in the single-process layout, every resume equal to its
+   file as it loads (a resumed run trains one step of its second epoch),
+   the step walls (a correctness run, not a speed result); and (18c), once
+   the 4-rank launch has ended, beside the 2-rank one's last runs, the
+   server's ``--int8 --tp`` (static int8, phase 12's scales) at tp 2
+   against the unsharded static-int8 engine on the same scales, fp32
+   evals, fused and turbo on: ``n_tp_sharded``, 48 flash forward and 120
+   ln2d launches a request, every path's, the fused and the turbo
+   functions' outputs to ``INT8_TP_BOUND``;
+19. spatial-parallel serving on the one card, 512², TF32 off, seeded demo
+   weights, against phases 17 and 18c's unsharded engines: sp 2 (fp32
+   evals, fused and turbo on; 48 flash and 120 ln2d launches a request,
+   as unsharded; every path, the fused and the turbo functions to
+   ``SP_FP32_BOUND``; each path's wall and device time beside unsharded,
+   not a speed result), sp 2 × tp 2 (``n_tp_sharded`` the JAX count) and
+   dp 2 × sp 2 on 4 slots of the card (fp32, ``SP_FP32_BOUND``), the
+   server's ``--sp 2`` configuration answering a request through the
+   server (bf16 evals, ``TP_BF16_BOUND`` on the rollout paths), ``--int8``
+   at sp 2 on the unsharded int8 engine's scales (``INT8_TP_BOUND``), and
+   ``sp_size=64`` at 512² refused with the JAX engine's message.
+The CPU halves of phases 9, 10 and 12c's calibration run on another thread
+while the kernels build (phase 2): the same functions on the same seeded
+inputs (``on_devices``).
 Where ``torch.profiler`` records no device kernel three times running, it
 is off for the rest of the run and device times are taken by CUDA events
 behind a sleep kernel instead (``device_ms_events``). A profile that holds
@@ -203,8 +219,7 @@ The second-to-last line is the kernels JSON (each flash entry with an
 ``fp32`` object and the times of every timed shape), the last
 {"ok": true, ...}.
 
-``--dp-rank JOB`` is phase 16b's and 18's rank mode (run by torchrun, not by
-hand).
+``--dp-rank JOB`` is phase 18's rank mode (run by torchrun, not by hand).
 ``--naf-only`` runs phases 1, 2 (ln2d and naf_ffn), 6 and 7 (with
 phase 7's profile) and prints the kernels line without a result line: an
 A/B of the NAFNet kernels, each tree's own package beside this script.
@@ -271,7 +286,7 @@ from midd_tpu_torch.ops import ln2d as ln
 from midd_tpu_torch.ops import naf_ffn as ffn
 from midd_tpu_torch.ops import qconv
 from midd_tpu_torch.ops.naf_fast import nafnet_apply_fused
-from midd_tpu_torch.parallel import ColumnParallel
+from midd_tpu_torch.parallel import ColumnParallel, RowParallel
 from midd_tpu_torch.serve import engine as engine_module
 from midd_tpu_torch.serve import server
 from midd_tpu_torch.serve.engine import MODEL_NAMES, EngineConfig, InferenceEngine, calibration_batches
@@ -508,7 +523,10 @@ INT8_SPREAD_RATIO = 2.0
 INT8_ROLLOUT_MAX, INT8_ROLLOUT_CORR = 0.1, 0.995
 INT8_REQUESTS = 3
 INT8_EVALS_PER_REQUEST = 8  # 4 diffusion + 4 hybrid UNet evals at the (0, 2, 6, 7) defaults
-CALIBRATION_CHECK = (256, 2)  # phase 12c: image size, rollout steps
+# phase 12c: image size, rollout steps, batches (of the three noise families'
+# 2 phantoms each, the first). Its CPU half runs while the kernels build and
+# sets that window's length: 128²
+CALIBRATION_CHECK = (128, 2, 1)
 # 1024² (phase 13): exact attention against flash, both fp32 evals with TF32
 # off: flash's fp32 products in three TF32 passes (~1e-6 relative) against
 # cuBLAS's fp32 ones, through the rollouts: the bound of the batched-vs-
@@ -517,18 +535,20 @@ EXACT_VS_FLASH_BOUND = 1e-4
 REQUESTS_1024 = 3
 # xraybench-v1 on the card (phase 15): the protocol's 256², serve widths,
 # the tpu hybrid profile, 8 training phantoms and an epoch scale at which
-# every recipe trains its floor of 2 epochs; 2 eval images per noise family.
+# every recipe trains its floor of 2 epochs; 1 eval image per noise family.
 XB_IMG = 256
 XB_ARGS = ["--width-preset", "serve", "--hybrid-profile", "tpu", "--img-size", str(XB_IMG),
            "--n-train", "8", "--epochs-scale", "0.04"]
-XB_N_EVAL = 2
+XB_N_EVAL = 1
 XB_ROWS = ["_input", "diffusion", "nafnet", "expert", "hybrid", "diffusion_w96",
            "expert_ftl2(branch)", "diffusion_ddim50@50", "diffusion@50"]
 XB_PAYLOAD_KEYS = ["protocol", "img_size", "n_eval", "results"]  # midd_tpu/benchmarks/xray_bench.py:744-745
 XB_SCORE_BATCH = 4  # score_fn's batch
 XB_EVALS = {"diffusion": 9, "diffusion_w96": 9, "diffusion_ddim50@50": 50, "diffusion@50": 50,
             "hybrid": 9}  # UNet evals a scored batch: exact rollouts of 8 (9 scan steps) or 50
-XB_CARD_VS_CPU_MODELS = ("diffusion", "nafnet", "hybrid")
+# the hybrid row's rollout is the diffusion row's UNet at the same steps and
+# precision: on the CPU it stands for both rollout rows
+XB_CARD_VS_CPU_MODELS = ("nafnet", "hybrid")
 XB_CARD_VS_CPU_IMAGES = 1  # the eval set's first image (gaussian): the CPU's full-width rollouts set the cost
 # Card vs CPU on the trained checkpoints (phase 15c), the CLI's settings (bf16
 # UNet evals in both rollouts, fp32 elsewhere), TF32 off: the NAFNet path is
@@ -587,10 +607,31 @@ TP2_TRAIN_SHARDED = {"nafnet": 85, "diffusion": 48}
 # int8 under tp 2 (phase 18c) against the unsharded int8 engine on the same
 # calibrated scales: each slice computes its rows' exact int32 products
 INT8_TP_BOUND = 1e-4
+# Spatial-parallel serving on the one card (phase 19), 512², fp32 with TF32
+# off: each row block is cuDNN's convolution of fewer output rows, which may
+# run another algorithm, as tp's half-width convolutions may (TP_FP32_BOUND)
+SP_FP32_BOUND = 1e-4
+# Spatial-parallel training (phase 19b): the same runs as tp's (TP_*), at
+# --mesh 1,2,1 (diffusion, 2 ranks) and 2,2,1 (NAFNet, 4 ranks)
+SP_MESH = {"nafnet": "2,2,1", "diffusion": "1,2,1"}
+@contextlib.contextmanager
+def carried_scales(scales: dict):
+    """Engines built inside the block serve ``scales`` (name -> scales, in
+    the order an engine calibrates: diffusion, then hybrid) in place of a
+    calibration of their own."""
+    calibrate, carried = engine_module.calibrate_unet_rollout, iter(list(scales.values()))
+    engine_module.calibrate_unet_rollout = lambda *args: next(carried)
+    try:
+        yield
+    finally:
+        engine_module.calibrate_unet_rollout = calibrate
+
+
+T_START = time.time()
 
 
 def phase(name: str) -> None:
-    print(f"== {name}", flush=True)
+    print(f"== {name} (at {time.time() - T_START:.1f} s)", flush=True)
 
 
 def time_ms(fn, reps: int = 20, warmup: int = 3, batch: int = 1) -> float:
@@ -715,6 +756,49 @@ def counts() -> dict:
 def zero_counts() -> None:
     for fn in KERNEL_COUNTERS.values():
         fn.launches = 0
+
+
+# The CPU halves of the card-vs-CPU checks of phases 9, 10 and 12c, run on
+# another thread while the kernels build (``prefetch_cpu_sides``): each check
+# computes on each device through ``on_devices`` from seeded inputs, so its
+# CPU half is the same function whenever it runs.
+CPU_SIDES: dict = {}
+_PREFETCH = threading.local()
+
+
+class _Prefetched(Exception):
+    """Ends a phase function that ran for its CPU halves only."""
+
+
+def on_devices(key: str, side, devices=("cuda", "cpu")) -> dict:
+    """``side(dev)`` for each of ``devices``; a CPU device's result is the
+    one ``prefetch_cpu_sides`` computed, where it ran."""
+    if getattr(_PREFETCH, "on", False):
+        for dev in devices:
+            if dev != "cuda":
+                CPU_SIDES[key, dev] = side(dev)
+        raise _Prefetched
+    return {dev: CPU_SIDES.pop((key, dev)) if (key, dev) in CPU_SIDES else side(dev) for dev in devices}
+
+
+def prefetch_cpu_sides(checks) -> float:
+    """Run each check function of ``checks`` up to its ``on_devices`` call
+    and compute its CPU halves there (on the calling thread, while the
+    main one waits for the build); the card's flags are left as they were.
+    Returns the seconds it took."""
+    t = time.time()
+    flags = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    _PREFETCH.on = True
+    try:
+        for check in checks:
+            try:
+                check({})
+            except _Prefetched:
+                pass
+    finally:
+        _PREFETCH.on = False
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = flags
+    return time.time() - t
 
 
 def since(before: dict) -> dict:
@@ -1078,15 +1162,15 @@ def nafnet_card_vs_cpu(report: dict) -> None:
     perturbed weights and input."""
     set_tf32(False)
     x = torch.from_numpy(np.asarray(Image.open(io.BytesIO(xray_png(256, 256, 17))), np.float32) / 255)
-    outs = {}
-    for dev in ("cuda", "cpu"):
+
+    def side(dev):
         model = perturbed_nafnet(11).to(dev).eval()
         with torch.inference_mode():
             zero_counts()
-            outs[dev] = model(x[None, None].to(dev)).cpu()
-            launched = counts()
-        if dev == "cuda":
-            card_launches = launched
+            return model(x[None, None].to(dev)).cpu(), counts()
+
+    both = on_devices("nafnet_card_vs_cpu", side)
+    outs, card_launches = {dev: out for dev, (out, _) in both.items()}, both["cuda"][1]
     diff = (outs["cuda"] - outs["cpu"]).abs().max().item()
     top = outs["cpu"].abs().max().item()
     res = {"max_abs_diff": diff, "max_abs_out": top, "bound": NAFNET_CARD_VS_CPU_REL * top,
@@ -1120,8 +1204,8 @@ def nafnet_step_card_vs_cpu(report: dict) -> None:
     clean = np.stack([np.asarray(Image.open(io.BytesIO(xray_png(128, 128, 40 + i))), np.float32) / 255
                       for i in range(2)])[:, None]
     noisy = np.clip(clean + 0.1 * rng.standard_normal(clean.shape), 0, 1).astype(np.float32)
-    out = {}
-    for dev in ("cuda", "cpu"):
+
+    def side(dev):
         model = perturbed_nafnet(23).to(dev)
         batch = tuple(torch.from_numpy(a).to(dev) for a in (clean, noisy))
         zero_counts()
@@ -1129,8 +1213,9 @@ def nafnet_step_card_vs_cpu(report: dict) -> None:
         loss.backward()
         launched = counts()
         norms = [n for n, m in model.named_modules() if isinstance(m, LayerNorm2d)]
-        out[dev] = (loss.item(), {n: p.grad.detach().cpu() for n, p in model.named_parameters()},
-                    launched, norms)
+        return loss.item(), {n: p.grad.detach().cpu() for n, p in model.named_parameters()}, launched, norms
+
+    out = on_devices("nafnet_step_card_vs_cpu", side)
     (l_gpu, g_gpu, launched, norms), (l_cpu, g_cpu, _, _) = out["cuda"], out["cpu"]
     worst, worst_name = worst_grad_ratio(g_gpu, g_cpu)
     norm_grads = [f"{n}.{k}" for n in norms for k in ("weight", "bias")]
@@ -1153,8 +1238,8 @@ def _step_card_vs_cpu(key: str, build, loss_fn, batch: tuple, draw: tuple, want:
     model from ``build()`` (seeded, on the CPU), the NCHW numpy ``batch``
     and ``draw`` (t as int64, the rest fp32) moved to each device."""
     set_tf32(False)
-    out = {}
-    for dev in ("cuda", "cpu"):
+
+    def side(dev):
         model = build().to(dev)
         b = tuple(torch.from_numpy(a).to(dev) for a in batch)
         d = tuple(torch.from_numpy(a).to(dev) for a in draw)
@@ -1162,7 +1247,9 @@ def _step_card_vs_cpu(key: str, build, loss_fn, batch: tuple, draw: tuple, want:
         loss, _ = loss_fn(model, b, d)
         loss.backward()
         launched = counts()
-        out[dev] = (loss.item(), {n: p.grad.detach().cpu() for n, p in model.named_parameters()}, launched)
+        return loss.item(), {n: p.grad.detach().cpu() for n, p in model.named_parameters()}, launched
+
+    out = on_devices(key, side)
     (l_gpu, g_gpu, launched), (l_cpu, g_cpu, _) = out["cuda"], out["cpu"]
     worst, worst_name = worst_grad_ratio(g_gpu, g_cpu)
     res = {"loss_card": l_gpu, "loss_cpu": l_cpu, "loss_rel_diff": abs(l_gpu - l_cpu) / abs(l_cpu),
@@ -1215,8 +1302,8 @@ def expert_step_card_vs_cpu(report: dict) -> None:
     devices, beside the CPU's own spread when the weights move by one ulp."""
     set_tf32(False)
     clean, noisy = _step_batch(50)
-    out = {}
-    for dev in ("cuda", "cpu", "cpu_one_ulp", "cpu_tf32_weights"):
+
+    def side(dev):
         model = init_weights(ExpertDenoiser(config.SERVE_EXPERT), torch.Generator().manual_seed(29))
         with torch.no_grad():
             for p in model.parameters():
@@ -1231,7 +1318,9 @@ def expert_step_card_vs_cpu(report: dict) -> None:
         loss.backward()
         launched = counts()
         stats = {n: b.detach().cpu() for n, b in model.named_buffers() if n.endswith(("running_mean", "running_var"))}
-        out[dev] = (loss.item(), {n: p.grad.detach().cpu() for n, p in model.named_parameters()}, launched, stats)
+        return loss.item(), {n: p.grad.detach().cpu() for n, p in model.named_parameters()}, launched, stats
+
+    out = on_devices("expert_step_card_vs_cpu", side, ("cuda", "cpu", "cpu_one_ulp", "cpu_tf32_weights"))
     (l_gpu, g_gpu, launched, s_gpu), (l_cpu, g_cpu, _, s_cpu) = out["cuda"], out["cpu"]
     bns = sum(isinstance(m, BatchNorm2d) for m in ExpertDenoiser(config.SERVE_EXPERT).modules())
     rel_l2, rel_l2_name = _rel_l2(g_gpu, g_cpu)
@@ -1272,8 +1361,8 @@ def hybrid_step_card_vs_cpu(report: dict) -> None:
     set_tf32(False)
     cfg = config.HybridConfig()
     clean, noisy = _step_batch(60)
-    out = {}
-    for dev in ("cuda", "cpu"):
+
+    def side(dev):
         frozen = {k: m.to(dev).eval().requires_grad_(False) for k, m in hybrid_frozen(31).items()}
         model = init_weights(RouterFusion(cfg.router, cfg.fusion), torch.Generator().manual_seed(37)).to(dev)
         batch = tuple(torch.from_numpy(a).to(dev) for a in (clean, noisy))
@@ -1282,7 +1371,9 @@ def hybrid_step_card_vs_cpu(report: dict) -> None:
             model, batch, no_draw(batch, None), frozen)
         loss.backward()
         launched = counts()
-        out[dev] = (loss.item(), {n: p.grad.detach().cpu() for n, p in model.named_parameters()}, launched)
+        return loss.item(), {n: p.grad.detach().cpu() for n, p in model.named_parameters()}, launched
+
+    out = on_devices("hybrid_step_card_vs_cpu", side)
     (l_gpu, g_gpu, launched), (l_cpu, g_cpu, _) = out["cuda"], out["cpu"]
     worst, worst_name = worst_grad_ratio(g_gpu, g_cpu)
     want = hybrid_step_launches(cfg)
@@ -1352,13 +1443,15 @@ def write_pairs(root: str, n: int, size: int):
 def trainer_probe():
     """While the block runs, every Trainer step is timed and counted, every
     validation counted, and every resume checked against its file
-    (``restored_matches``), and the trainer's tp split count kept
-    (``n_sharded``, 0 unsplit). Yields the record."""
-    rec = {"steps": [], "vals": [], "resumed": [], "n_sharded": 0}
+    (``restored_matches``), and the trainer's tp split count
+    (``n_sharded``) and row-split parameters (``row_split``) kept, 0
+    unsplit. Yields the record."""
+    rec = {"steps": [], "vals": [], "resumed": [], "n_sharded": 0, "row_split": 0}
     orig_step, orig_validate, orig_resume = Trainer.train_step, Trainer.validate, Trainer.resume
 
     def timed_step(self, batch):
         rec["n_sharded"] = 0 if self.shards is None else self.shards.n_sharded
+        rec["row_split"] = 0 if self.shards is None else len(self.shards.summed)
         before, t0 = counts(), time.perf_counter()
         loss = orig_step(self, batch)  # returns a host float: the step has finished
         rec["steps"].append({"ms": (time.perf_counter() - t0) * 1e3, "loss": loss, "launches": since(before)})
@@ -1426,7 +1519,7 @@ def recipe_run(cwd: str, argv: list) -> tuple:
         "step_ms_median_after_first": statistics.median(step_ms[1:]) if len(step_ms) > 1 else None,
         "launches_per_step": [st["launches"] for st in rec["steps"]], "validation_launches": rec["vals"],
         "resumed": rec["resumed"], "launches": launched, "wall_s": wall_s, "peak_memory_gib": peak_gib,
-        "history": state.history, "n_sharded": rec["n_sharded"],
+        "history": state.history, "n_sharded": rec["n_sharded"], "row_split": rec["row_split"],
     }, state
 
 
@@ -2445,10 +2538,17 @@ def card_vs_cpu(report: dict) -> None:
     kw = dict(img_size=256, warmup=False, turbo_eps_reuse=1, hybrid_turbo_eps_reuse=1,
               diffusion_eval_bf16=False, hybrid_rollout_bf16=False)
     x = np.asarray(Image.open(io.BytesIO(xray_png(256, 256, 3))), np.float32)[None, :, :, None] / 255
-    before = fa.flash_attention.launches
-    gpu = InferenceEngine(EngineConfig(**kw, device="cuda")).fns["diffusion"](x)
-    launches = fa.flash_attention.launches - before
-    cpu = InferenceEngine(EngineConfig(**kw, device="cpu")).fns["diffusion"](x)
+
+    def side(dev):
+        engine = InferenceEngine(EngineConfig(**kw, device=dev))
+        try:
+            zero_counts()
+            return engine.fns["diffusion"](x), counts()["flash_fwd"]
+        finally:
+            engine.close()
+
+    out = on_devices("card_vs_cpu", side)
+    (gpu, launches), (cpu, _) = out["cuda"], out["cpu"]
     diff = float(np.abs(gpu - cpu).max())
     report["card_vs_cpu"] = {"max_abs_diff": diff, "bound": CARD_VS_CPU_BOUND,
                              "flash_launches": launches}
@@ -2473,16 +2573,16 @@ def cddpm_rollout_card_vs_cpu(report: dict) -> None:
     x = _seeded_image(256, 5)
     n_steps = len(timestep_sequence(config.SERVE_SCHEDULE.noise_steps, 8))
     seq = torch.randn((n_steps, *x.shape), generator=torch.Generator().manual_seed(8))
-    outs = {}
-    for dev in ("cuda", "cpu"):
+
+    def side(dev):
         model = init_weights(UNetDiffusion(config.CDDPM_UNET), torch.Generator().manual_seed(3)).to(dev).eval()
         with torch.inference_mode():
             zero_counts()
-            outs[dev] = denoise(model, x.to(dev), make_schedule(config.SERVE_SCHEDULE, dev), 8,
-                                stochastic=True, clamp_eps=False, noise_seq=seq.to(dev)).cpu()
-            launched = counts()
-        if dev == "cuda":
-            card_launches = launched
+            return denoise(model, x.to(dev), make_schedule(config.SERVE_SCHEDULE, dev), 8,
+                           stochastic=True, clamp_eps=False, noise_seq=seq.to(dev)).cpu(), counts()
+
+    both = on_devices("cddpm_rollout_card_vs_cpu", side)
+    outs, card_launches = {dev: out for dev, (out, _) in both.items()}, both["cuda"][1]
     diff = (outs["cuda"] - outs["cpu"]).abs().max().item()
     res = {"max_abs_diff": diff, "bound": CARD_VS_CPU_BOUND, "scan_steps": n_steps, "launches": card_launches}
     report["cddpm_rollout_card_vs_cpu"] = res
@@ -2499,15 +2599,15 @@ def tiny_sample_card_vs_cpu(report: dict) -> None:
     set_tf32(False)
     cond = _seeded_image(256, 6) * 2 - 1
     seq = torch.randn((TINY_STEPS, *cond.shape), generator=torch.Generator().manual_seed(9))
-    outs = {}
-    for dev in ("cuda", "cpu"):
+
+    def side(dev):
         model = init_weights(TinyUNet(config.TINY_UNET), torch.Generator().manual_seed(4)).to(dev).eval()
         with torch.inference_mode():
             zero_counts()
-            outs[dev] = DDPMScheduler().sample(model, cond.to(dev), TINY_STEPS, noise_seq=seq.to(dev)).cpu()
-            launched = counts()
-        if dev == "cuda":
-            card_launches = launched
+            return DDPMScheduler().sample(model, cond.to(dev), TINY_STEPS, noise_seq=seq.to(dev)).cpu(), counts()
+
+    both = on_devices("tiny_sample_card_vs_cpu", side)
+    outs, card_launches = {dev: out for dev, (out, _) in both.items()}, both["cuda"][1]
     diff = (outs["cuda"] - outs["cpu"]).abs().max().item()
     res = {"max_abs_diff": diff, "bound": CARD_VS_CPU_BOUND, "steps": TINY_STEPS, "launches": card_launches}
     report["tiny_sample_card_vs_cpu"] = res
@@ -2607,7 +2707,8 @@ def int8_serving(report: dict, per_forward: int) -> dict:
     products a request; then the rollout paths' wall and device time against
     a default (fp32-weight convolutions) engine on the same image, and
     max|int8 - fp32| per path as information. Returns the requests'
-    launches."""
+    launches and the engine's calibrated scales, which the run's later int8
+    engines serve (one calibration a run)."""
     default_tf32()
     _, cfg = server.config_from_args(["--int8"])
     assert cfg.quantize_int8 == "static", cfg
@@ -2650,49 +2751,57 @@ def int8_serving(report: dict, per_forward: int) -> dict:
     print(json.dumps({"serve_int8_paths": {e: {n: {k: p[k] for k in ("wall_p50_ms", "device_ms", "idle_share")}
                                                for n, p in paths.items()} for e, paths in times.items()}}),
           flush=True)
-    return launched
+    return launched, engine.int8_scales
 
 
 def int8_card_vs_cpu(report: dict) -> None:
     """Phase 12c: static int8 on both devices, SERVE_DIFFUSION on the same
     seeded weights, fp32 with TF32 off: the calibration on the engine's
-    phantom set at 256² (2-step rollouts) on the card against the CPU's
-    (each act_absmax to INT8_ABSMAX_REL); then, with the card's scales
-    loaded on both, one int8 UNet eval and one 256² int8 rollout (8 served
+    phantom set at 128² (2-step rollouts, the first noise family) on the
+    card against the CPU's (each act_absmax to INT8_ABSMAX_REL); then, with the CPU's scales
+    loaded on both, one int8 UNet eval and one 128² int8 rollout (8 served
     steps, exact) on each device. For scale, the CPU's eval and rollout are
     also taken with its attention through the flash kernel's plain version:
     the same exact function summed in another order (the ``cpu_spread``);
-    the card must stay within INT8_SPREAD_RATIO of it on the mean."""
+    the card must stay within INT8_SPREAD_RATIO of it on the mean. The CPU
+    half needs nothing of the card's, so it runs while the kernels build."""
     set_tf32(False)
-    size, steps = CALIBRATION_CHECK
+    size, steps, batches = CALIBRATION_CHECK
     base = init_weights(UNetDiffusion(config.SERVE_DIFFUSION, quant="static"), torch.Generator().manual_seed(21))
-    models, scales = {}, {}
-    for dev in ("cuda", "cpu"):
-        models[dev] = copy.deepcopy(base).to(dev).eval()
-        sched = make_schedule(config.SERVE_SCHEDULE, dev)
-        t = time.time()
-        scales[dev] = qconv.calibrate_unet_rollout(qconv.with_quant_mode(models[dev], "calibrate"), sched,
-                                                   calibration_batches(size, dev), steps)
-        if dev == "cuda":
-            torch.cuda.synchronize()
-            card_s = time.time() - t
-    worst = max(abs(scales["cuda"][n].item() - scales["cpu"][n].item()) / scales["cpu"][n].item()
-                for n in scales["cpu"])
     x = _seeded_image(size, 23)
     t_mid = torch.tensor([24])
-    evals, outs = {}, {}
-    for dev, model in models.items():
-        qconv.load_qscales(model, scales["cuda"])
+
+    def evaluated(model, dev):
         with torch.inference_mode():
-            evals[dev] = model(x.to(dev), x.to(dev), t_mid.to(dev)).cpu()
-            outs[dev] = denoise(model, x.to(dev), make_schedule(config.SERVE_SCHEDULE, dev),
-                                config.SERVE_DIFFUSION_STEPS).cpu()
-    for mod in models["cpu"].modules():
-        if isinstance(mod, AttentionBlock):
-            mod.use_flash = True
-    with torch.inference_mode():
-        spread_eval = models["cpu"](x, x, t_mid)
-        spread = denoise(models["cpu"], x, make_schedule(config.SERVE_SCHEDULE), config.SERVE_DIFFUSION_STEPS)
+            return (model(x.to(dev), x.to(dev), t_mid.to(dev)).cpu(),
+                    denoise(model, x.to(dev), make_schedule(config.SERVE_SCHEDULE, dev),
+                            config.SERVE_DIFFUSION_STEPS).cpu())
+
+    def side(dev):
+        model = copy.deepcopy(base).to(dev).eval()
+        sched = make_schedule(config.SERVE_SCHEDULE, dev)
+        t = time.time()
+        scales = qconv.calibrate_unet_rollout(qconv.with_quant_mode(model, "calibrate"), sched,
+                                              calibration_batches(size, dev)[:batches], steps)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            return model, scales, time.time() - t
+        qconv.load_qscales(model, scales)
+        out = evaluated(model, dev)
+        for mod in model.modules():
+            if isinstance(mod, AttentionBlock):
+                mod.use_flash = True
+        return model, scales, time.time() - t, out, evaluated(model, dev)
+
+    both = on_devices("int8_card_vs_cpu", side)
+    (card_model, card_scales, card_s), (_, cpu_scales, _, cpu_out, spread_out) = both["cuda"], both["cpu"]
+    scales = {"cuda": card_scales, "cpu": cpu_scales}
+    worst = max(abs(scales["cuda"][n].item() - scales["cpu"][n].item()) / scales["cpu"][n].item()
+                for n in scales["cpu"])
+    qconv.load_qscales(card_model, cpu_scales)
+    card_out = evaluated(card_model, "cuda")
+    evals, outs = ({"cuda": card_out[i], "cpu": cpu_out[i]} for i in (0, 1))
+    spread_eval, spread = spread_out
 
     def stats(a, b):
         d = (a - b).abs()
@@ -2949,7 +3058,7 @@ def xray_bench_slice(report: dict, smi: str) -> tuple:
     finite; the JAX CLI's payload keys; the ``_input`` row equal to the CPU's
     own to 1e-5; each row's flash and ln2d launches a scored batch as its
     exact rollouts and NAFNets make them); (c) card against CPU on the
-    trained nafnet, diffusion and hybrid on the eval set's first image, TF32 off
+    trained nafnet and hybrid on the eval set's first image, TF32 off
     (``XB_PSNR_*``, ``XB_SSIM_*``); (d) --turbo-gate at one image per family;
     (e) --seeds 1 --seed-models diffusion twice: the second reuses the
     marked run and trains nothing. Returns the launches of the CLI runs
@@ -3184,10 +3293,11 @@ def remat_slice(report: dict, smi: str) -> dict:
 
 
 def dp_rank_main(job_path: str) -> int:
-    """One rank of phase 16b's and 18's torchrun launches (``--dp-rank
-    JOB``): each run
+    """One rank of phase 18's torchrun launches (``--dp-rank JOB``): each run
     of the job through ``recipes.main`` in its directory, with TF32 off,
-    under ``trainer_probe``; writes ``JOB.rank<RANK>.json``."""
+    under ``trainer_probe``, a run with ``after`` once those files exist
+    (another launch's records, bounded by DP_TIMEOUT_S); writes
+    ``JOB.rank<RANK>.json``."""
     import torch.distributed as dist
 
     with open(job_path) as f:
@@ -3195,42 +3305,61 @@ def dp_rank_main(job_path: str) -> int:
     set_tf32(False)
     runs = []
     for run in job["runs"]:
+        deadline = time.time() + DP_TIMEOUT_S
+        while not all(os.path.exists(p) for p in run.get("after", [])):
+            if time.time() > deadline:
+                raise TimeoutError(f"{run['name']}: {run['after']} not written in {DP_TIMEOUT_S} s")
+            time.sleep(0.5)
         record, state = recipe_run(run["cwd"], run["argv"])
         runs.append({"name": run["name"], **record, "device": str(next(state.model.parameters()).device)})
     out = {"rank": dist.get_rank(), "world": dist.get_world_size(), "backend": dist.get_backend(), "runs": runs}
-    with open(f"{job_path}.rank{out['rank']}.json", "w") as f:
+    with open(f"{job_path}.rank{out['rank']}.json.tmp", "w") as f:
         json.dump(out, f)
+    os.replace(f"{job_path}.rank{out['rank']}.json.tmp", f"{job_path}.rank{out['rank']}.json")
     dist.destroy_process_group()
     return 0
 
 
-def torchrun(job: dict, tmp: str, nproc: int = 2, name: str = "dp_job") -> tuple:
-    """Run ``job`` in ``nproc`` ranks on the one card: ``python -m
+def torchrun_start(job: dict, tmp: str, nproc: int = 2, name: str = "dp_job") -> dict:
+    """Start ``job`` in ``nproc`` ranks on the one card: ``python -m
     torch.distributed.run --standalone --nproc_per_node NPROC`` of this
-    script's ``--dp-rank`` mode, bounded by DP_TIMEOUT_S (on expiry the
-    whole process group is killed and the phase fails). Returns every
-    rank's record and the launch's wall."""
+    script's ``--dp-rank`` mode, its output into a file (launches may
+    run at once). Returns the launch for ``torchrun_wait``; each rank's
+    record will be ``rank_files(launch)``."""
     path = os.path.join(tmp, f"{name}.json")
     with open(path, "w") as f:
         json.dump(job, f)
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node", str(nproc),
            os.path.abspath(__file__), "--dp-rank", path]
-    t0 = time.perf_counter()
-    proc = subprocess.Popen(cmd, cwd=tmp, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-                            start_new_session=True)
+    log = open(f"{path}.log", "w")
+    proc = subprocess.Popen(cmd, cwd=tmp, stdout=log, stderr=subprocess.STDOUT, text=True, start_new_session=True)
+    log.close()
+    return {"proc": proc, "path": path, "nproc": nproc, "t0": time.perf_counter()}
+
+
+def rank_files(launch: dict) -> list:
+    return [f"{launch['path']}.rank{r}.json" for r in range(launch["nproc"])]
+
+
+def torchrun_wait(launch: dict) -> tuple:
+    """Wait for a launch, bounded by DP_TIMEOUT_S from its start (on expiry
+    the whole process group is killed and the phase fails). Returns every
+    rank's record and the launch's wall."""
+    proc, nproc = launch["proc"], launch["nproc"]
     try:
-        out, _ = proc.communicate(timeout=DP_TIMEOUT_S)
+        proc.wait(timeout=max(1.0, DP_TIMEOUT_S - (time.perf_counter() - launch["t0"])))
     except subprocess.TimeoutExpired:
         os.killpg(proc.pid, signal.SIGKILL)
-        out, _ = proc.communicate()
-        raise AssertionError(f"{nproc} ranks did not finish in {DP_TIMEOUT_S} s:\n{out[-6000:]}")
-    wall_s = time.perf_counter() - t0
+        proc.wait()
+    wall_s = time.perf_counter() - launch["t0"]
+    with open(f"{launch['path']}.log") as f:
+        out = f.read()
     print("\n".join(line for line in out.splitlines() if "init_distributed" in line or "epoch" in line), flush=True)
     if proc.returncode != 0:
-        raise AssertionError(f"torchrun exited {proc.returncode}:\n{out[-6000:]}")
+        raise AssertionError(f"{nproc} ranks exited {proc.returncode} after {wall_s:.1f} s:\n{out[-6000:]}")
     ranks = []
-    for r in range(nproc):
-        with open(f"{path}.rank{r}.json") as f:
+    for path in rank_files(launch):
+        with open(path) as f:
             ranks.append(json.load(f))
     return ranks, wall_s
 
@@ -3249,79 +3378,183 @@ def _weights_compare(dp: dict, one: dict, fresh: dict) -> dict:
             "buffers_counter": [int(dp[k]) for k in fresh if k.endswith("num_batches_tracked")][:1]}
 
 
-def dp_slice(report: dict, smi: str) -> dict:
-    """Phase 16b and 16c: the recipes CLI at ``--mesh 2,1,1`` in two ranks
-    under torchrun on the one card (gloo: NCCL refuses two ranks on one
-    GPU), SERVE_DIFFUSION (batch 2), SERVE_NAFNET (batch 2) and SERVE_EXPERT
-    (batch 4) at 512² for 4 steps, against the same CLI in this process on
-    the same PNG pairs; then the one-process diffusion ``.pth`` resumed at
-    dp 2 for one more epoch (in the same launch) and the dp-2 one resumed
-    in this process, each restored state checked against its file. Two
-    ranks on one card is a correctness run: their step walls are not a
-    speed result. Returns the launches of each dp run, both ranks summed."""
+def _runs(ranks: list, name: str) -> list:
+    """Each rank's record of the run ``name`` of a torchrun job."""
+    return [next(run for run in r["runs"] if run["name"] == name) for r in ranks]
+
+
+def row_split_params(model: torch.nn.Module) -> int:
+    """The parameters of the convolutions that the sp split takes: every
+    ``Conv2d`` and ``ConvTranspose2d`` but the NAFBlocks' SCA
+    (``parallel/sp.py``)."""
+    return sum(len(list(m.parameters(recurse=False))) for n, m in model.named_modules()
+               if isinstance(m, (torch.nn.Conv2d, torch.nn.ConvTranspose2d)) and "sca" not in n.split("."))
+
+
+def parallel_training_slice(report: dict, smi: str, meanwhile) -> tuple:
+    """Phases 16b-c, 18a-b and 19b: the recipes CLI under torchrun on the one
+    card, 512², TF32 off, seeded weights, in two launches that the three
+    phases share (each process takes seconds to reach the card) and that
+    run at once: 4 ranks (18b's ``--mesh 2,1,2`` and 19b's ``--mesh 2,2,1``,
+    SERVE_NAFNET at batch 2 for 2 steps) and 2 ranks (16b's ``--mesh 2,1,1``
+    diffusion at batch 2, nafnet 2 and expert 4 for 4 steps; 18a's ``--mesh
+    1,1,2`` and 19b's ``--mesh 1,2,1`` SERVE_DIFFUSION at batch 1 for 3
+    steps; 16c's one-process diffusion ``.pth`` resumed at dp 2; once the
+    4-rank launch has ended, its NAFNet ``.pth`` files resumed at tp 2 and
+    at sp 2). (Three launches at once, the 2-rank jobs split, were no
+    faster: the ranks then contend for the host's cores.) Each run against the same CLI in this process, run beside the
+    4-rank launch before the 2-rank one starts (dp's on its own pairs; tp's
+    and sp's on the same pairs, one reference for both), and each parallel
+    ``.pth`` resumed here too. A resumed run
+    trains one step of its second epoch; every resume is checked against
+    its file as it loads (``restored_matches``). ``meanwhile()`` runs here
+    once the 4-rank launch has ended, beside the 2-rank one's last runs.
+    Ranks that share one card are a correctness run, not a speed result.
+    Returns each parallel run's launches, all ranks summed, and what
+    ``meanwhile()`` returned."""
     set_tf32(False)
     with tempfile.TemporaryDirectory() as tmp:
-        data = {m: write_pairs(os.path.join(tmp, "data", m), DP_PAIRS[m], TRAIN_SIZE) for m in DP_MODELS}
+        dp_data = {m: write_pairs(os.path.join(tmp, "data_dp", m), DP_PAIRS[m], TRAIN_SIZE) for m in DP_MODELS}
+        tp_data = {m: write_pairs(os.path.join(tmp, "data_tp", m), TP_PAIRS[m], TRAIN_SIZE) for m in TP_MODELS}
 
-        def argv(m, epochs=1):
-            return ["--model", m, "--clear-dir", data[m][0], "--noisy-dirs", data[m][1],
-                    "--img-size", str(TRAIN_SIZE), "--epochs", str(epochs), "--max-samples", str(DP_PAIRS[m]),
-                    "--batch-size", str(DP_BATCH[m])]
+        def argv(m, data, pairs, batch, resume):
+            # a resumed run trains one step of its second epoch: the resume is checked as it loads
+            return ["--model", m, "--clear-dir", data[m][0], "--noisy-dirs", data[m][1], "--img-size",
+                    str(TRAIN_SIZE), "--epochs", "2" if resume else "1", "--max-samples",
+                    str(batch[m] if resume else pairs[m]), "--batch-size", str(batch[m]),
+                    *(["--resume", resume] if resume else [])]
+
+        def dp_argv(m, resume=None):
+            return argv(m, dp_data, DP_PAIRS, DP_BATCH, resume)
+
+        def tp_argv(m, resume=None):
+            return argv(m, tp_data, TP_PAIRS, TP_BATCH, resume)
 
         def pth(kind, m):
             return os.path.join(tmp, kind, m, "checkpoints", f"{m}.pth")
 
-        single = {m: recipe_run(os.path.join(tmp, "one", m), argv(m))[0] for m in DP_MODELS}
-        job = {"runs": [{"name": m, "cwd": os.path.join(tmp, "dp", m), "argv": argv(m) + ["--mesh", "2,1,1"]}
-                        for m in DP_MODELS]}
-        job["runs"].append({"name": "resume_one_at_dp2", "cwd": os.path.join(tmp, "dp_resume", "diffusion"),
-                            "argv": argv("diffusion", epochs=2) + ["--mesh", "2,1,1", "--resume",
-                                                                   pth("one", "diffusion")]})
-        ranks, launch_s = torchrun(job, tmp)
-        resumed, _ = recipe_run(os.path.join(tmp, "one_resume", "diffusion"),
-                                argv("diffusion", epochs=2) + ["--resume", pth("dp", "diffusion")])
-        fresh = {"diffusion": UNetDiffusion(config.SERVE_DIFFUSION), "nafnet": EnhancedNAFNet(config.SERVE_NAFNET),
-                 "expert": ExpertDenoiser(config.SERVE_EXPERT)}
-        res = {"card": smi, "note": "two ranks share one card over gloo: a correctness run, not a speed result",
-               "launch_s": launch_s, "backend": [r["backend"] for r in ranks], "world": [r["world"] for r in ranks]}
-        for i, m in enumerate(DP_MODELS):
-            runs = [r["runs"][i] for r in ranks]
-            w0 = init_weights(fresh[m], torch.Generator().manual_seed(42)).state_dict()
-            load = lambda kind: torch.load(pth(kind, m), map_location="cpu", weights_only=True)  # noqa: E731
-            dp, one = load("dp"), load("one")
-            res[m] = {
-                "batch": DP_BATCH[m], "steps": [r["steps"] for r in runs], "devices": [r["device"] for r in runs],
-                "losses_dp": runs[0]["losses"], "losses_one": single[m]["losses"],
-                "loss_max_rel_diff": max(abs(a - b) / abs(b) for a, b in zip(runs[0]["losses"], single[m]["losses"])),
-                "step_ms_dp": [r["step_ms"] for r in runs], "step_ms_one": single[m]["step_ms"],
-                "step_ms_median_after_first": {"dp_ranks": [r["step_ms_median_after_first"] for r in runs],
-                                               "one": single[m]["step_ms_median_after_first"]},
-                "launches_per_step_per_rank": runs[0]["launches_per_step"][0],
+        def run(name, kind, m, args, after=()):
+            return {"name": name, "cwd": os.path.join(tmp, kind, m), "argv": args, "after": list(after)}
+
+        four = {"runs": [run("tp_nafnet", "tp", "nafnet", tp_argv("nafnet") + ["--mesh", TP_MESH["nafnet"]]),
+                         run("sp_nafnet", "sp", "nafnet", tp_argv("nafnet") + ["--mesh", SP_MESH["nafnet"]])]}
+        four_job = torchrun_start(four, tmp, nproc=4, name="four_job")
+        try:  # the one-process references beside the 4-rank launch
+            single = {"dp": {m: recipe_run(os.path.join(tmp, "one_dp", m), dp_argv(m))[0] for m in DP_MODELS},
+                      "tp": {m: recipe_run(os.path.join(tmp, "one_tp", m), tp_argv(m))[0] for m in TP_MODELS}}
+        except BaseException:
+            os.killpg(four_job["proc"].pid, signal.SIGKILL)
+            raise
+        torch.cuda.empty_cache()  # the 2-rank launch shares the card too
+        two = {"runs": [  # beside the 4-rank launch, the card shared; what needs that launch's .pth, or
+            # would contend with its sp ranks for the host, waits for it to end
+            *(run(f"dp_{m}", "dp", m, dp_argv(m) + ["--mesh", "2,1,1"]) for m in DP_MODELS),
+            run("tp_diffusion", "tp", "diffusion", tp_argv("diffusion") + ["--mesh", TP_MESH["diffusion"]]),
+            run("resume_one_at_dp2", "dp_resume", "diffusion",
+                dp_argv("diffusion", pth("one_dp", "diffusion")) + ["--mesh", "2,1,1"]),
+            run("resume_nafnet_at_tp2", "tp_resume", "nafnet", tp_argv("nafnet", pth("tp", "nafnet"))
+                + ["--mesh", "1,1,2"], after=rank_files(four_job)),
+            run("sp_diffusion", "sp", "diffusion", tp_argv("diffusion") + ["--mesh", SP_MESH["diffusion"]],
+                after=rank_files(four_job)),
+            run("resume_nafnet_at_sp2", "sp_resume", "nafnet", tp_argv("nafnet", pth("sp", "nafnet"))
+                + ["--mesh", "1,2,1"], after=rank_files(four_job)),
+        ]}
+        two_job = torchrun_start(two, tmp, nproc=2, name="two_job")
+        try:
+            four_ranks, four_s = torchrun_wait(four_job)
+            in_one = {kind: recipe_run(os.path.join(tmp, f"one_resume_{kind}", "nafnet"),
+                                       tp_argv("nafnet", pth(kind, "nafnet")))[0] for kind in ("tp", "sp")}
+            beside = meanwhile()
+            two_ranks, two_s = torchrun_wait(two_job)
+        finally:
+            for launch in (four_job, two_job):
+                if launch["proc"].poll() is None:
+                    os.killpg(launch["proc"].pid, signal.SIGKILL)
+                    launch["proc"].wait()
+        in_one["dp"] = recipe_run(os.path.join(tmp, "one_resume_dp", "diffusion"),
+                                  dp_argv("diffusion", pth("dp", "diffusion")))[0]
+
+        def fresh(m):
+            build = {"diffusion": lambda: UNetDiffusion(config.SERVE_DIFFUSION),
+                     "nafnet": lambda: EnhancedNAFNet(config.SERVE_NAFNET),
+                     "expert": lambda: ExpertDenoiser(config.SERVE_EXPERT)}[m]
+            return init_weights(build(), torch.Generator().manual_seed(42))
+
+        def compared(kind, m, ranks, launch_s):
+            """A parallel run's record against the one-process run of the same pairs."""
+            runs, one = _runs(ranks, f"{kind}_{m}"), single["dp" if kind == "dp" else "tp"][m]
+            model = fresh(m)
+            w0 = model.state_dict()
+            got = torch.load(pth(kind, m), map_location="cpu", weights_only=True)["model_state_dict"]
+            want = torch.load(pth("one_dp" if kind == "dp" else "one_tp", m), map_location="cpu",
+                              weights_only=True)["model_state_dict"]
+            return {
+                "launch_s": launch_s, "backend": [r["backend"] for r in ranks], "world": [r["world"] for r in ranks],
+                "steps": [r["steps"] for r in runs], "devices": [r["device"] for r in runs],
+                "n_sharded": [r["n_sharded"] for r in runs], "row_split": [r["row_split"] for r in runs],
+                "row_split_want": row_split_params(model), "losses": [r["losses"] for r in runs],
+                "losses_one": one["losses"],
+                "loss_max_rel_diff": max(abs(a - b) / abs(b) for a, b in zip(runs[0]["losses"], one["losses"])),
+                "step_ms": [r["step_ms"] for r in runs], "step_ms_one": one["step_ms"],
+                "step_ms_median_after_first": {"ranks": [r["step_ms_median_after_first"] for r in runs],
+                                               "one": one["step_ms_median_after_first"]},
+                "launches_per_step_per_rank": [r["launches_per_step"] for r in runs],
                 "launches_per_rank": [r["launches"] for r in runs],
-                "peak_gib_per_rank": [r["peak_memory_gib"] for r in runs], "peak_gib_one": single[m]["peak_memory_gib"],
-                **_weights_compare(dp["model_state_dict"], one["model_state_dict"], w0),
+                "peak_gib_per_rank": [r["peak_memory_gib"] for r in runs], "peak_gib_one": one["peak_memory_gib"],
+                "pth_keys_unsharded": list(got) == list(w0), **_weights_compare(got, want, w0),
             }
-        res["resume"] = {"one_at_dp2": [r["runs"][3]["resumed"] for r in ranks],
-                         "one_at_dp2_epochs": [len(r["runs"][3]["history"]["losses"]) for r in ranks],
-                         "dp2_in_one": resumed["resumed"], "dp2_in_one_epochs": len(resumed["history"]["losses"])}
-    report["dp"] = res
-    print(json.dumps({"dp": res}), flush=True)
-    assert res["backend"] == ["gloo", "gloo"] and res["world"] == [2, 2], res
-    for m in DP_MODELS:
-        r = res[m]
-        assert r["steps"] == [4, 4] and r["devices"] == ["cuda:0", "cuda:0"], (m, r)
-        assert ranks[0]["runs"][DP_MODELS.index(m)]["losses"] == ranks[1]["runs"][DP_MODELS.index(m)]["losses"], m
-        assert all(n == DP_PER_STEP[m] for rk in ranks for n in rk["runs"][DP_MODELS.index(m)]["launches_per_step"]), m
-        assert r["loss_max_rel_diff"] <= DP_LOSS_REL and r["update_rel_l2"] <= DP_UPDATE_REL_L2[m], (m, r)
-        assert r["weight_max_abs_diff"] <= 2 * 4 * recipes.default_train_config(m).lr, (m, r)
-    assert res["expert"]["stats_max_rel"] <= DP_STATS_REL and res["expert"]["buffers_counter"] == [4], res
-    assert res["resume"]["one_at_dp2"] == [[True], [True]] and res["resume"]["dp2_in_one"] == [True], res
-    assert res["resume"]["one_at_dp2_epochs"] == [2, 2] and res["resume"]["dp2_in_one_epochs"] == 2, res
-    return {m: {k: sum(r["runs"][i]["launches"][k] for r in ranks) for k in NO_LAUNCHES}
-            for i, m in enumerate(DP_MODELS)}
+
+        res = {kind: {"card": smi, "note": "ranks share one card over gloo: a correctness run, not a speed result"}
+               for kind in ("dp", "tp", "sp")}
+        for m in DP_MODELS:
+            res["dp"][m] = {"batch": DP_BATCH[m], **compared("dp", m, two_ranks, two_s)}
+        for kind, mesh in (("tp", TP_MESH), ("sp", SP_MESH)):
+            for m in TP_MODELS:
+                ranks, launch_s = (four_ranks, four_s) if m == "nafnet" else (two_ranks, two_s)
+                res[kind][m] = {"mesh": mesh[m], "batch": TP_BATCH[m], **compared(kind, m, ranks, launch_s)}
+        res["dp"]["resume"] = {
+            "one_at_dp2": [r["resumed"] for r in _runs(two_ranks, "resume_one_at_dp2")],
+            "one_at_dp2_epochs": [len(r["history"]["losses"]) for r in _runs(two_ranks, "resume_one_at_dp2")],
+            "dp2_in_one": in_one["dp"]["resumed"], "dp2_in_one_epochs": len(in_one["dp"]["history"]["losses"])}
+        for kind, mesh in (("tp", "2,1,2"), ("sp", "2,2,1")):
+            at = _runs(two_ranks, f"resume_nafnet_at_{kind}2")
+            res[kind]["resume"] = {"mesh": mesh, "in_one": in_one[kind]["resumed"],
+                                   "in_one_epochs": len(in_one[kind]["history"]["losses"]),
+                                   "at_2": [r["resumed"] for r in at],
+                                   "at_2_epochs": [len(r["history"]["losses"]) for r in at]}
+    report.update(dp=res["dp"], tp_train=res["tp"], sp_train=res["sp"])
+    for kind in ("dp", "tp", "sp"):
+        print(json.dumps({f"{kind}_train": res[kind]}), flush=True)
+
+    for kind, models in (("dp", DP_MODELS), ("tp", TP_MODELS), ("sp", TP_MODELS)):
+        for m in models:
+            r = res[kind][m]
+            nproc = 4 if kind != "dp" and m == "nafnet" else 2
+            assert r["backend"] == ["gloo"] * nproc and r["world"] == [nproc] * nproc, (kind, m, r)
+            steps = 4 if kind == "dp" else TP_STEPS[m]
+            assert r["steps"] == [steps] * nproc and r["devices"] == ["cuda:0"] * nproc, (kind, m, r)
+            assert r["n_sharded"] == [TP2_TRAIN_SHARDED[m] if kind == "tp" else 0] * nproc, (kind, m, r["n_sharded"])
+            assert r["row_split"] == [r["row_split_want"] if kind == "sp" else 0] * nproc, (kind, m, r["row_split"])
+            assert all(losses == r["losses"][0] for losses in r["losses"]), (kind, m, r["losses"])
+            assert all(n == DP_PER_STEP[m] for rank in r["launches_per_step_per_rank"] for n in rank), (kind, m)
+            assert r["loss_max_rel_diff"] <= DP_LOSS_REL and r["update_rel_l2"] <= DP_UPDATE_REL_L2[m], (kind, m, r)
+            assert r["weight_max_abs_diff"] <= 2 * steps * recipes.default_train_config(m).lr, (kind, m, r)
+            assert r["pth_keys_unsharded"], (kind, m)
+    assert res["dp"]["expert"]["stats_max_rel"] <= DP_STATS_REL and res["dp"]["expert"]["buffers_counter"] == [4], res
+    rs = res["dp"]["resume"]
+    assert rs["one_at_dp2"] == [[True], [True]] and rs["dp2_in_one"] == [True], rs
+    assert rs["one_at_dp2_epochs"] == [2, 2] and rs["dp2_in_one_epochs"] == 2, rs
+    for kind in ("tp", "sp"):
+        rs = res[kind]["resume"]
+        assert rs["in_one"] == [True] and rs["in_one_epochs"] == 2, (kind, rs)
+        assert rs["at_2"] == [[True], [True]] and rs["at_2_epochs"] == [2, 2], (kind, rs)
+    return {f"{prefix}_{m}": {k: sum(rank[k] for rank in res[kind][m]["launches_per_rank"]) for k in NO_LAUNCHES}
+            for kind, prefix, models in (("dp", "dp", DP_MODELS), ("tp", "train_tp", TP_MODELS),
+                                         ("sp", "train_sp", TP_MODELS))
+            for m in models}, beside
 
 
-def parallel_serving_slice(report: dict, smi: str) -> dict:
+def parallel_serving_slice(report: dict, smi: str, unsharded: dict) -> dict:
     """Phase 17: the engine's ``tensor_parallel`` and ``data_parallel`` on
     the one card (``devices=["cuda:0"] * 2``), SERVE_* widths, 512², TF32
     off, seeded demo weights (the same in every engine): (a) tp 2 against
@@ -3333,8 +3566,9 @@ def parallel_serving_slice(report: dict, smi: str) -> dict:
     through the server, one 2-row batch each (96 flash, 240 ln2d), then a
     batch of two images against each served alone by the unsharded engine;
     (c) the default engine (bf16 UNet evals) at tp 2 against unsharded.
-    (Int8 under tp is phase 18c.) Returns the launches of (a)'s and (b)'s
-    requests."""
+    (Int8 under tp is phase 18c.) The unsharded fp32 and default engines
+    stay open in ``unsharded`` ("fp32", "default") for phase 19. Returns the
+    launches of (a)'s and (b)'s requests."""
     set_tf32(False)
     fp32 = dict(diffusion_eval_bf16=False, hybrid_rollout_bf16=False, warmup=False)
     pngs = [xray_png(512, 512, seed=5000 + i) for i in range(PARALLEL_REQUESTS)]
@@ -3344,86 +3578,80 @@ def parallel_serving_slice(report: dict, smi: str) -> dict:
     res = {"card": smi, "note": "tp and dp slices share one card: a correctness run, not a speed result"}
     launched = {}
     t = time.time()
-    plain = InferenceEngine(EngineConfig(**fp32, fused_request=True, adaptive_turbo=True))
+    plain = unsharded["fp32"] = InferenceEngine(EngineConfig(**fp32, fused_request=True, adaptive_turbo=True))
+    tp = InferenceEngine(EngineConfig(**fp32, fused_request=True, adaptive_turbo=True, tensor_parallel=True),
+                         devices=two)
+    res["engine_build_s"] = time.time() - t
     try:
-        tp = InferenceEngine(EngineConfig(**fp32, fused_request=True, adaptive_turbo=True, tensor_parallel=True),
-                             devices=two)
-        res["engine_build_s"] = time.time() - t
-        try:
-            res["tp"] = {"mesh_shape": tp.mesh_shape, "n_tp_sharded": tp.n_tp_sharded}
-            zero_counts()
-            per_request = []
-            for i, png in enumerate(pngs):
-                before = counts()
-                out = tp.process_all(_png_array(png), (512, 512))
-                per_request.append(since(before))
-                assert all(out[n] is not None for n in MODEL_NAMES), f"tp request {i}: a path answered null"
-            launched["serve_tp"] = counts()
+        res["tp"] = {"mesh_shape": tp.mesh_shape, "n_tp_sharded": tp.n_tp_sharded}
+        zero_counts()
+        per_request = []
+        for i, png in enumerate(pngs):
             before = counts()
-            got = {n: tp.fns[n](x) for n in MODEL_NAMES}
-            per_path_request = since(before)
-            want = {n: plain.fns[n](x) for n in MODEL_NAMES}
-            fused_got, fused_want = tp.fused(x), plain.fused(x)
-            res["tp"].update({
-                "launches_per_request": per_request, "launches_per_path_request": per_path_request,
-                "max_abs_diff": {n: float(np.abs(got[n] - want[n]).max()) for n in MODEL_NAMES},
-                "fused_max_abs_diff": {n: float(np.abs(fused_got[n] - fused_want[n]).max()) for n in MODEL_NAMES},
-                "turbo_max_abs_diff": {n: float(np.abs(tp.turbo_fns[n](x) - plain.turbo_fns[n](x)).max())
-                                       for n in tp.turbo_fns},
-                "bound": TP_FP32_BOUND,
-            })
-            times = {"tp2": path_times(tp, x), "unsharded": path_times(plain, x)}
-            res["tp"]["paths"] = {e: {n: {k: p[k] for k in ("wall_p50_ms", "device_ms", "idle_share", "peak_gib")}
-                                      for n, p in paths.items()} for e, paths in times.items()}
-        finally:
-            tp.close()
-        print(json.dumps({"parallel_tp": res["tp"]}), flush=True)
-
-        dp = InferenceEngine(EngineConfig(**fp32, batching=True, batch_buckets=(1, 2), data_parallel=True),
-                             devices=two)
-        try:
-            res["dp"] = {"mesh_shape": dp.mesh_shape, "buckets": dp.batcher.buckets}
-            with serving(dp) as addr:
-                zero_counts()
-                per_batch, walls = [], []
-                for png in pngs:
-                    before = counts()
-                    walls.append(post_denoise(addr, png, (512, 512)))
-                    per_batch.append(since(before))
-                launched["serve_dp"] = counts()
-            stats = dp.batcher.stats
-            got = {n: dp.fns[n](x2) for n in MODEL_NAMES}
-            res["dp"].update({
-                "request_ms": walls, "batches": stats["batches"], "launches_per_batch": per_batch,
-                "max_abs_diff_vs_unsharded": {
-                    n: float(max(np.abs(got[n][i:i + 1] - plain.fns[n](x2[i:i + 1])).max() for i in range(2)))
-                    for n in MODEL_NAMES},
-                "bound": DP_VS_ONE_BOUND,
-            })
-        finally:
-            dp.close()
-        print(json.dumps({"parallel_dp": res["dp"]}), flush=True)
+            out = tp.process_all(_png_array(png), (512, 512))
+            per_request.append(since(before))
+            assert all(out[n] is not None for n in MODEL_NAMES), f"tp request {i}: a path answered null"
+        launched["serve_tp"] = counts()
+        before = counts()
+        got = {n: tp.fns[n](x) for n in MODEL_NAMES}
+        per_path_request = since(before)
+        want = {n: plain.fns[n](x) for n in MODEL_NAMES}
+        fused_got, fused_want = tp.fused(x), plain.fused(x)
+        res["tp"].update({
+            "launches_per_request": per_request, "launches_per_path_request": per_path_request,
+            "max_abs_diff": {n: float(np.abs(got[n] - want[n]).max()) for n in MODEL_NAMES},
+            "fused_max_abs_diff": {n: float(np.abs(fused_got[n] - fused_want[n]).max()) for n in MODEL_NAMES},
+            "turbo_max_abs_diff": {n: float(np.abs(tp.turbo_fns[n](x) - plain.turbo_fns[n](x)).max())
+                                   for n in tp.turbo_fns},
+            "bound": TP_FP32_BOUND,
+        })
+        times = {"tp2": path_times(tp, x), "unsharded": path_times(plain, x)}
+        res["tp"]["paths"] = {e: {n: {k: p[k] for k in ("wall_p50_ms", "device_ms", "idle_share", "peak_gib")}
+                                  for n, p in paths.items()} for e, paths in times.items()}
     finally:
-        plain.close()
+        tp.close()
+    print(json.dumps({"parallel_tp": res["tp"]}), flush=True)
 
-    default = InferenceEngine(EngineConfig(warmup=False))
+    dp = InferenceEngine(EngineConfig(**fp32, batching=True, batch_buckets=(1, 2), data_parallel=True),
+                         devices=two)
     try:
-        tp_bf16 = InferenceEngine(EngineConfig(warmup=False, tensor_parallel=True), devices=two)
-        try:
-            # the conv and linear slices hold the cast weights (transposed convs stay fp32)
-            shard_dtypes = {s.weight.dtype for m in tp_bf16.replicas[0]["unet_eval"].modules()
-                            if isinstance(m, ColumnParallel) for s in m.shards
-                            if isinstance(s, (torch.nn.Conv2d, torch.nn.Linear))}
-            res["tp_bf16"] = {
-                "n_tp_sharded": tp_bf16.n_tp_sharded, "unet_eval_shard_dtypes": sorted(map(str, shard_dtypes)),
-                "max_abs_diff": {n: float(np.abs(tp_bf16.fns[n](x) - default.fns[n](x)).max()) for n in MODEL_NAMES},
-                "bound": {"diffusion": TP_BF16_BOUND, "hybrid": TP_BF16_BOUND, "nafnet": TP_FP32_BOUND,
-                          "expert": TP_FP32_BOUND},
-            }
-        finally:
-            tp_bf16.close()
+        res["dp"] = {"mesh_shape": dp.mesh_shape, "buckets": dp.batcher.buckets}
+        with serving(dp) as addr:
+            zero_counts()
+            per_batch, walls = [], []
+            for png in pngs:
+                before = counts()
+                walls.append(post_denoise(addr, png, (512, 512)))
+                per_batch.append(since(before))
+            launched["serve_dp"] = counts()
+        stats = dp.batcher.stats
+        got = {n: dp.fns[n](x2) for n in MODEL_NAMES}
+        res["dp"].update({
+            "request_ms": walls, "batches": stats["batches"], "launches_per_batch": per_batch,
+            "max_abs_diff_vs_unsharded": {
+                n: float(max(np.abs(got[n][i:i + 1] - plain.fns[n](x2[i:i + 1])).max() for i in range(2)))
+                for n in MODEL_NAMES},
+            "bound": DP_VS_ONE_BOUND,
+        })
     finally:
-        default.close()
+        dp.close()
+    print(json.dumps({"parallel_dp": res["dp"]}), flush=True)
+
+    default = unsharded["default"] = InferenceEngine(EngineConfig(warmup=False))
+    tp_bf16 = InferenceEngine(EngineConfig(warmup=False, tensor_parallel=True), devices=two)
+    try:
+        # the conv and linear slices hold the cast weights (transposed convs stay fp32)
+        shard_dtypes = {s.weight.dtype for m in tp_bf16.replicas[0]["unet_eval"].modules()
+                        if isinstance(m, ColumnParallel) for s in m.shards
+                        if isinstance(s, (torch.nn.Conv2d, torch.nn.Linear))}
+        res["tp_bf16"] = {
+            "n_tp_sharded": tp_bf16.n_tp_sharded, "unet_eval_shard_dtypes": sorted(map(str, shard_dtypes)),
+            "max_abs_diff": {n: float(np.abs(tp_bf16.fns[n](x) - default.fns[n](x)).max()) for n in MODEL_NAMES},
+            "bound": {"diffusion": TP_BF16_BOUND, "hybrid": TP_BF16_BOUND, "nafnet": TP_FP32_BOUND,
+                      "expert": TP_FP32_BOUND},
+        }
+    finally:
+        tp_bf16.close()
     print(json.dumps({"parallel_tp_bf16": res["tp_bf16"]}), flush=True)
     report["parallel_serving"] = res
 
@@ -3444,91 +3672,7 @@ def parallel_serving_slice(report: dict, smi: str) -> dict:
     return launched
 
 
-def tp_train_slice(report: dict, smi: str) -> dict:
-    """Phase 18a and 18b: training at tp > 1 through the recipes CLI, ranks
-    launched by torchrun on the one card (gloo), 512², TF32 off, seeded
-    weights. (b) first: ``--mesh 2,1,2`` (4 ranks), SERVE_NAFNET at batch 2
-    for 2 steps (60 ln2d launches a step on every rank), against the same
-    CLI in this process; its ``.pth`` (the single-process layout) resumed
-    in this process for one more epoch. Then (a): ``--mesh 1,1,2`` (2
-    ranks), SERVE_DIFFUSION at batch 1 for 3 steps (6 flash forward, 6 dq
-    and 6 dk/dv launches a step on every rank, as unsharded; the split count
-    ``TP2_TRAIN_SHARDED``), against the same CLI in this process; in the
-    same launch, (b)'s ``.pth`` resumed at tp 2 for one more epoch. Every
-    resume checked against its file (``restored_matches``). Ranks that
-    share one card are a correctness run, not a speed result. Returns each
-    tp run's launches, all ranks summed."""
-    set_tf32(False)
-    res = {"card": smi, "note": "tp ranks share one card over gloo: a correctness run, not a speed result"}
-    with tempfile.TemporaryDirectory() as tmp:
-        data = {m: write_pairs(os.path.join(tmp, "data", m), TP_PAIRS[m], TRAIN_SIZE) for m in TP_MODELS}
-
-        def argv(m, epochs=1):
-            return ["--model", m, "--clear-dir", data[m][0], "--noisy-dirs", data[m][1],
-                    "--img-size", str(TRAIN_SIZE), "--epochs", str(epochs), "--max-samples", str(TP_PAIRS[m]),
-                    "--batch-size", str(TP_BATCH[m])]
-
-        def pth(kind, m):
-            return os.path.join(tmp, kind, m, "checkpoints", f"{m}.pth")
-
-        single = {m: recipe_run(os.path.join(tmp, "one", m), argv(m))[0] for m in TP_MODELS}
-        b_job = {"runs": [{"name": "nafnet", "cwd": os.path.join(tmp, "tp", "nafnet"),
-                           "argv": argv("nafnet") + ["--mesh", TP_MESH["nafnet"]]}]}
-        b_ranks, b_s = torchrun(b_job, tmp, nproc=4, name="tp_nafnet_job")
-        resumed_one, _ = recipe_run(os.path.join(tmp, "one_resume", "nafnet"),
-                                    argv("nafnet", epochs=2) + ["--resume", pth("tp", "nafnet")])
-        a_job = {"runs": [{"name": "diffusion", "cwd": os.path.join(tmp, "tp", "diffusion"),
-                           "argv": argv("diffusion") + ["--mesh", TP_MESH["diffusion"]]},
-                          {"name": "resume_nafnet_at_tp2", "cwd": os.path.join(tmp, "tp_resume", "nafnet"),
-                           "argv": argv("nafnet", epochs=2) + ["--mesh", "1,1,2", "--resume",
-                                                                pth("tp", "nafnet")]}]}
-        a_ranks, a_s = torchrun(a_job, tmp, nproc=2, name="tp_diffusion_job")
-        fresh = {"diffusion": UNetDiffusion(config.SERVE_DIFFUSION), "nafnet": EnhancedNAFNet(config.SERVE_NAFNET)}
-        for m, ranks, launch_s in (("nafnet", b_ranks, b_s), ("diffusion", a_ranks, a_s)):
-            runs = [r["runs"][0] for r in ranks]
-            w0 = init_weights(fresh[m], torch.Generator().manual_seed(42)).state_dict()
-            tp_pth = torch.load(pth("tp", m), map_location="cpu", weights_only=True)
-            one_pth = torch.load(pth("one", m), map_location="cpu", weights_only=True)
-            res[m] = {
-                "mesh": TP_MESH[m], "launch_s": launch_s, "backend": [r["backend"] for r in ranks],
-                "world": [r["world"] for r in ranks], "batch": TP_BATCH[m], "steps": [r["steps"] for r in runs],
-                "devices": [r["device"] for r in runs], "n_sharded": [r["n_sharded"] for r in runs],
-                "losses_tp": [r["losses"] for r in runs], "losses_one": single[m]["losses"],
-                "loss_max_rel_diff": max(abs(a - b) / abs(b) for a, b in zip(runs[0]["losses"],
-                                                                            single[m]["losses"])),
-                "step_ms_tp": [r["step_ms"] for r in runs], "step_ms_one": single[m]["step_ms"],
-                "launches_per_step_per_rank": [r["launches_per_step"] for r in runs],
-                "launches_per_rank": [r["launches"] for r in runs],
-                "peak_gib_per_rank": [r["peak_memory_gib"] for r in runs],
-                "peak_gib_one": single[m]["peak_memory_gib"],
-                "pth_keys_unsharded": list(tp_pth["model_state_dict"]) == list(w0),
-                **_weights_compare(tp_pth["model_state_dict"], one_pth["model_state_dict"], w0),
-            }
-            print(json.dumps({f"tp_train_{m}": res[m]}), flush=True)
-        res["resume"] = {"dp2tp2_in_one": resumed_one["resumed"],
-                         "dp2tp2_in_one_epochs": len(resumed_one["history"]["losses"]),
-                         "dp2tp2_at_tp2": [r["runs"][1]["resumed"] for r in a_ranks],
-                         "dp2tp2_at_tp2_epochs": [len(r["runs"][1]["history"]["losses"]) for r in a_ranks]}
-    report["tp_train"] = res
-    print(json.dumps({"tp_train_resume": res["resume"]}), flush=True)
-    for m, nproc in (("nafnet", 4), ("diffusion", 2)):
-        r = res[m]
-        assert r["backend"] == ["gloo"] * nproc and r["world"] == [nproc] * nproc, (m, r)
-        assert r["steps"] == [TP_STEPS[m]] * nproc and r["devices"] == ["cuda:0"] * nproc, (m, r)
-        assert r["n_sharded"] == [TP2_TRAIN_SHARDED[m]] * nproc, (m, r["n_sharded"])
-        assert all(losses == r["losses_tp"][0] for losses in r["losses_tp"]), (m, r["losses_tp"])
-        assert all(n == DP_PER_STEP[m] for rank in r["launches_per_step_per_rank"] for n in rank), m
-        assert r["loss_max_rel_diff"] <= DP_LOSS_REL and r["update_rel_l2"] <= DP_UPDATE_REL_L2[m], (m, r)
-        assert r["weight_max_abs_diff"] <= 2 * TP_STEPS[m] * recipes.default_train_config(m).lr, (m, r)
-        assert r["pth_keys_unsharded"], m
-    rs = res["resume"]
-    assert rs["dp2tp2_in_one"] == [True] and rs["dp2tp2_in_one_epochs"] == 2, rs
-    assert rs["dp2tp2_at_tp2"] == [[True], [True]] and rs["dp2tp2_at_tp2_epochs"] == [2, 2], rs
-    return {f"train_tp_{m}": {k: sum(r[k] for r in res[m]["launches_per_rank"]) for k in NO_LAUNCHES}
-            for m in TP_MODELS}
-
-
-def int8_tp_slice(report: dict, smi: str) -> dict:
+def int8_tp_slice(report: dict, smi: str, unsharded: dict, scales: dict) -> dict:
     """Phase 18c: the server's ``--int8 --tp`` configuration (static int8)
     at tp 2 on the one card (``devices=["cuda:0"] * 2``) against the
     unsharded static-int8 engine, 512², fp32 evals, TF32 off, fused requests
@@ -3536,55 +3680,51 @@ def int8_tp_slice(report: dict, smi: str) -> dict:
     engine calibrated (calibrated whole, then split): ``n_tp_sharded``, 3
     requests through ``process_all`` (48 flash forward and 120 ln2d
     launches each), each path's, the fused and the turbo functions' max abs
-    difference (``INT8_TP_BOUND``). Returns the requests' launches."""
+    difference (``INT8_TP_BOUND``). The unsharded engine serves ``scales``,
+    phase 12's, and stays open in ``unsharded["int8"]`` for phase 19.
+    Returns the requests' launches."""
     set_tf32(False)
     fp32 = dict(diffusion_eval_bf16=False, hybrid_rollout_bf16=False, warmup=False, fused_request=True,
                 adaptive_turbo=True)
     _, cfg = server.config_from_args(["--int8", "--tp"])
     assert cfg.quantize_int8 == "static" and cfg.tensor_parallel, cfg
     t = time.time()
-    plain = InferenceEngine(dataclasses.replace(cfg, tensor_parallel=False, **fp32))
+    with carried_scales(scales):
+        plain = unsharded["int8"] = InferenceEngine(dataclasses.replace(cfg, tensor_parallel=False, **fp32))
     res = {"card": smi, "note": "the tp slices share one card: a correctness run, not a speed result",
-           "unsharded_build_s": time.time() - t, "calibration_ms": plain.calibration_ms}
+           "unsharded_build_s": time.time() - t, "scales": "phase 12's calibration"}
+    with carried_scales(plain.int8_scales):
+        tp = InferenceEngine(dataclasses.replace(cfg, **fp32), devices=["cuda:0"] * 2)
     try:
-        calibrate, scales = engine_module.calibrate_unet_rollout, iter(list(plain.int8_scales.values()))
-        engine_module.calibrate_unet_rollout = lambda *args: next(scales)
-        try:
-            tp = InferenceEngine(dataclasses.replace(cfg, **fp32), devices=["cuda:0"] * 2)
-        finally:
-            engine_module.calibrate_unet_rollout = calibrate
-        try:
-            slices = [s for key in ("unet_eval", "hyb_unet_eval") for m in tp.replicas[0][key].modules()
-                      if isinstance(m, ColumnParallel) for s in m.shards if isinstance(s, qconv.QuantConv2d)]
-            res.update({"mesh_shape": tp.mesh_shape, "n_tp_sharded": tp.n_tp_sharded, "int8_slices": len(slices),
-                        "slices_static_on_their_device": all(
-                            s.mode == "static" and s.act_absmax.device == s.weight.device for s in slices)})
-            pngs = [xray_png(512, 512, seed=6000 + i) for i in range(PARALLEL_REQUESTS)]
-            zero_counts()
-            per_request = []
-            for i, png in enumerate(pngs):
-                before = counts()
-                out = tp.process_all(_png_array(png), (512, 512))
-                per_request.append(since(before))
-                assert all(out[n] is not None for n in MODEL_NAMES), f"int8 tp request {i}: a path answered null"
-            launched = counts()
-            x = _png_array(pngs[0])
-            fused_got, fused_want = tp.fused(x), plain.fused(x)
-            res.update({
-                "launches_per_request": per_request,
-                "max_abs_diff": {n: float(np.abs(tp.fns[n](x) - plain.fns[n](x)).max()) for n in MODEL_NAMES},
-                "fused_max_abs_diff": {n: float(np.abs(fused_got[n] - fused_want[n]).max()) for n in MODEL_NAMES},
-                "turbo_max_abs_diff": {n: float(np.abs(tp.turbo_fns[n](x) - plain.turbo_fns[n](x)).max())
-                                       for n in tp.turbo_fns},
-                "bound": INT8_TP_BOUND,
-                "paths": {e: {n: {k: p[k] for k in ("wall_p50_ms", "device_ms", "idle_share")}
-                              for n, p in path_times(eng, x, ("diffusion", "hybrid")).items()}
-                          for e, eng in (("int8_tp2", tp), ("int8_unsharded", plain))},
-            })
-        finally:
-            tp.close()
+        slices = [s for key in ("unet_eval", "hyb_unet_eval") for m in tp.replicas[0][key].modules()
+                  if isinstance(m, ColumnParallel) for s in m.shards if isinstance(s, qconv.QuantConv2d)]
+        res.update({"mesh_shape": tp.mesh_shape, "n_tp_sharded": tp.n_tp_sharded, "int8_slices": len(slices),
+                    "slices_static_on_their_device": all(
+                        s.mode == "static" and s.act_absmax.device == s.weight.device for s in slices)})
+        pngs = [xray_png(512, 512, seed=6000 + i) for i in range(PARALLEL_REQUESTS)]
+        zero_counts()
+        per_request = []
+        for i, png in enumerate(pngs):
+            before = counts()
+            out = tp.process_all(_png_array(png), (512, 512))
+            per_request.append(since(before))
+            assert all(out[n] is not None for n in MODEL_NAMES), f"int8 tp request {i}: a path answered null"
+        launched = counts()
+        x = _png_array(pngs[0])
+        fused_got, fused_want = tp.fused(x), plain.fused(x)
+        res.update({
+            "launches_per_request": per_request,
+            "max_abs_diff": {n: float(np.abs(tp.fns[n](x) - plain.fns[n](x)).max()) for n in MODEL_NAMES},
+            "fused_max_abs_diff": {n: float(np.abs(fused_got[n] - fused_want[n]).max()) for n in MODEL_NAMES},
+            "turbo_max_abs_diff": {n: float(np.abs(tp.turbo_fns[n](x) - plain.turbo_fns[n](x)).max())
+                                   for n in tp.turbo_fns},
+            "bound": INT8_TP_BOUND,
+            "paths": {e: {n: {k: p[k] for k in ("wall_p50_ms", "device_ms", "idle_share")}
+                          for n, p in path_times(eng, x, ("diffusion", "hybrid")).items()}
+                      for e, eng in (("int8_tp2", tp), ("int8_unsharded", plain))},
+        })
     finally:
-        plain.close()
+        tp.close()
     report["int8_tp"] = res
     print(json.dumps({"int8_tp": res}), flush=True)
     assert res["mesh_shape"] == {"dp": 1, "sp": 1, "tp": 2} and res["n_tp_sharded"] == TP2_SERVE_SHARDED, res
@@ -3593,6 +3733,150 @@ def int8_tp_slice(report: dict, smi: str) -> dict:
     for key in ("max_abs_diff", "fused_max_abs_diff", "turbo_max_abs_diff"):
         assert max(res[key].values()) <= INT8_TP_BOUND, (key, res[key])
     return launched
+
+
+def _max_abs(got: dict, want: dict) -> dict:
+    return {n: float(np.abs(got[n] - want[n]).max()) for n in got}
+
+
+def sp_serving_slice(report: dict, smi: str, unsharded: dict) -> dict:
+    """Phase 19: the engine's ``spatial_parallel`` on the one card, SERVE_*
+    widths, 512², TF32 off, seeded demo weights, against the unsharded
+    engines of phases 17 and 18c (``unsharded``: "fp32" with fused requests
+    and the turbo tier, "default", "int8"): (a) sp 2 (``devices=["cuda:0"]
+    * 2``), fp32 evals, fused and turbo on: 3 requests through
+    ``process_all`` (48 flash forward and 120 ln2d launches each, as
+    unsharded: attention runs whole), the four paths', the fused and the
+    turbo functions' outputs to ``SP_FP32_BOUND``, each path's wall and
+    device time beside the unsharded engine's as phase 17 timed it (not a
+    speed result: the blocks share the card); (b) on 4 slots, sp 2 × tp 2 (``n_tp_sharded``
+    the JAX count, ``TP2_SERVE_SHARDED``) and dp 2 × sp 2 (a 2-row batch),
+    fp32, one request each, to ``SP_FP32_BOUND``; (c) the server's ``--sp
+    2`` configuration (bf16 UNet evals), which answers one request through
+    the stdlib server, against the default engine (``TP_BF16_BOUND`` on the
+    rollout paths); (d) ``--int8`` at sp 2 on the unsharded int8 engine's
+    scales, one request, every path to ``INT8_TP_BOUND``; (e) ``sp_size=64``
+    at 512² (the deepest map has 32 rows) raises the JAX engine's
+    ``ValueError``. Returns each engine's requests' launches."""
+    set_tf32(False)
+    fp32 = dict(diffusion_eval_bf16=False, hybrid_rollout_bf16=False, warmup=False)
+    two, four = ["cuda:0"] * 2, ["cuda:0"] * 4
+    pngs = [xray_png(512, 512, seed=7000 + i) for i in range(PARALLEL_REQUESTS)]
+    x2 = np.concatenate([_png_array(png) for png in pngs[:2]])
+    x = x2[:1]
+    plain = unsharded["fp32"]
+    want = {n: plain.fns[n](x) for n in MODEL_NAMES}
+    res = {"card": smi, "note": "the sp blocks share one card: a correctness run, not a speed result"}
+    launched = {}
+    t = time.time()
+    sp = InferenceEngine(EngineConfig(**fp32, fused_request=True, adaptive_turbo=True, spatial_parallel=True,
+                                      sp_size=2), devices=two)
+    res["engine_build_s"] = time.time() - t
+    try:
+        zero_counts()
+        per_request = []
+        for i, png in enumerate(pngs):
+            before = counts()
+            out = sp.process_all(_png_array(png), (512, 512))
+            per_request.append(since(before))
+            assert all(out[n] is not None for n in MODEL_NAMES), f"sp request {i}: a path answered null"
+        launched["serve_sp"] = counts()
+        res["sp"] = {"mesh_shape": sp.mesh_shape,
+                     "row_split_layers": sum(isinstance(m, RowParallel) for m in sp.replicas[0]["unet_eval"].modules()),
+                     "launches_per_request": per_request,
+                     "max_abs_diff": _max_abs({n: sp.fns[n](x) for n in MODEL_NAMES}, want),
+                     "fused_max_abs_diff": _max_abs(sp.fused(x), plain.fused(x)),
+                     "turbo_max_abs_diff": {n: float(np.abs(sp.turbo_fns[n](x) - plain.turbo_fns[n](x)).max())
+                                            for n in sp.turbo_fns},
+                     "bound": SP_FP32_BOUND}
+        res["sp"]["paths"] = {  # the unsharded engine's: phase 17's times of it, on an image of that phase
+            "sp2": {n: {k: p[k] for k in ("wall_p50_ms", "device_ms", "idle_share", "peak_gib")}
+                    for n, p in path_times(sp, x).items()},
+            "unsharded": report["parallel_serving"]["tp"]["paths"]["unsharded"]}
+    finally:
+        sp.close()
+    print(json.dumps({"sp_serving": res["sp"]}), flush=True)
+
+    for key, flags, xin in (("sp_tp", dict(tensor_parallel=True, tp_size=2), x),
+                            ("dp_sp", dict(data_parallel=True), x2)):
+        eng = InferenceEngine(EngineConfig(**fp32, spatial_parallel=True, sp_size=2, **flags), devices=four)
+        try:
+            zero_counts()
+            got = {n: eng.fns[n](xin) for n in MODEL_NAMES}
+            launched[f"serve_{key}"] = counts()
+            res[key] = {"mesh_shape": eng.mesh_shape, "n_tp_sharded": eng.n_tp_sharded,
+                        "launches": launched[f"serve_{key}"],
+                        "max_abs_diff": _max_abs(got, {n: plain.fns[n](xin) for n in MODEL_NAMES})}
+        finally:
+            eng.close()
+        print(json.dumps({f"sp_serving_{key}": res[key]}), flush=True)
+
+    _, cfg = server.config_from_args(["--sp", "2"])
+    assert cfg.spatial_parallel and cfg.sp_size == 2, cfg
+    eng = InferenceEngine(cfg, devices=two)  # on one card the server's own device list is one card: a no-op
+    try:
+        with serving(eng) as addr:
+            zero_counts()
+            status = post_status(addr, pngs[2], (512, 512))
+            launched["serve_sp_server"] = counts()
+        default = unsharded["default"]
+        res["server_sp"] = {"mesh_shape": eng.mesh_shape, "status": status["status"],
+                            "launches": launched["serve_sp_server"],
+                            "max_abs_diff": _max_abs({n: eng.fns[n](x) for n in MODEL_NAMES},
+                                                     {n: default.fns[n](x) for n in MODEL_NAMES}),
+                            "bound": {"diffusion": TP_BF16_BOUND, "hybrid": TP_BF16_BOUND,
+                                      "nafnet": SP_FP32_BOUND, "expert": SP_FP32_BOUND}}
+    finally:
+        eng.close()
+    print(json.dumps({"sp_serving_server": res["server_sp"]}), flush=True)
+
+    int8 = unsharded["int8"]
+    with carried_scales(int8.int8_scales):
+        eng = InferenceEngine(dataclasses.replace(int8.cfg, spatial_parallel=True, sp_size=2), devices=two)
+    try:
+        zero_counts()
+        got = {n: eng.fns[n](x) for n in MODEL_NAMES}
+        launched["serve_int8_sp"] = counts()
+        res["int8_sp"] = {"mesh_shape": eng.mesh_shape, "launches": launched["serve_int8_sp"],
+                          "max_abs_diff": _max_abs(got, {n: int8.fns[n](x) for n in MODEL_NAMES}),
+                          "bound": INT8_TP_BOUND}
+    finally:
+        eng.close()
+    print(json.dumps({"sp_serving_int8": res["int8_sp"]}), flush=True)
+
+    try:
+        InferenceEngine(EngineConfig(warmup=False, spatial_parallel=True, sp_size=64), devices=["cuda:0"] * 64)
+        res["deepest_error"] = None
+    except ValueError as e:
+        res["deepest_error"] = str(e)
+    report["sp_serving"] = res
+    print(json.dumps({"sp_serving_checks": {k: res[k] for k in ("engine_build_s", "deepest_error")}}), flush=True)
+
+    r = res["sp"]
+    assert r["mesh_shape"] == {"dp": 1, "sp": 2, "tp": 1} and r["row_split_layers"] > 0, r
+    assert all(n == PER_REQUEST for n in r["launches_per_request"]), r["launches_per_request"]
+    for key in ("max_abs_diff", "fused_max_abs_diff", "turbo_max_abs_diff"):
+        assert max(r[key].values()) <= SP_FP32_BOUND, (key, r[key])
+    assert res["sp_tp"]["mesh_shape"] == {"dp": 1, "sp": 2, "tp": 2}, res["sp_tp"]
+    assert res["sp_tp"]["n_tp_sharded"] == TP2_SERVE_SHARDED and res["sp_tp"]["launches"] == PER_REQUEST, res["sp_tp"]
+    assert res["dp_sp"]["mesh_shape"] == {"dp": 2, "sp": 2, "tp": 1}, res["dp_sp"]
+    assert res["dp_sp"]["launches"] == _launches(2 * PER_REQUEST["flash_fwd"], 2 * PER_REQUEST["ln2d"]), res["dp_sp"]
+    for key in ("sp_tp", "dp_sp"):
+        assert max(res[key]["max_abs_diff"].values()) <= SP_FP32_BOUND, (key, res[key])
+    s = res["server_sp"]
+    assert s["mesh_shape"] == {"dp": 1, "sp": 2, "tp": 1} and s["status"] == 200 and s["launches"] == PER_REQUEST, s
+    assert all(s["max_abs_diff"][n] <= s["bound"][n] for n in MODEL_NAMES), s
+    q = res["int8_sp"]
+    assert q["launches"] == PER_REQUEST and max(q["max_abs_diff"].values()) <= INT8_TP_BOUND, q
+    assert res["deepest_error"] == (
+        "spatial_parallel sp=64 exceeds the deepest feature-map height 32 at img_size=512: some shards "
+        "would be empty (wrong results under GSPMD). Lower sp_size."), res["deepest_error"]
+    return launched
+
+
+CPU_CHECKS = (card_vs_cpu, nafnet_card_vs_cpu, cddpm_rollout_card_vs_cpu, tiny_sample_card_vs_cpu,
+              train_step_card_vs_cpu, nafnet_step_card_vs_cpu, expert_step_card_vs_cpu, hybrid_step_card_vs_cpu,
+              cddpm_step_card_vs_cpu, tiny_step_card_vs_cpu, int8_card_vs_cpu)
 
 
 def main(argv=None) -> int:
@@ -3605,7 +3889,7 @@ def main(argv=None) -> int:
                     help="run only the device and build phases and phases 6 and 7 (an A/B of the "
                          "NAFNet kernels); prints no result line")
     ap.add_argument("--dp-rank", default=None, metavar="JOB",
-                    help="(phase 16b's and 18's ranks, under torchrun) run JOB's recipes; prints no result line")
+                    help="(the ranks of phase 18's torchrun launches) run JOB's recipes; prints no result line")
     args = ap.parse_args(argv)
     t_all = time.time()
     phase("device")
@@ -3629,13 +3913,17 @@ def main(argv=None) -> int:
                  ln.SOURCE: ln._SIGNATURES, ffn.SOURCE: ffn._SIGNATURES}
     if args.naf_only:  # phase 7's module forward runs ln2d
         libraries = {ln.SOURCE: ln._SIGNATURES, ffn.SOURCE: ffn._SIGNATURES}
-    with ThreadPoolExecutor(max_workers=len(libraries)) as pool:  # one nvcc per source, all at once
+    cpu_checks = () if args.naf_only else CPU_CHECKS
+    with ThreadPoolExecutor(max_workers=len(libraries) + 1) as pool:  # one nvcc per source, all at once
+        cpu_sides = pool.submit(prefetch_cpu_sides, cpu_checks)  # the CPU halves of phases 9, 10, 12c meanwhile
         for lib in pool.map(lambda src: _build.build(src, verbose=True), libraries):
             print(lib, flush=True)
+        report["build_s"] = time.time() - t
+        report["cpu_sides_s"] = cpu_sides.result()
     for source, signatures in libraries.items():
         _build.library(source, signatures)
-    report["build_s"] = time.time() - t
-    print(json.dumps({"build_s": report["build_s"]}), flush=True)
+    print(json.dumps({"build_s": report["build_s"], "cpu_sides_s": report["cpu_sides_s"],
+                      "both_s": time.time() - t}), flush=True)
 
     if args.naf_only:
         phase("naf_ffn kernel vs plain")
@@ -3714,7 +4002,7 @@ def main(argv=None) -> int:
 
     phase("slice: int8 serving (--int8) at 512²")
     t = time.time()
-    paths["serve_int8"] = int8_serving(report, int8_products(report))
+    paths["serve_int8"], int8_scales = int8_serving(report, int8_products(report))
     int8_card_vs_cpu(report)
     report["phase_12_s"] = time.time() - t
 
@@ -3736,29 +4024,39 @@ def main(argv=None) -> int:
     report["phase_15_s"] = time.time() - t
     print(json.dumps({"phase_15_s": report["phase_15_s"]}), flush=True)
 
-    phase("slice: rematerialisation, and dp 2 through the recipes CLI under torchrun, at 512²")
+    phase("slice: rematerialisation at 512²")
     t = time.time()
     paths["remat"] = remat_slice(report, smi)
-    torch.cuda.empty_cache()  # the ranks share the card
-    paths.update({f"dp_{m}": launched for m, launched in dp_slice(report, smi).items()})
     report["phase_16_s"] = time.time() - t
     print(json.dumps({"phase_16_s": report["phase_16_s"]}), flush=True)
 
-    phase("slice: tensor- and data-parallel serving on the one card at 512²")
-    t = time.time()
-    torch.cuda.empty_cache()
-    paths.update(parallel_serving_slice(report, smi))
-    report["phase_17_s"] = time.time() - t
-    print(json.dumps({"phase_17_s": report["phase_17_s"]}), flush=True)
+    unsharded = {}  # phases 17 and 18c's unsharded engines, which phase 19 holds its engines to
+    try:
+        phase("slice: tensor- and data-parallel serving on the one card at 512²")
+        t = time.time()
+        torch.cuda.empty_cache()
+        paths.update(parallel_serving_slice(report, smi, unsharded))
+        report["phase_17_s"] = time.time() - t
+        print(json.dumps({"phase_17_s": report["phase_17_s"]}), flush=True)
 
-    phase("slice: tensor-parallel training (dp 2 x tp 2 and tp 2) under torchrun, and int8 under tp, at 512²")
-    t = time.time()
-    torch.cuda.empty_cache()  # the ranks share the card
-    paths.update(tp_train_slice(report, smi))
-    torch.cuda.empty_cache()
-    paths["serve_int8_tp"] = int8_tp_slice(report, smi)
-    report["phase_18_s"] = time.time() - t
-    print(json.dumps({"phase_18_s": report["phase_18_s"]}), flush=True)
+        phase("slice: training under torchrun at 512² (dp 2, tp 2, dp 2 x tp 2, sp 2, dp 2 x sp 2; "
+              "phases 16b, 18a-b and 19b in two launches at once), and int8 under tp")
+        t = time.time()
+        torch.cuda.empty_cache()  # the ranks share the card
+        trained, paths["serve_int8_tp"] = parallel_training_slice(
+            report, smi, lambda: int8_tp_slice(report, smi, unsharded, int8_scales))
+        paths.update(trained)
+        report["phase_18_s"] = time.time() - t
+        print(json.dumps({"phase_18_s": report["phase_18_s"]}), flush=True)
+
+        phase("slice: spatial-parallel serving on the one card at 512²")
+        t = time.time()
+        paths.update(sp_serving_slice(report, smi, unsharded))
+        report["phase_19_s"] = time.time() - t
+        print(json.dumps({"phase_19_s": report["phase_19_s"]}), flush=True)
+    finally:
+        for engine in unsharded.values():
+            engine.close()
 
     for entry in entries:
         by_path = {p: launched[entry["name"]] for p, launched in paths.items()}

@@ -54,13 +54,17 @@ def fused_updown(up: ConvTransposeTorch, x: torch.Tensor) -> torch.Tensor:
     training at tp > 1). The convolution reads ``x`` in NCHW: an int8 UNet
     hands it a channels-last activation, and cuDNN's channels-last kernels
     sum a slice of the output channels in another order than the whole
-    convolution (~3e-4 apart on an H100), which int8 rollouts amplify."""
+    convolution (~3e-4 apart on an H100), which int8 rollouts amplify. Its
+    padding is ``up``'s, which for k 4, s 2, p 1 is the fused 3x3's too; a
+    spatial-parallel ``up`` computes it in row blocks of the 3x3
+    convolution, each a copy of ``up`` with no padding along H
+    (``parallel/sp.py``)."""
     if isinstance(up, SplitLayer):
-        return up.map(fused_updown, x)
+        return up.map(fused_updown, x, rows=(3, 1, 1))
     a = torch.tensor(_UPDOWN_A, dtype=up.weight.dtype, device=up.weight.device)
     k = up.weight.flip(-1, -2)  # (I, O, 4, 4), correlation form
     w2 = 0.25 * torch.einsum("ap,bq,iopq->oiab", a, a, k)
-    return F.conv2d(x.contiguous(), w2.to(x.dtype), up.bias.to(x.dtype), padding=1)
+    return F.conv2d(x.contiguous(), w2.to(x.dtype), up.bias.to(x.dtype), padding=up.padding)
 
 
 def _build_specs(cfg: DiffusionUNetConfig) -> Tuple[List, List, int]:

@@ -49,15 +49,17 @@ def quant_mode(quant: Any) -> str:
     return mode
 
 
-def _columns(xq: torch.Tensor, kernel: int, stride: int, padding: int):
-    """im2col of an NCHW tensor as a (B, Ho, Wo, C, kh, kw) view."""
-    if padding:
-        xq = F.pad(xq, (padding,) * 4)
+def _columns(xq: torch.Tensor, kernel: int, stride: int, padding):
+    """im2col of an NCHW tensor as a (B, Ho, Wo, C, kh, kw) view; ``padding``
+    an int, or (along H, along W)."""
+    ph, pw = (padding, padding) if isinstance(padding, int) else padding
+    if ph or pw:
+        xq = F.pad(xq, (pw, pw, ph, ph))
     cols = xq.unfold(2, kernel, stride).unfold(3, kernel, stride)
     return cols.permute(0, 2, 3, 1, 4, 5)
 
 
-def int8_conv2d_plain(xq: torch.Tensor, wq: torch.Tensor, stride: int, padding: int) -> torch.Tensor:
+def int8_conv2d_plain(xq: torch.Tensor, wq: torch.Tensor, stride: int, padding) -> torch.Tensor:
     """int8 (B, C, H, W) x int8 (O, C, k, k) -> int32 (B, O, Ho, Wo): the
     im2col columns multiplied in float64 (exact)."""
     cols = _columns(xq, wq.shape[-1], stride, padding)
@@ -71,7 +73,7 @@ def _pad8(n: int) -> int:
     return -(-n // 8) * 8
 
 
-def int8_conv2d_int_mm(xq: torch.Tensor, wq: torch.Tensor, stride: int, padding: int) -> torch.Tensor:
+def int8_conv2d_int_mm(xq: torch.Tensor, wq: torch.Tensor, stride: int, padding) -> torch.Tensor:
     """The card's form of the int8 convolution, on any device: im2col into
     a zero-padded (M', K') buffer (K' and N' multiples of 8, M' past 16, as
     ``torch._int_mm`` requires of CUDA operands; the zeros add nothing to
@@ -88,7 +90,7 @@ def int8_conv2d_int_mm(xq: torch.Tensor, wq: torch.Tensor, stride: int, padding:
     return y[:m, :n].view(b, ho, wo, n).permute(0, 3, 1, 2)
 
 
-def int8_conv2d(xq: torch.Tensor, wq: torch.Tensor, stride: int, padding: int) -> torch.Tensor:
+def int8_conv2d(xq: torch.Tensor, wq: torch.Tensor, stride: int, padding) -> torch.Tensor:
     """The int8 convolution with int32 sums: ``int8_conv2d_int_mm`` on CUDA
     tensors (counted in ``int8_conv2d.calls``), ``int8_conv2d_plain`` on CPU
     ones."""
@@ -122,8 +124,11 @@ class QuantConv2d(Conv2d):
         self.mode = quant_mode(mode)
         self.register_buffer("act_absmax", None, persistent=False)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        stride, padding = self.stride[0], self.padding[0]
+    def forward(self, x: torch.Tensor, act_absmax: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``act_absmax``: in dynamic mode, the abs-max to quantise ``x``
+        with in place of its own, where ``x`` is a block of rows of a
+        larger input (``parallel/sp.py``)."""
+        stride, padding = self.stride[0], tuple(self.padding)
         bias = None if self.bias is None else self.bias.float()
         if self.mode == "calibrate":
             m = x.float().abs().amax()
@@ -141,7 +146,7 @@ class QuantConv2d(Conv2d):
                 )
             a_s = self.act_absmax.float().clamp_min(1e-8) / 127.0
         else:
-            a_s = x.float().abs().amax().clamp_min(1e-8) / 127.0
+            a_s = (x.float().abs().amax() if act_absmax is None else act_absmax).clamp_min(1e-8) / 127.0
         y = int8_conv2d(quantize(x, a_s), wq, stride, padding)
         out = y.float() * (a_s * w_s)[None, :, None, None]
         if bias is not None:

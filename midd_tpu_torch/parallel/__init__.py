@@ -1,13 +1,13 @@
 """Parallelism of the port (counterpart of ``midd_tpu/parallel``):
-data- and tensor-parallel training over ``torch.distributed``, one process
-per rank, and the tensor-parallel layout of the serving engine, in one
-process over local devices. ``image_sharding`` (sp) is not exported: it raises until
-ROADMAP.md queue 1 item 15c ports it. ``host_local_batch_to_global`` has no
-counterpart (``multihost``'s docstring says why)."""
+data-, tensor- and spatial-parallel training over ``torch.distributed``,
+one process per rank, and the tensor- and spatial-parallel layout of the
+serving engine, in one process over local devices. ``host_local_batch_to_global``
+has no counterpart (``multihost``'s docstring says why)."""
 
 from midd_tpu_torch.parallel.mesh import (  # noqa: F401
     batch_sharding,
     count_tp_sharded,
+    image_sharding,
     make_mesh,
     mesh_layout,
     param_shardings,
@@ -18,6 +18,13 @@ from midd_tpu_torch.parallel.multihost import (  # noqa: F401
     make_hybrid_mesh,
     mesh_fabric_report,
     process_batch_slice,
+)
+from midd_tpu_torch.parallel.sp import (  # noqa: F401
+    RankRowParallel,
+    RowParallel,
+    row_blocks,
+    shard_rows,
+    shard_rows_over_group,
 )
 from midd_tpu_torch.parallel.tp import (  # noqa: F401
     ColumnParallel,

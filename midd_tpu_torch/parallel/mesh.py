@@ -11,11 +11,15 @@ Axes, as in the JAX package: dp shards the batch; sp the image rows; tp the
 convolutions' output channels. Mesh policy: tp is the largest of (4, 2, 1)
 dividing the device count (over sp) when it is not given; dp gets the rest.
 
-Ported: dp (the batch rows that one dp rank holds are ``batch_sharding``'s,
-replicated over tp) and tp's layout rule (``param_shardings``,
+dp: the batch rows that one dp rank holds are ``batch_sharding``'s,
+replicated over sp and tp. tp: the layout rule (``param_shardings``,
 ``count_tp_sharded``), which ``parallel/tp.py`` applies: over local devices
-in the engine, over the mesh's tp group in the trainer. Not ported yet: sp
-(``image_sharding``, ROADMAP.md queue 1 item 15c): it raises.
+in the engine, over the mesh's tp group in the trainer. sp: a rank's batch
+rows and its index along sp (``image_sharding``); ``parallel/sp.py`` splits
+the convolutions' output rows over the engine's sp devices or the
+trainer's sp group. The trainer takes sp or tp, not both yet
+(``check_mesh_shape``, ROADMAP.md queue 1 item 15d); the engine composes
+them.
 """
 
 from __future__ import annotations
@@ -28,7 +32,8 @@ import torch.distributed as dist
 import torch.nn as nn
 
 AXES = ("dp", "sp", "tp")
-SP_MESSAGE = "spatial parallelism (sp > 1) is not ported yet: ROADMAP.md queue 1 item 15c"
+SP_TP_MESSAGE = ("training at sp > 1 and tp > 1 together is not ported yet: ROADMAP.md queue 1 item 15d "
+                 "(train at (dp, sp, 1) or (dp, 1, tp))")
 
 
 def mesh_layout(n_devices: Optional[int] = None, tp: Optional[int] = None, sp: int = 1,
@@ -96,8 +101,13 @@ def process_rows(global_batch: int, n: int, index: int) -> Tuple[int, int]:
     return index * per, per
 
 
-def image_sharding(*args, **kwargs):
-    raise NotImplementedError(SP_MESSAGE)
+def image_sharding(global_batch: int, mesh) -> Tuple[int, int, int, int]:
+    """The JAX package's ``P("dp", "sp")`` for the calling rank: (start_row,
+    n_rows) of the global batch over dp (``batch_sharding``), and the
+    rank's index along sp and the sp size, by which ``parallel/sp.py``
+    picks the image rows it computes."""
+    start, n = batch_sharding(global_batch, mesh)
+    return start, n, mesh.get_local_rank("sp"), mesh.size(AXES.index("sp"))
 
 
 def _channel_dim(owner: nn.Module, name: str) -> int:
@@ -132,11 +142,11 @@ def count_tp_sharded(shardings: Dict[str, Optional[int]]) -> int:
 
 
 def check_mesh_shape(mesh_shape: Sequence[int]) -> Tuple[int, int, int]:
-    """(dp, sp, tp) of a mesh shape the port can train on; sp > 1 raises,
-    naming the ROADMAP item."""
+    """(dp, sp, tp) of a mesh shape the port can train on; sp > 1 with
+    tp > 1 raises, naming the ROADMAP item."""
     dp, sp, tp = (int(x) for x in mesh_shape)
-    if sp > 1:
-        raise NotImplementedError(SP_MESSAGE)
+    if sp > 1 and tp > 1:
+        raise NotImplementedError(SP_TP_MESSAGE)
     if min(dp, sp, tp) < 1:
         raise ValueError(f"mesh_shape {tuple(mesh_shape)}: every axis needs at least 1 device")
     return dp, sp, tp

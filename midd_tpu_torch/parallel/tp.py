@@ -44,7 +44,7 @@ NCCL both run on the tensors of their devices.
 from __future__ import annotations
 
 import copy
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import torch
@@ -113,14 +113,18 @@ def _split_geometry(layer: nn.Module, tp: int):
 
 
 class SplitLayer(nn.Module):
-    """A layer whose output channels are computed in slices and gathered:
+    """A layer computed in pieces and gathered: its output channels in
+    slices here, its output rows in blocks in ``parallel/sp.py``.
     ``forward`` is ``map`` of the layer's own forward, and
-    ``models/unet_diffusion.fused_updown`` maps its fused convolution so."""
+    ``models/unet_diffusion.fused_updown`` maps its fused convolution so,
+    naming that convolution's (kernel, stride, padding) along H in ``rows``
+    (which a row split reads and a channel split ignores)."""
 
     # the activation's channel axis: NCHW's 1, a Linear's last
     channel_dim: int = 1
 
-    def map(self, fn: Callable[[nn.Module, torch.Tensor], torch.Tensor], x: torch.Tensor) -> torch.Tensor:
+    def map(self, fn: Callable[[nn.Module, torch.Tensor], torch.Tensor], x: torch.Tensor,
+            rows: Optional[tuple] = None) -> torch.Tensor:
         raise NotImplementedError
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -143,7 +147,8 @@ class ColumnParallel(SplitLayer):
             _slice_layer(layer, dim, i * per, (i + 1) * per, d) for i, d in enumerate(self.devices)
         )
 
-    def map(self, fn: Callable[[nn.Module, torch.Tensor], torch.Tensor], x: torch.Tensor) -> torch.Tensor:
+    def map(self, fn: Callable[[nn.Module, torch.Tensor], torch.Tensor], x: torch.Tensor,
+            rows: Optional[tuple] = None) -> torch.Tensor:
         """``fn(shard, x)`` for each slice on its device, gathered onto
         ``x``'s device."""
         if torch.is_grad_enabled():
@@ -284,7 +289,8 @@ class RankColumnParallel(SplitLayer):
         self.shard = _slice_layer(layer, dim, rank * per, (rank + 1) * per, layer.weight.device,
                                   trainable=layer.weight.requires_grad)
 
-    def map(self, fn: Callable[[nn.Module, torch.Tensor], torch.Tensor], x: torch.Tensor) -> torch.Tensor:
+    def map(self, fn: Callable[[nn.Module, torch.Tensor], torch.Tensor], x: torch.Tensor,
+            rows: Optional[tuple] = None) -> torch.Tensor:
         x = copy_in(x, self.group)
         xi = x if self.in_slice is None else x.narrow(1, *self.in_slice)
         return gather_over_group(fn(self.shard, xi), self.channel_dim, self.group)
@@ -313,7 +319,10 @@ class RankShards:
     parameters in ``parameters()`` order (a single-process optimizer's
     indices); ``local``: each key's name in the split module; ``dims``: the
     dim along which this rank holds a slice of each key (None: whole).
-    ``n_sharded``: the rule's ``count_tp_sharded``."""
+    ``n_sharded``: the rule's ``count_tp_sharded``. ``summed``: the
+    parameters whose gradient each rank computes for its part of the
+    output only, to be summed over the group (a row split's,
+    ``parallel/sp.py``; none under tp)."""
 
     module: nn.Module
     group: Any
@@ -322,6 +331,7 @@ class RankShards:
     local: Dict[str, str]
     dims: Dict[str, Optional[int]]
     n_sharded: int
+    summed: List[str] = field(default_factory=list)
 
     def params(self) -> List[nn.Parameter]:
         """This rank's trainable parameters, in the unsharded module's order."""
@@ -331,6 +341,10 @@ class RankShards:
     def param_dims(self) -> List[Optional[int]]:
         """``dims`` of each of ``params()``."""
         return [self.dims[n] for n in self.param_names]
+
+    def param_summed(self) -> List[bool]:
+        """Whether each of ``params()`` is in ``summed``."""
+        return [n in self.summed for n in self.param_names]
 
     def _gather(self, t: torch.Tensor, dim: Optional[int]) -> torch.Tensor:
         return t if dim is None else _all_gather(t, dim, self.group)

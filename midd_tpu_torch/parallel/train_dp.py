@@ -33,14 +33,23 @@ they are equal in exact arithmetic, but a backward kernel that sums with
 atomics (the bilinear resize's on CUDA) leaves them a last bit apart, and
 the replicas would drift. The clip takes the norm of the whole, unsharded
 gradient, summing the slices' squares over the tp group
-(``trainer.global_norm``). Meshes with sp > 1 raise (ROADMAP.md queue 1
-item 15c).
+(``trainer.global_norm``).
+
+At sp > 1 the model's convolutions are row-split over the mesh's sp group
+(``parallel/sp.py::shard_rows_over_group``): the ranks of an sp group hold
+the same rows of the batch and the same whole parameters, and compute the
+same loss. Each rank's gradient of a row-split layer covers its block of
+output rows only, so those gradients are summed over the sp group; the
+others, equal in exact arithmetic, are averaged, with the loss, in the
+same ``all_reduce``. The dp mean follows, and the clip takes the plain
+norm of the result, which is the whole gradient's. A mesh with sp > 1 and
+tp > 1 raises (ROADMAP.md queue 1 item 15d).
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Callable, List
+from typing import Callable, List, Optional
 
 import torch
 import torch.distributed as dist
@@ -91,6 +100,12 @@ def tp_group(mesh):
     return _axis_group(mesh, "tp")
 
 
+def sp_group(mesh):
+    """The process group of the mesh's sp axis, or None where there is no
+    mesh or sp is 1 (this process computes every row)."""
+    return _axis_group(mesh, "sp")
+
+
 def sync_batch_stats(model: nn.Module, group) -> None:
     """Make every ``BatchNorm2d`` of ``model`` take its train-mode
     statistics over ``group``'s global batch (None: this process's batch)."""
@@ -100,21 +115,24 @@ def sync_batch_stats(model: nn.Module, group) -> None:
             m.sum_over_ranks = reduce
 
 
-def average_gradients(loss: torch.Tensor, params: List[nn.Parameter], group) -> torch.Tensor:
-    """Replace each parameter's ``.grad`` by its mean over ``group`` and
-    return the mean loss, in one ``all_reduce``; with no group, ``loss``.
-    Every rank must hold gradients for the same parameters."""
+def average_gradients(loss: torch.Tensor, params: List[nn.Parameter], group,
+                      summed: Optional[List[bool]] = None) -> torch.Tensor:
+    """Replace each parameter's ``.grad`` by its mean over ``group`` (its
+    sum, where ``summed`` flags it) and return the mean loss, in one
+    ``all_reduce``; with no group, ``loss``. Every rank must hold gradients
+    for the same parameters."""
     if group is None:
         return loss
-    grads = [p.grad for p in params if p.grad is not None]
-    flat = torch.cat([loss.detach().reshape(1).float(), *(g.reshape(-1) for g in grads)])
+    held = [(p.grad, s) for p, s in zip(params, summed or [False] * len(params)) if p.grad is not None]
+    flat = torch.cat([loss.detach().reshape(1).float(), *(g.reshape(-1) for g, _ in held)])
     dist.all_reduce(flat, group=group)
-    flat /= dist.get_world_size(group)
+    n = dist.get_world_size(group)
     offset = 1
-    for g in grads:
-        g.copy_(flat[offset : offset + g.numel()].view_as(g))
+    for g, s in held:
+        part = flat[offset : offset + g.numel()].view_as(g)
+        g.copy_(part if s else part / n)
         offset += g.numel()
-    return flat[0]
+    return flat[0] / n
 
 
 def make_sharded_train_step(loss_fn: Callable, optimizer: torch.optim.Optimizer, model: nn.Module,
@@ -130,17 +148,17 @@ def make_sharded_train_step(loss_fn: Callable, optimizer: torch.optim.Optimizer,
     a gradient. ``mesh=None`` or dp 1: the single-process step. Sets
     ``model``'s BatchNorm statistics to the global batch's
     (``sync_batch_stats``). ``shards``: the ``RankShards`` of a ``model``
-    split over the mesh's tp group, whose ``params()`` are the trained
-    ones."""
+    split over the mesh's tp group, or row-split over its sp group, whose
+    ``params()`` are the trained ones."""
     from midd_tpu_torch.train.trainer import finite_update  # the trainer imports this module
 
     group = dp_group(mesh)
     sync_batch_stats(model, group)
     if shards is None:
-        params, sliced = [p for p in model.parameters() if p.requires_grad], None
+        params, sliced, summed = [p for p in model.parameters() if p.requires_grad], None, None
     else:
-        params, sliced = shards.params(), [d is not None for d in shards.param_dims()]
-    tp = tp_group(mesh)
+        params, sliced, summed = shards.params(), [d is not None for d in shards.param_dims()], shards.param_summed()
+    tp, sp = tp_group(mesh), sp_group(mesh)
     whole = params if sliced is None else [p for p, s in zip(params, sliced) if not s]
 
     def step(batch, draw, *args) -> torch.Tensor:
@@ -148,7 +166,8 @@ def make_sharded_train_step(loss_fn: Callable, optimizer: torch.optim.Optimizer,
         optimizer.zero_grad(set_to_none=True)
         loss, _ = loss_fn(model, batch, draw, *args)
         loss.backward()
-        loss = average_gradients(loss.detach(), params, group)
+        loss = average_gradients(loss.detach(), params, sp, summed)
+        loss = average_gradients(loss, params, group)
         loss = average_gradients(loss, whole, tp)
         finite_update(loss, params, optimizer, grad_clip, sliced, tp)
         return loss

@@ -29,26 +29,32 @@ stage in a space-to-depth layout, and its UNets stage 0 so unless int8
 TPU's 128 lanes with the same function and parameters, not ported: the port
 computes the plain layouts, and ``serving_mode()["layout"]`` says so.
 
-``data_parallel`` and ``tensor_parallel`` lay the engine's devices
-(``devices``: by default every local card, or the CPU) out as the JAX
-engine lays out its mesh, without sp: ``tensor_parallel`` alone takes every
-device as tp (dp 1, so batch-1 requests work); with ``data_parallel`` the
-(4, 2, 1) rule of ``parallel/mesh.py`` picks tp; ``tp_size`` sets it. Each
-dp group holds a replica of every model, run on a thread of its own, and
-takes an equal part of a batch's rows (a batch whose rows do not divide
-over dp raises; under batching the buckets round up to multiples of dp).
-Within a replica the layers that the tp rule splits compute each
-output-channel slice on its tp device, and the slices are gathered onto the
-replica's first device, where everything else runs (``parallel/tp.py``).
-With one device, or neither flag, there is no mesh and nothing changes.
+``data_parallel``, ``tensor_parallel`` and ``spatial_parallel`` lay the
+engine's devices (``devices``: by default every local card, or the CPU) out
+as the JAX engine lays out its mesh: ``tensor_parallel`` alone takes every
+device (over sp) as tp, ``spatial_parallel`` alone takes as many as the
+deepest feature map has rows as sp (dp 1 either way, so batch-1 requests
+work); with ``data_parallel`` the (4, 2, 1) rule of ``parallel/mesh.py``
+picks tp and sp defaults to 2; ``tp_size`` and ``sp_size`` set them. An sp
+larger than the deepest feature map's rows raises the JAX engine's
+``ValueError``, the depth read from the architectures that the checkpoints'
+metadata resolve. Each dp group holds a replica of every model, run on a
+thread of its own, and takes an equal part of a batch's rows (a batch whose
+rows do not divide over dp raises; under batching the buckets round up to
+multiples of dp). Within a replica the layers that the tp rule splits
+compute each output-channel slice on its tp device (``parallel/tp.py``),
+and every convolution computes each block of its output rows on its sp
+device (``parallel/sp.py``; both at once on the (sp, tp) grid); the pieces
+are gathered onto the replica's first device, where everything else runs.
+With one device, or no such flag, there is no mesh and nothing changes.
 
 int8 under ``tensor_parallel`` keeps the JAX engine's order: each UNet is
 calibrated whole, then split; a slice of a ``QuantConv2d`` keeps the
 layer's activation scale (on the slice's device) and computes its weight
 scales from its own output channels, which are the whole layer's.
 
-Left out, so asking for them fails: sp parallel serving (ROADMAP.md queue 1
-item 15c), AOT pinning and the persistent compilation cache (item 16).
+Left out, so asking for them fails: AOT pinning and the persistent
+compilation cache (ROADMAP.md queue 1 item 16).
 """
 
 from __future__ import annotations
@@ -79,6 +85,7 @@ from midd_tpu_torch.models.nafnet import EnhancedNAFNet
 from midd_tpu_torch.models.unet_diffusion import UNetDiffusion
 from midd_tpu_torch.ops.qconv import calibrate_unet_rollout, load_qscales, with_quant_mode
 from midd_tpu_torch.parallel.mesh import AXES, count_tp_sharded, mesh_layout, param_shardings
+from midd_tpu_torch.parallel.sp import shard_rows
 from midd_tpu_torch.parallel.tp import shard_params
 from midd_tpu_torch.serve.batching import MicroBatcher
 from midd_tpu_torch.serve.codec import tensor_to_base64_png
@@ -158,6 +165,11 @@ class EngineConfig:
     # tp size; None = every device when tensor_parallel alone (dp 1), else
     # the (4, 2, 1) rule with data_parallel
     tp_size: Optional[int] = None
+    # every convolution's output rows split over the sp devices (one image
+    # split: the batch-1 latency lever); composes with dp and tp. sp_size
+    # None: alone, every device up to the deepest feature map's rows, else 2
+    spatial_parallel: bool = False
+    sp_size: Optional[int] = None
 
 
 def _eps_kwargs(setting) -> Dict[str, Any]:
@@ -212,15 +224,15 @@ class InferenceEngine:
         if cfg.use_flash_attention is None:
             cfg = dataclasses.replace(cfg, use_flash_attention=self.device.type == "cuda")
         self.cfg = cfg
-        self.mesh = self._layout(devices)
+        self._pth_cache: Dict[str, Dict] = {}
+        self.meta: Dict[str, Dict] = {}
+        self.mesh = self._layout(devices)  # sp's guard reads the checkpoints' metadata
         if self.mesh is not None:
             self.device = self.mesh[0, 0, 0]
         self.n_tp_sharded = 0
         # static int8: each calibrated UNet's scales and calibration time
         self.int8_scales: Dict[str, Dict[str, torch.Tensor]] = {}
         self.calibration_ms: Dict[str, float] = {}
-        self._pth_cache: Dict[str, Dict] = {}
-        self.meta: Dict[str, Dict] = {}
         self.loaded: Dict[str, bool] = {n: False for n in MODEL_NAMES}
         self.fns: Dict[str, Callable[[np.ndarray], np.ndarray]] = {}
         self.path_ms: Dict[str, Deque[float]] = {
@@ -239,7 +251,8 @@ class InferenceEngine:
 
     def _layout(self, devices: Optional[Sequence]) -> Optional[np.ndarray]:
         """The (dp, sp, tp) array of devices of the JAX engine's mesh rule
-        (sp 1), or None: no parallel flag, or one device."""
+        (``midd_tpu/serve/engine.py:420-482``), or None: no parallel flag,
+        or one device."""
         cfg = self.cfg
         if devices is None:
             cards = torch.cuda.device_count() if self.device.type == "cuda" else 0
@@ -248,14 +261,41 @@ class InferenceEngine:
         if any(d.type != self.device.type for d in devices):
             raise ValueError(f"devices {devices} are not all of EngineConfig.device's type {self.device.type}")
         n = len(devices)
-        if not (cfg.data_parallel or cfg.tensor_parallel) or n == 1:
+        if not (cfg.data_parallel or cfg.tensor_parallel or cfg.spatial_parallel) or n == 1:
             return None
+        sp = 1
+        if cfg.spatial_parallel:
+            deepest = self._deepest_rows()
+            sp = cfg.sp_size or (min(n, deepest) if not (cfg.data_parallel or cfg.tensor_parallel) else 2)
+            if sp > deepest:
+                raise ValueError(
+                    f"spatial_parallel sp={sp} exceeds the deepest "
+                    f"feature-map height {deepest} at img_size="
+                    f"{cfg.img_size}: some shards would be empty "
+                    f"(wrong results under GSPMD). Lower sp_size."
+                )
         tp = 1
         if cfg.tensor_parallel:
             tp = cfg.tp_size
             if tp is None and not cfg.data_parallel:
-                tp = n  # dp 1: batch-1 requests work
-        return mesh_layout(n if cfg.data_parallel else tp, tp, ranks=devices)
+                tp = n // sp  # dp 1: batch-1 requests work
+        # spatial- or tensor-alone modes keep dp 1, even if devices idle
+        return mesh_layout(n if cfg.data_parallel else sp * tp, tp, sp, ranks=devices)
+
+    def _deepest_rows(self) -> int:
+        """The deepest feature map's rows at ``img_size``, over the
+        architectures that the checkpoints' metadata resolve (the NAFNets'
+        encoder stages, the UNets' downsamplings, and at least the expert's
+        and the router's 2), as the JAX engine's sp guard reads them."""
+        cfg = self.cfg
+        hmeta = self._peek_meta("hybrid")
+        naf = self._nafnet_cfg_from_meta(self._peek_meta("nafnet"), cfg.nafnet_cfg)
+        hyb_naf = self._nafnet_cfg_from_meta(hmeta.get("nafnet_params", {}) or {}, cfg.nafnet_cfg)
+        diff = self._diffusion_cfg_from_meta(self._peek_meta("diffusion"), cfg.diffusion_cfg)
+        hyb_mult = tuple((hmeta.get("diffusion_params") or {}).get("channel_mult", cfg.diffusion_cfg.channel_mult))
+        n_downs = max(len(naf.enc_blk_nums), len(hyb_naf.enc_blk_nums), len(diff.channel_mult) - 1,
+                      len(hyb_mult) - 1, 2)
+        return max(1, cfg.img_size >> n_downs)
 
     @property
     def mesh_shape(self) -> Optional[Dict[str, int]]:
@@ -572,14 +612,15 @@ class InferenceEngine:
 
         # The models the paths run, laid out as the JAX engine lays out its
         # weights over the mesh: one replica of them a dp group, each with
-        # the layers that the tp rule splits sharded over its tp devices
-        # (cast and int8-calibrated first, so that the slices hold the cast
-        # weights and the calibrated scales).
+        # the layers that the tp rule splits sharded over its tp devices,
+        # then every convolution's rows over its sp devices (cast and
+        # int8-calibrated first, so that the pieces hold the cast weights and
+        # the calibrated scales).
         models = {"unet_eval": unet_eval, "hyb_unet_eval": hyb_unet_eval, "naf": naf, "hyb_naf": hyb_naf,
                   "expert": expert, "hyb_expert": hyb_expert, "router": router, "fusion": fusion}
         replicas = [models]
         if self.mesh is not None:
-            dp, _, tp = self.mesh.shape
+            dp, sp, tp = self.mesh.shape
             # the weight trees whose split leaves the JAX engine counts
             trees = [unet, naf, expert, router, fusion] + [groups[g] for g in ("nafnet", "diffusion_unet")
                                                            if g in groups]
@@ -593,6 +634,8 @@ class InferenceEngine:
                     mod.to(tp_devices[0])
                     if tp > 1:
                         shard_params(mod, tp_devices, cfg.tp_min_size)
+                    if sp > 1:
+                        shard_rows(mod, list(self.mesh[r]))
         self.replicas: List[Dict[str, Optional[nn.Module]]] = replicas
         built = []
         for r, ms in enumerate(replicas):
@@ -736,6 +779,15 @@ class InferenceEngine:
                     self._fused_failures += 1
                 log.log("fused_dispatch_failed", error=str(e))
         return self._on_device_thread(self._run_all, x), "per_path"
+
+    def process_one(self, name: str, x: np.ndarray, original_size) -> Optional[str]:
+        """Run one model path; returns base64 PNG or raises. Logs the JAX
+        engine's ``request`` event (``midd_tpu/serve/engine.py:1148-1154``)."""
+        t0 = time.time()
+        out = self.fns[name](x)
+        result = tensor_to_base64_png(out, original_size)
+        log.latency("request", time.time() - t0, model=name)
+        return result
 
     def process_all(self, x: np.ndarray, original_size) -> Dict[str, Optional[str]]:
         """All four paths with per-path failure isolation (run.py:85-101): a

@@ -15,8 +15,8 @@ Run: ``python -m midd_tpu_torch.serve.server --port 8000`` (on the GPU;
 ``--device cpu`` runs on the CPU), e.g. with ``--batching --adaptive
 --max-queue 6``, ``--int8`` (static int8 convolutions in the diffusion
 UNets, calibrated at startup), ``--img-size 1024``, or ``--dp`` / ``--tp``
-(data- and tensor-parallel serving over the local cards; on one card both
-are no-ops, as in the JAX server).
+/ ``--sp N`` (data-, tensor- and spatial-parallel serving over the local
+cards; on one card each is a no-op, as in the JAX server).
 """
 
 from __future__ import annotations
@@ -161,6 +161,9 @@ def config_from_args(argv=None):
     ap.add_argument("--tp", action="store_true",
                     help="tensor-parallel serving: large conv kernels split over the local "
                          "cards (output channels)")
+    ap.add_argument("--sp", type=int, default=0, metavar="N",
+                    help="spatial-parallel serving: image rows sharded over N "
+                         "devices (batch-1 latency; 0 = off, -1 = auto)")
     ap.add_argument("--fused", action="store_true",
                     help="all four paths of a request in one fused function, "
                          "sharing the hybrid's backends where their weights are the same")
@@ -191,6 +194,8 @@ def config_from_args(argv=None):
         batch_buckets=tuple(int(b) for b in args.buckets.split(",")) if args.buckets else "auto",
         data_parallel=args.dp,
         tensor_parallel=args.tp,
+        spatial_parallel=args.sp != 0,
+        sp_size=args.sp if args.sp > 0 else None,
         adaptive_turbo=args.adaptive,
         adaptive_queue_depth=args.queue_depth,
         max_queue_depth=args.max_queue,

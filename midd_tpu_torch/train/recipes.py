@@ -31,15 +31,18 @@ weights; the port's serving engine reads each of them.
 CLI:
     python -m midd_tpu_torch.train.recipes --model diffusion|nafnet|expert|hybrid|cddpm|tiny \\
         --clear-dir data/clean --noisy-dirs data/noisy [--device cuda|cpu] \\
-        [--nafnet-ckpt N.pth --diffusion-ckpt D.pth] [--mesh DP,1,TP] ...
+        [--nafnet-ckpt N.pth --diffusion-ckpt D.pth] [--mesh DP,SP,TP] ...
 
-Data parallel over two ranks, or dp 2 x tp 2 over four (one process a rank;
-gloo on the CPU, or when the ranks share a card; NCCL when each has its
-own). At tp > 1 each rank holds its slice of the convolutions that the JAX
-rule splits (``TrainConfig.tp_min_size``), and the ``.pth`` is written in
-the single-process layout:
+Data parallel over two ranks, dp 2 x tp 2 or dp 2 x sp 2 over four (one
+process a rank; gloo on the CPU, or when the ranks share a card; NCCL when
+each has its own). At tp > 1 each rank holds its slice of the convolutions
+that the JAX rule splits (``TrainConfig.tp_min_size``); at sp > 1 each rank
+computes its block of every convolution's output rows; either way the
+``.pth`` is written in the single-process layout. sp and tp together are
+not ported yet (ROADMAP.md queue 1 item 15d):
     torchrun --nproc_per_node 2 -m midd_tpu_torch.train.recipes --mesh 2,1,1 ...
     torchrun --nproc_per_node 4 -m midd_tpu_torch.train.recipes --mesh 2,1,2 ...
+    torchrun --nproc_per_node 4 -m midd_tpu_torch.train.recipes --mesh 2,2,1 ...
 """
 
 from __future__ import annotations
@@ -391,10 +394,11 @@ def main(argv: Optional[Sequence[str]] = None) -> TrainerState:
     ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
     ap.add_argument("--mesh", default=None, metavar="DP,SP,TP",
                     help="multi-chip training mesh, e.g. '4,1,1' for 4-way "
-                         "data parallelism or '2,1,2' for dp2 x tp2; batches "
-                         "shard over dp, image rows over sp, large kernels "
-                         "over tp (one process a rank, started by torchrun; "
-                         "sp > 1 is not ported yet)")
+                         "data parallelism, '2,1,2' for dp2 x tp2 or '2,2,1' "
+                         "for dp2 x sp2; batches shard over dp, image rows "
+                         "over sp, large kernels over tp (one process a rank, "
+                         "started by torchrun; sp and tp together are not "
+                         "ported yet)")
     args = ap.parse_args(argv)
     if args.model == "tiny" and args.resume:
         ap.error("--model tiny: the tiny recipe takes no --resume")

@@ -28,19 +28,24 @@ package's draws instead.
 
 ``TrainConfig.remat`` recomputes the whole loss function in the backward
 pass (``torch.utils.checkpoint``), as the JAX trainer wraps its loss in
-``jax.checkpoint``. ``TrainConfig.mesh_shape = (dp, 1, tp)`` trains over
-dp x tp ranks, one process each (``parallel/``): every rank starts from
-rank 0's weights, then keeps its tp slice of each parameter that
-``param_shardings(model, tp, cfg.tp_min_size)`` splits
-(``parallel.tp.shard_over_group``); every rank draws for the global batch
-and keeps its dp group's rows, loads only those rows of each global batch,
-and applies the update of the global batch (``parallel.train_dp``);
-validation runs on every rank (the split forward needs every rank) and rank
-0's numbers decide; rank 0 writes the ``.pth`` in the single-process layout
-(the unsharded ``state_dict`` and AdamW's state gathered slice by slice), so
-a checkpoint resumes at any (dp, tp), and each rank slices what it holds.
-Frozen modules stay whole on every rank. Not ported yet: sp > 1
-(ROADMAP.md queue 1 item 15c).
+``jax.checkpoint``. ``TrainConfig.mesh_shape = (dp, sp, tp)`` trains over
+dp x sp x tp ranks, one process each (``parallel/``), with sp or tp at 1:
+every rank starts from rank 0's weights; at tp > 1 it then keeps its tp
+slice of each parameter that ``param_shardings(model, tp,
+cfg.tp_min_size)`` splits (``parallel.tp.shard_over_group``), at sp > 1 it
+computes its block of each convolution's output rows with the whole
+weights (``parallel.sp.shard_rows_over_group``); every rank draws for the
+global batch and keeps its dp group's rows (``image_sharding``: the rows of
+a dp group, replicated over sp and tp), loads only those rows of each
+global batch, and applies the update of the global batch
+(``parallel.train_dp``); validation runs on every rank (a tp split forward
+needs every rank; an sp one computes whole on each, as the JAX trainer's
+eval runs replicated over sp) and rank 0's numbers decide; rank 0 writes the ``.pth``
+in the single-process layout (the unsharded ``state_dict`` and AdamW's
+state gathered slice by slice), so a checkpoint resumes at any (dp, sp,
+tp), and each rank slices what it holds. Frozen modules (the hybrid's
+backends) run whole on every rank. sp and tp together are not ported yet
+(ROADMAP.md queue 1 item 15d).
 """
 
 from __future__ import annotations
@@ -62,10 +67,11 @@ from midd_tpu_torch.diffusion.sampler import denoise, noise_images, sample_times
 from midd_tpu_torch.diffusion.schedule import Schedule
 from midd_tpu_torch.models.blocks import BatchNorm2d
 from midd_tpu_torch.models.hybrid import hybrid_forward
-from midd_tpu_torch.parallel.mesh import batch_sharding, check_mesh_shape, make_mesh, replicated
+from midd_tpu_torch.parallel.mesh import check_mesh_shape, image_sharding, make_mesh, replicated
 from midd_tpu_torch.parallel.multihost import local_device
+from midd_tpu_torch.parallel.sp import shard_rows_over_group
 from midd_tpu_torch.parallel.tp import shard_over_group
-from midd_tpu_torch.parallel.train_dp import make_sharded_train_step, tp_group
+from midd_tpu_torch.parallel.train_dp import make_sharded_train_step, sp_group, tp_group
 from midd_tpu_torch.train import losses
 from midd_tpu_torch.train.data import batches, prefetch_to_device, to_device
 from midd_tpu_torch.train.metrics import compute_metrics
@@ -91,8 +97,8 @@ class TrainConfig:
     prefetch: int = 2
     # rematerialise the loss's forward in the backward pass
     remat: bool = False
-    # (dp, sp, tp): data parallel over dp and tensor parallel over tp, one
-    # process a rank (the process group started); sp must be 1 (not ported yet)
+    # (dp, sp, tp): data parallel over dp, spatial over sp, tensor parallel
+    # over tp, one process a rank (the process group started); sp or tp is 1
     mesh_shape: Optional[Tuple[int, int, int]] = None
     tp_min_size: int = 1 << 16  # the JAX trainer's tp threshold: smaller parameters stay whole
 
@@ -383,10 +389,10 @@ def rematerialise(loss_fn: Callable) -> Callable:
 
 class Trainer:
     """Epoch loop with validation, best checkpoints, resume and early
-    stopping, on one device, or on each of dp x tp ranks
+    stopping, on one device, or on each of dp x sp x tp ranks
     (``cfg.mesh_shape``; ``device`` "cuda" is then each rank's own card, or
-    the card the ranks share). At tp > 1 ``state.model`` is this rank's
-    split module and ``shards`` its map to the unsharded one
+    the card the ranks share). At sp or tp > 1 ``state.model`` is this
+    rank's split module and ``shards`` its map to the unsharded one
     (``state_dicts`` gives the unsharded state).
 
     ``loss_fn(model, batch, draw) -> (loss, parts)``, ``draw_fn(batch,
@@ -420,7 +426,7 @@ class Trainer:
         if has_bn != has_batch_stats:
             raise ValueError(f"has_batch_stats={has_batch_stats}, but the model "
                              f"{'holds' if has_bn else 'holds no'} BatchNorm statistics")
-        self.mesh, self.rows = None, None  # dp or tp > 1: the mesh, and this rank's rows of a batch
+        self.mesh, self.rows = None, None  # dp, sp or tp > 1: the mesh, and this rank's rows of a batch
         if cfg.mesh_shape is not None:
             dp, sp, tp = check_mesh_shape(cfg.mesh_shape)
             n = dp * sp * tp
@@ -431,11 +437,11 @@ class Trainer:
                 raise ValueError(f"mesh_shape {cfg.mesh_shape} needs {n} devices, but {world} ranks run")
             if cfg.batch_size % dp:
                 raise ValueError(f"batch_size {cfg.batch_size} not divisible by dp={dp}")
-            if dp > 1 or tp > 1:
+            if n > 1:
                 if torch.device(device) == torch.device("cuda") and torch.cuda.is_available():
                     device = local_device("cuda")
                 self.mesh = make_mesh(n, tp=tp, sp=sp, device_type=torch.device(device).type)
-                self.rows = batch_sharding(cfg.batch_size, self.mesh)
+                self.rows = image_sharding(cfg.batch_size, self.mesh)[:2]
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -448,8 +454,9 @@ class Trainer:
         model = model.to(self.device)
         if self.mesh is not None:  # every replica starts from rank 0's weights and statistics
             replicated([*model.parameters(), *model.buffers()], self.mesh)
-        group = tp_group(self.mesh)
-        self.shards = None if group is None else shard_over_group(model, group, cfg.tp_min_size)
+        tp, sp = tp_group(self.mesh), sp_group(self.mesh)
+        self.shards = (shard_over_group(model, tp, cfg.tp_min_size) if tp is not None
+                       else shard_rows_over_group(model, sp) if sp is not None else None)
         self.frozen = None if frozen is None else {
             k: m.to(self.device).eval().requires_grad_(False) for k, m in frozen.items()
         }

@@ -376,20 +376,21 @@ def test_resume_across_world_sizes_through_the_cli(cli_runs, monkeypatch):
     assert st.history["losses"][:1] == ckpt["losses"] and len(st.history["losses"]) == 2
 
 
-@pytest.mark.parametrize("mesh", ["1,2,1"])
+@pytest.mark.parametrize("mesh", ["1,2,2"])
 def test_sp_and_tp_are_refused_naming_the_roadmap_item(tmp_path, mesh):
-    """Training at sp > 1 (item 15c) refuses; of the mesh helpers only
-    ``image_sharding`` still raises. Training at tp > 1 is ported
-    (tests/test_torch_tp_train.py)."""
-    item = "ROADMAP.md queue 1 item 15c"
+    """Training at sp > 1 and tp > 1 together (item 15d) refuses, in the
+    CLI, the trainer and the mesh check. Training at sp > 1 alone
+    (tests/test_torch_sp.py) and at tp > 1 alone
+    (tests/test_torch_tp_train.py) is ported."""
+    item = "ROADMAP.md queue 1 item 15d"
     dirs = _write_pairs(tmp_path, n=2)
     with pytest.raises(NotImplementedError, match=item):
         trecipes.main(worker.cli_argv("nafnet", *dirs) + ["--mesh", mesh])
     cfg = ttrainer.TrainConfig(mesh_shape=tuple(int(x) for x in mesh.split(",")))
     with pytest.raises(NotImplementedError, match=item):
         ttrainer.Trainer(lambda *a: None, lambda *a: None, cfg, torch.nn.Linear(2, 2), ttrainer.no_draw, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 15c"):
-        tmesh.image_sharding()
+    with pytest.raises(NotImplementedError, match=item):
+        tmesh.check_mesh_shape(mesh.split(","))
 
 
 def test_a_mesh_needs_its_ranks():

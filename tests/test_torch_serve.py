@@ -140,7 +140,7 @@ def test_exact_mode_and_defaults_in_serving_mode():
 
 
 def test_engine_refuses_fields_outside_the_slice():
-    for field in ("aot_dir", "spatial_parallel", "persistent_cache", "sp_size", "cache_dir"):
+    for field in ("aot_dir", "persistent_cache", "cache_dir"):
         with pytest.raises(TypeError):
             EngineConfig(**{field: True})
 
