@@ -14,8 +14,9 @@ benchmark (train, score, variants, turbo gate, seed study) at serve widths,
 trains with rematerialisation, serves tensor- and data-parallel (the
 engine's ``--tp`` / ``--dp``) on the one card, trains data, tensor and
 spatial parallel (dp 2, tp 2, dp 2 x tp 2, sp 2, dp 2 x sp 2) over ranks,
-serves int8 under tp, and serves spatial-parallel (``--sp``, with dp, tp
-and int8).
+serves int8 under tp, serves spatial-parallel (``--sp``, with dp, tp
+and int8), and counts FLOPs on the card, runs the training benchmark
+(``bench_train_torch.py --quick``) and the native data path.
 
     python3 chip_smoke.py [--report FILE] [--naf-only]
 
@@ -204,7 +205,20 @@ Phases (any failure exits non-zero, and no result line is printed):
    server's ``--sp 2`` configuration answering a request through the
    server (bf16 evals, ``TP_BF16_BOUND`` on the rollout paths), ``--int8``
    at sp 2 on the unsharded int8 engine's scales (``INT8_TP_BOUND``), and
-   ``sp_size=64`` at 512² refused with the JAX engine's message.
+   ``sp_size=64`` at 512² refused with the JAX engine's message;
+20. the FLOP counter (``utils/flops.py``) on the card in bf16 at 256², the
+   plain layout with the exact attention: the UNet and NAFNet forwards
+   (batch 1), bench.py's DDIM-50 rollout and one training step of each
+   (batch 2, the trainer's loss forward and backward: the bench's own
+   counts) equal to the JAX package's (``FLOPS_*``); ``device_peak_tflops()`` 989 beside the
+   card's name and power limit; ``bench_train_torch.py --quick`` in this
+   process, its JSON line printed (finite step times, 0 < MFU <= 1, its
+   counts the constants), its flash forward, dq, dk/dv and ln2d launches
+   held to ``BENCH_LAUNCHES``; the native data path built with this
+   machine's g++, a seeded 2048² uint8 image resized to 512² within
+   ``NATIVE_PIL_LSB`` of PIL (both timed), and ``PairedXRayDataset`` over
+   16 seeded 1024² pairs at 256² on the loader's two threads with
+   ``MIDD_TPU_NATIVE`` 0 and 1, timed, within the same bound.
 The CPU halves of phases 9, 10 and 12c's calibration run on another thread
 while the kernels build (phase 2): the same functions on the same seeded
 inputs (``on_devices``).
@@ -237,7 +251,8 @@ over one NAFNet forward of the ln2d and naf_ffn per-call times of phases 5
 and 6 (computed from isolated calls, not measured in a forward), and the
 same wall/device breakdown and the peak memory for one 512² training step
 of each model (diffusion, NAFNet, expert, hybrid, cddpm, tiny) at its CLI
-batch; and, for batched serving, request rate and wall p50 / p95 under 8
+batch, and for one ``bench_train_torch.py --quick`` step of each of its
+models (bf16, 256², batch 2); and, for batched serving, request rate and wall p50 / p95 under 8
 closed-loop clients of 4 requests each, at 256² with buckets (1,) against
 (1, 2, 4, 8) and at 512² with (1,) against (1, 2), in turns (A, B, B, A),
 and one fused 512² request's wall and device time against the per-path
@@ -269,7 +284,8 @@ import torch
 import torch.nn.functional as F
 from PIL import Image
 
-from midd_tpu_torch import config, evaluate, inference
+import bench_train_torch
+from midd_tpu_torch import config, evaluate, inference, native
 from midd_tpu_torch.benchmarks import xray_bench
 from midd_tpu_torch.diffusion.ddpm_scheduler import DDPMScheduler, TinyUNetDenoiser
 from midd_tpu_torch.diffusion.sampler import denoise
@@ -292,10 +308,11 @@ from midd_tpu_torch.serve import server
 from midd_tpu_torch.serve.engine import MODEL_NAMES, EngineConfig, InferenceEngine, calibration_batches
 from midd_tpu_torch.serve.server import make_server
 from midd_tpu_torch.train import recipes
-from midd_tpu_torch.train.data import to_device
+from midd_tpu_torch.train.data import PairedXRayDataset, batches, to_device
 from midd_tpu_torch.train.trainer import (Trainer, cddpm_loss_fn, diffusion_draw, diffusion_loss_fn,
                                           expert_loss_fn, hybrid_loss_fn, nafnet_loss_fn, no_draw,
                                           tiny_draw, tiny_loss_fn)
+from midd_tpu_torch.utils import flops
 from midd_tpu_torch.utils.profiling import Timer
 
 # H100 SXM data sheet (dense): bf16 and TF32 tensor-core peaks, fp32
@@ -614,6 +631,17 @@ SP_FP32_BOUND = 1e-4
 # Spatial-parallel training (phase 19b): the same runs as tp's (TP_*), at
 # --mesh 1,2,1 (diffusion, 2 ranks) and 2,2,1 (NAFNet, 4 ranks)
 SP_MESH = {"nafnet": "2,2,1", "diffusion": "1,2,1"}
+# The FLOP counter on the card (phase 20): counts at 256² in bf16 on the
+# canonical plain layout (UNetDiffusion(fuse_updown=False, use_flash=False)),
+# equal to the JAX package's count_flops of the same functions (recomputed
+# with JAX by tests/test_torch_flops.py): the UNet and NAFNet forwards at
+# batch 1, one training step of each (the trainer's loss, forward and
+# backward) at batch 2, and bench.py's DDIM-50 rollout (50 forwards).
+FLOPS_UNET_FWD = 117_942_368_256
+FLOPS_NAFNET_FWD = 28_140_871_680
+FLOPS_DIFFUSION_STEP = 665_342_558_208
+FLOPS_NAFNET_STEP = 175_226_339_328
+FLOPS_DDIM50 = 5_897_118_412_800
 @contextlib.contextmanager
 def carried_scales(scales: dict):
     """Engines built inside the block serve ``scales`` (name -> scales, in
@@ -2209,28 +2237,53 @@ def profile_train_step(model: str) -> dict:
                           frozen=hybrid_frozen(0), device="cuda")
     nhwc = np.broadcast_to(x[None, :, :, None], (cfg.batch_size, *x.shape, 1))
     batch = to_device((nhwc, 0.9 * nhwc), torch.device("cuda"))
+    out = _profile_step("train_step_profile", lambda: trainer.train_step(batch), model=model,
+                        batch_size=cfg.batch_size)
+    del trainer
+    torch.cuda.empty_cache()
+    return out
+
+
+def profile_bench_step(model: str) -> dict:
+    """``--report`` only: where a ``bench_train_torch.py --quick`` step's time
+    goes: its step (bf16 compute, fp32 AdamW) at its quick cell (256², batch
+    2) on seeded batches, profiled as ``profile_train_step`` profiles."""
+    default_tf32()
+    dev = torch.device("cuda")
+    step = bench_train_torch.make_step(model, dev)
+    (img, b), = bench_train_torch.QUICK[model]
+    gen = torch.Generator().manual_seed(32)
+    clean = torch.rand(b, 1, img, img, generator=gen).to(dev)
+    noisy = (clean + 0.1 * torch.randn(b, 1, img, img, generator=gen).to(dev)).clamp(0, 1)
+    out = _profile_step("bench_step_profile", lambda: step(clean, noisy), model=model, batch_size=b, img=img)
+    del step
+    torch.cuda.empty_cache()
+    return out
+
+
+def _profile_step(name: str, step, **fields) -> dict:
+    """Wall ms of ``step`` (median of 5 after 2 warm-up calls, each ended by a
+    synchronise) and peak memory beside the device time of one further call
+    under ``torch.profiler``, by kernel kind; printed on a ``name`` line."""
     torch.cuda.reset_peak_memory_stats()
     for _ in range(2):
-        trainer.train_step(batch)
+        step()
     walls = []
     for _ in range(5):
         t = time.perf_counter()
-        trainer.train_step(batch)  # returns a host float: the step has finished
+        step()
+        torch.cuda.synchronize()
         walls.append((time.perf_counter() - t) * 1e3)
     zero_counts()
-    by_kernel, kinds = device_profile(lambda: trainer.train_step(batch))
+    by_kernel, kinds = device_profile(step)
     launched = counts()
     wall, device = statistics.median(walls), sum(by_kernel.values())
-    out = {"model": model, "batch_size": cfg.batch_size, "wall_ms": walls, "wall_p50_ms": wall,
-           "device_ms": device, "idle_share": 1.0 - device / wall, "launches": launched,
-           "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
-           "device_ms_by_kind": kinds,
+    out = {**fields, "wall_ms": walls, "wall_p50_ms": wall, "device_ms": device,
+           "idle_share": 1.0 - device / wall, "launches": launched,
+           "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30, "device_ms_by_kind": kinds,
            "top_kernels": sorted(by_kernel.items(), key=lambda kv: -kv[1])[:15]}
-    print(json.dumps({"train_step_profile": {k: out[k] for k in
-                                             ("model", "wall_p50_ms", "device_ms", "idle_share",
-                                              "peak_memory_gib", "device_ms_by_kind")}}), flush=True)
-    del trainer
-    torch.cuda.empty_cache()
+    print(json.dumps({name: {k: out[k] for k in ("model", "wall_p50_ms", "device_ms", "idle_share",
+                                                 "peak_memory_gib", "device_ms_by_kind")}}), flush=True)
     return out
 
 
@@ -3879,6 +3932,109 @@ CPU_CHECKS = (card_vs_cpu, nafnet_card_vs_cpu, cddpm_rollout_card_vs_cpu, tiny_s
               cddpm_step_card_vs_cpu, tiny_step_card_vs_cpu, int8_card_vs_cpu)
 
 
+# Phase 20: bench_train_torch.py --quick. Each model's step runs once untimed,
+# --inner 8 x --reps 3 timed, then the 64-phantom pipeline at batch 2 (its
+# warm-up batches and one epoch): 6 flash forward, dq and dk/dv launches a
+# diffusion step, 60 ln2d a NAFNet step, and 60 more in the NAFNet count's
+# forward (the counted model computes ln2d by its kernel; the diffusion one
+# takes the exact attention)
+BENCH_STEPS = 1 + 8 * 3 + bench_train_torch.WARMUP_BATCHES + 64 // 2
+BENCH_LAUNCHES = {**NO_LAUNCHES, "flash_fwd": 6 * BENCH_STEPS, "flash_bwd_dq": 6 * BENCH_STEPS,
+                  "flash_bwd_dkv": 6 * BENCH_STEPS, "ln2d": 60 * (BENCH_STEPS + 1)}
+# the native resize against PIL: PIL rounds its fixed-point passes, the
+# kernel its double-precision ones (the JAX bridge's documented bound)
+NATIVE_PIL_LSB = 2
+NATIVE_PAIRS, NATIVE_SRC, NATIVE_IMG = 16, 1024, 256
+
+
+def flops_bench_native_slice(report: dict, smi: str) -> dict:
+    """Phase 20: the FLOP counter on the card (bf16, the plain layout, 256²)
+    against the JAX package's counts (``FLOPS_*``), ``device_peak_tflops``,
+    ``bench_train_torch.py --quick`` (its launches held to
+    ``BENCH_LAUNCHES``) and the native data path (g++ build, the 2048² ->
+    512² resize against PIL, ``PairedXRayDataset`` with and without it on
+    the loader's threads). Returns the bench's launches."""
+    dev = torch.device("cuda")
+    default_tf32()
+    gen = torch.Generator().manual_seed(71)
+    unet = init_weights(UNetDiffusion(config.SERVE_DIFFUSION, fuse_updown=False, use_flash=False), gen).to(dev)
+    nafnet = init_weights(EnhancedNAFNet(config.SERVE_NAFNET), gen).to(dev)
+    unet.compute_dtype = nafnet.compute_dtype = torch.bfloat16
+    x = torch.rand(1, 1, 256, 256, generator=gen).to(dev)
+    t = torch.full((1,), 500, dtype=torch.long, device=dev)
+    t0 = time.time()
+    with torch.no_grad():
+        got = {"unet_forward": flops.count_flops(unet, x, x, t),
+               "nafnet_forward": flops.count_flops(nafnet, x),
+               "ddim50": flops.count_flops(denoise, unet, x, make_schedule(config.SERVE_SCHEDULE, "cuda"), 50)}
+    peak = flops.device_peak_tflops()
+    res = {"card": smi, "flops": got, "device_peak_tflops": peak, "counts_s": time.time() - t0}
+    print(json.dumps({"flops_on_card": got, "device_peak_tflops": peak, "card": smi}), flush=True)
+    assert got == {"unet_forward": FLOPS_UNET_FWD, "nafnet_forward": FLOPS_NAFNET_FWD, "ddim50": FLOPS_DDIM50}, got
+    assert peak == PEAK_BF16_FLOPS / 1e12, peak
+
+    # the training steps' counts are the bench's own (its step_flops, on the card)
+    t0 = time.time()
+    zero_counts()
+    line = bench_train_torch.main(["--quick"])
+    launched = counts()
+    res["bench_train"] = {"line": line, "launches": launched, "s": time.time() - t0}
+    assert launched == BENCH_LAUNCHES, (launched, BENCH_LAUNCHES)
+    assert [(r["model"], r["img"], r["batch"]) for r in line["rows"]] == [("diffusion", 256, 2), ("nafnet", 256, 2)]
+    for row in line["rows"]:
+        assert np.isfinite(row["ms_per_step"]) and row["ms_per_step"] > 0 and 0 < row["mfu"] <= 1, row
+    assert line["nvidia_smi"] == smi and line["peak_tflops_assumed"] == peak, line
+    assert {r["model"]: r["model_tflop_per_step"] for r in line["rows"]} == {
+        "diffusion": FLOPS_DIFFUSION_STEP / 1e12, "nafnet": FLOPS_NAFNET_STEP / 1e12}, line
+
+    t_native = time.time()
+    built_here = not native.library_path().exists()
+    assert native.available(), native.error()
+    nat = {"build_s": time.time() - t_native, "built_here": built_here, "library": native.library_path().name}
+    img = (np.random.default_rng(81).random((2048, 2048)) * 255).astype(np.uint8)
+    pil = np.asarray(Image.fromarray(img).resize((512, 512), Image.BICUBIC))
+    out = native.resize_bicubic_u8(img, (512, 512))
+    nat["max_lsb_vs_pil"] = int(np.abs(out.astype(int) - pil).max())
+    assert out.shape == (512, 512) and nat["max_lsb_vs_pil"] <= NATIVE_PIL_LSB, nat
+    nat["resize_ms"] = {"native": time_host_ms(lambda: native.resize_bicubic_u8(img, (512, 512))),
+                        "pil": time_host_ms(lambda: Image.fromarray(img).resize((512, 512), Image.BICUBIC))}
+    with tempfile.TemporaryDirectory() as root:
+        dirs = write_pairs(root, NATIVE_PAIRS, NATIVE_SRC)
+        before = os.environ.get("MIDD_TPU_NATIVE")
+        loaded = {}
+        try:
+            for mode in ("0", "1"):
+                os.environ["MIDD_TPU_NATIVE"] = mode
+                ds = PairedXRayDataset(*dirs, img_size=NATIVE_IMG, is_train=False)
+                t0 = time.perf_counter()
+                loaded[mode] = np.concatenate([c for c, _ in batches(ds, 4, shuffle=False, num_workers=2)])
+                nat[f"dataset_s_native_{mode}"] = time.perf_counter() - t0
+        finally:
+            if before is None:
+                os.environ.pop("MIDD_TPU_NATIVE", None)
+            else:
+                os.environ["MIDD_TPU_NATIVE"] = before
+    nat["dataset_max_abs_native_vs_pil"] = float(np.abs(loaded["1"] - loaded["0"]).max())
+    assert loaded["1"].shape == (NATIVE_PAIRS, NATIVE_IMG, NATIVE_IMG, 1), loaded["1"].shape
+    assert nat["dataset_max_abs_native_vs_pil"] <= NATIVE_PIL_LSB / 255 + 1e-7, nat
+    nat["s"] = time.time() - t_native
+    res["native"] = nat
+    report["flops_bench_native"] = res
+    print(json.dumps({"native": nat, "counts_s": res["counts_s"], "bench_s": res["bench_train"]["s"]}), flush=True)
+    return launched
+
+
+def time_host_ms(fn, reps: int = 5) -> float:
+    """Median wall ms of a host call."""
+    fn()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -4057,6 +4213,15 @@ def main(argv=None) -> int:
     finally:
         for engine in unsharded.values():
             engine.close()
+
+    phase("slice: the FLOP counter, bench_train_torch.py --quick and the native data path")
+    t = time.time()
+    torch.cuda.empty_cache()
+    paths["bench_train"] = flops_bench_native_slice(report, smi)
+    report["phase_20_s"] = time.time() - t
+    if args.report:
+        report["bench_step_profile"] = {m: profile_bench_step(m) for m in bench_train_torch.QUICK}
+    print(json.dumps({"phase_20_s": report["phase_20_s"]}), flush=True)
 
     for entry in entries:
         by_path = {p: launched[entry["name"]] for p, launched in paths.items()}

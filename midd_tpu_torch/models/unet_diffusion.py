@@ -63,7 +63,13 @@ def fused_updown(up: ConvTransposeTorch, x: torch.Tensor) -> torch.Tensor:
         return up.map(fused_updown, x, rows=(3, 1, 1))
     a = torch.tensor(_UPDOWN_A, dtype=up.weight.dtype, device=up.weight.device)
     k = up.weight.flip(-1, -2)  # (I, O, 4, 4), correlation form
-    w2 = 0.25 * torch.einsum("ap,bq,iopq->oiab", a, a, k)
+    # A k A^T as two products with the kernel on the left, in the order and
+    # the orientation of the JAX model's einsum (so the padded FLOP estimate
+    # of utils/flops.py sees the same GEMM shapes): over p, then over q
+    i, o, p, q = k.shape
+    t = torch.matmul(k.transpose(2, 3).reshape(-1, p), a.t())  # (i o q, 3)
+    t = t.reshape(i, o, q, -1).transpose(2, 3).reshape(-1, q)  # (i o 3, q)
+    w2 = 0.25 * torch.matmul(t, a.t()).reshape(i, o, a.shape[0], -1).permute(1, 0, 2, 3)
     return F.conv2d(x.contiguous(), w2.to(x.dtype), up.bias.to(x.dtype), padding=up.padding)
 
 

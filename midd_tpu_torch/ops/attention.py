@@ -23,14 +23,19 @@ from midd_tpu_torch.ops.flash_attention import ROW_BLOCK, mha_flash
 
 def mha_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """Exact multi-head attention, q,k,v: (B, N, H, D) -> (B, N, H, D).
-    Scale D**-0.5 applied to q; softmax in fp32 whatever the input dtype."""
+    Scale D**-0.5 applied to q; softmax in fp32 whatever the input dtype.
+    The second product takes v as its left operand, as JAX's einsum hands
+    its operands to ``dot_general``, so that the padded FLOP estimate
+    (``utils/flops.py``) sees the JAX package's GEMM shapes: (D, K) by
+    (K, Q), not (Q, K) by (K, D)."""
     d = q.shape[-1]
     scale = float(d) ** -0.5
-    qs, kf, vf = q.float() * scale, k.float(), v.float()
+    qs, kf = q.float() * scale, k.float()
+    vt = v.float().permute(0, 2, 3, 1)  # (B, H, D, N)
     blocks = []
     for i in range(0, q.shape[1], ROW_BLOCK):
         probs = torch.softmax(torch.einsum("bqhd,bkhd->bhqk", qs[:, i:i + ROW_BLOCK], kf), dim=-1)
-        blocks.append(torch.einsum("bhqk,bkhd->bqhd", probs, vf))
+        blocks.append(torch.matmul(vt, probs.transpose(-1, -2)).permute(0, 3, 1, 2))
     out = blocks[0] if len(blocks) == 1 else torch.cat(blocks, dim=1)
     return out.to(q.dtype)
 

@@ -6,9 +6,10 @@ the device.
 The numpy/PIL code is the port's own copy of the JAX package's, so one seed
 gives the same arrays. Batches stay NHWC fp32 numpy in [0, 1] on the host;
 ``to_device`` turns them into NCHW tensors once, at the device boundary.
-
-Not ported yet: the native C++ resize (``use_native``, ``midd_tpu/native.py``)
-and ``visualize_pairs`` (ROADMAP.md queue 1 item 12).
+``load_image(use_native=True)`` (or ``MIDD_TPU_NATIVE=1``) resizes through
+the port's C++ kernel (``midd_tpu_torch/native.py``), and raises where that
+library cannot be built or loaded. ``visualize_pairs`` draws the
+pre-training sanity figure where matplotlib exists.
 """
 
 from __future__ import annotations
@@ -91,10 +92,22 @@ def match_pairs(
     return pairs
 
 
-def load_image(path: str, img_size: int) -> np.ndarray:
-    """Grayscale load + BICUBIC resize (PIL, the reference's library) +
-    [0,1] fp32 HWC(1)."""
+def load_image(path: str, img_size: int, use_native: Optional[bool] = None) -> np.ndarray:
+    """Grayscale load + BICUBIC resize + [0,1] fp32 HWC(1).
+
+    The resize is PIL's (the reference's library) unless ``use_native`` is
+    True, or None with the environment's ``MIDD_TPU_NATIVE=1``: then it is
+    the GIL-free C++ kernel (``midd_tpu_torch.native``, within 2 LSB of
+    PIL), and a library that cannot be built or loaded raises (the JAX
+    package quietly uses PIL there)."""
     img = Image.open(path).convert("L")
+    if use_native is None:
+        use_native = os.environ.get("MIDD_TPU_NATIVE", "0") == "1"
+    if use_native:
+        from midd_tpu_torch import native
+
+        arr = native.resize_bicubic_u8(np.asarray(img, np.uint8), (img_size, img_size))
+        return (arr.astype(np.float32) / 255.0)[..., None]
     img = img.resize((img_size, img_size), Image.BICUBIC)
     return (np.asarray(img, np.float32) / 255.0)[..., None]
 
@@ -352,3 +365,31 @@ def prefetch_to_device(iterator, device: torch.device, size: int = 2):
             except queue.Empty:
                 pass
         t.join()
+
+
+def visualize_pairs(dataset, out_path: str = "dataset_validation_pairs.png", n: int = 2) -> None:
+    """Pre-training dataset sanity figure: the first n (noisy, clean) pairs
+    side by side (DirectUNet/DirectUNetModel.py:286-303). Needs matplotlib
+    (an ImportError without it; the recipes' CLI catches it). A seeded
+    dataset's items are drawn with generators of the figure's own, so the
+    figure leaves the training draws as they were, on every rank (the JAX
+    function takes them from the dataset's stream)."""
+    import matplotlib
+
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    n = min(n, len(dataset))
+    fig, axes = plt.subplots(n, 2, figsize=(10, 5 * n), squeeze=False)
+    for i in range(n):
+        clean, noisy = (dataset.item(i, np.random.default_rng(i)) if isinstance(dataset, _SeededItems)
+                        else dataset[i])
+        axes[i][0].imshow(noisy[..., 0], cmap="gray")
+        axes[i][0].set_title(f"Pair {i + 1}: Noisy Input")
+        axes[i][1].imshow(clean[..., 0], cmap="gray")
+        axes[i][1].set_title(f"Pair {i + 1}: Clean Target")
+        for ax in axes[i]:
+            ax.axis("off")
+    fig.tight_layout()
+    fig.savefig(out_path, dpi=120)
+    plt.close(fig)

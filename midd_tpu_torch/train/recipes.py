@@ -26,7 +26,10 @@ initialisers cannot be reproduced bit for bit). The best checkpoint is
 arch fields (and ``noise_steps`` for the diffusion UNet), or for the hybrid
 the nested ``nafnet_params``, ``diffusion_params``, ``router_params``,
 ``fusion_params`` (and ``expert_params``) and only the router and fusion
-weights; the port's serving engine reads each of them.
+weights; the port's serving engine reads each of them. Before training, the
+CLI draws the dataset's first pairs into ``dataset_validation_pairs.png``
+(``data.visualize_pairs``, on rank 0; skipped with a line where matplotlib
+is missing, as the JAX CLI does).
 
 CLI:
     python -m midd_tpu_torch.train.recipes --model diffusion|nafnet|expert|hybrid|cddpm|tiny \\
@@ -68,7 +71,7 @@ from midd_tpu_torch.models.tiny_unet import TinyUNet
 from midd_tpu_torch.models.unet_diffusion import UNetDiffusion
 from midd_tpu_torch.parallel.mesh import check_mesh_shape
 from midd_tpu_torch.parallel.multihost import init_distributed
-from midd_tpu_torch.train.data import PairedXRayDataset
+from midd_tpu_torch.train.data import PairedXRayDataset, visualize_pairs
 from midd_tpu_torch.train.trainer import (
     TrainConfig,
     Trainer,
@@ -410,6 +413,11 @@ def main(argv: Optional[Sequence[str]] = None) -> TrainerState:
     dataset = PairedXRayDataset(args.clear_dir, args.noisy_dirs, img_size=args.img_size,
                                 max_samples=args.max_samples,
                                 substring_glob=args.model == "hybrid")
+    if not torch.distributed.is_initialized() or torch.distributed.get_rank() == 0:
+        try:  # the pre-training sanity figure (DirectUNet:286-303); never fatal
+            visualize_pairs(dataset)
+        except Exception as e:  # noqa: BLE001
+            print(f"(pair visualization skipped: {e})")
     overrides = {k: v for k, v in (("epochs", args.epochs), ("batch_size", args.batch_size),
                                    ("lr", args.lr), ("mesh_shape", mesh_shape)) if v}
     cfg = dataclasses.replace(default_train_config(args.model), **overrides)

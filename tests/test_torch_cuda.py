@@ -669,3 +669,39 @@ def test_int8_unet_split_over_tp2_equals_the_whole_on_the_card(cuda, quant):
     t = torch.tensor([30], device=cuda)
     with torch.no_grad():
         assert torch.equal(split(x, cond, t), model(x, cond, t))
+
+
+@pytest.mark.parametrize("model,dtype", [(m, d) for m in ("unet", "unet_fused", "nafnet")
+                                         for d in (torch.float32, torch.bfloat16)] + [("unet_int8", torch.float32)])
+def test_count_flops_on_the_card_equals_the_cpu(cuda, model, dtype):
+    """``utils/flops.py`` counts the same operators on the card (cuDNN's
+    convolutions, the backward on the autograd engine's device thread, the
+    ln2d kernel opaque in the NAFNet, ``_int_mm`` in the int8 UNet) as on
+    the CPU, forward and forward + backward, exact and padded."""
+    from midd_tpu_torch import config
+    from midd_tpu_torch.models.nafnet import EnhancedNAFNet
+    from midd_tpu_torch.models.unet_diffusion import UNetDiffusion
+    from midd_tpu_torch.train.recipes import TINY_NAFNET, TINY_UNET
+    from midd_tpu_torch.utils import flops
+
+    def build():
+        if model == "nafnet":
+            return EnhancedNAFNet(TINY_NAFNET)
+        return UNetDiffusion(config.DiffusionUNetConfig(**TINY_UNET), fuse_updown=model == "unet_fused",
+                             use_flash=False, quant=model == "unet_int8")
+
+    def counts(device):
+        net = build().to(device)
+        net.compute_dtype = dtype
+        x = torch.rand(2, 1, 32, 32, generator=torch.Generator().manual_seed(0)).to(device)
+        t = torch.full((2,), 7, dtype=torch.long, device=device)
+        args = (x,) if model == "nafnet" else (x, x, t)
+        with torch.no_grad():
+            fwd = [flops.count_flops(net, *args, lane_pad=pad) for pad in (None, (64, 16))]
+        if model == "unet_int8":
+            return fwd
+        return fwd + [flops.count_flops(lambda: net(*args).float().square().mean().backward(), lane_pad=pad)
+                      for pad in (None, (64, 16))]
+
+    got = counts(cuda)
+    assert got == counts("cpu") and all(n > 0 for n in got)

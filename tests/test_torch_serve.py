@@ -364,7 +364,7 @@ for m in pkgutil.walk_packages(midd_tpu_torch.__path__, "midd_tpu_torch."):
     walked.add(m.name)
 want = {{"midd_tpu_torch." + n for n in ("serve.server", "ops.flash_attention", "train.data",
         "train.losses", "train.metrics", "train.trainer", "train.recipes", "utils.checkpoint",
-        "serve.batching", "serve.static_ui", "inference", "evaluate")}}
+        "serve.batching", "serve.static_ui", "inference", "evaluate", "native", "utils.flops")}}
 assert want <= walked, sorted(want - walked)
 {extra}
 bad = sorted(m for m in sys.modules
@@ -374,7 +374,7 @@ print("clean")
 """
 
 
-@pytest.mark.parametrize("extra", ["", "import chip_smoke"])
+@pytest.mark.parametrize("extra", ["", "import chip_smoke", "import bench_train_torch"])
 def test_port_imports_no_jax(extra):
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     proc = subprocess.run(
