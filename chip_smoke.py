@@ -13,7 +13,8 @@ server, runs the MODEL2_NAFNET variant, runs the xraybench-v1 quality
 benchmark (train, score, variants, turbo gate, seed study) at serve widths,
 trains with rematerialisation, serves tensor- and data-parallel (the
 engine's ``--tp`` / ``--dp``) on the one card, trains data, tensor and
-spatial parallel (dp 2, tp 2, dp 2 x tp 2, sp 2, dp 2 x sp 2) over ranks,
+spatial parallel (dp 2, tp 2, dp 2 x tp 2, sp 2, dp 2 x sp 2, sp 2 x tp
+2, dp 2 x sp 2 x tp 2) over ranks,
 serves int8 under tp, serves spatial-parallel (``--sp``, with dp, tp
 and int8), and counts FLOPs on the card, runs the training benchmark
 (``bench_train_torch.py --quick``) and the native data path.
@@ -173,7 +174,8 @@ Phases (any failure exits non-zero, and no result line is printed):
    slices in bf16;
 18. training under ``python -m torch.distributed.run`` on the one card
    (this script's ``--dp-rank`` mode; gloo, the ranks share the card),
-   512², TF32 off, seeded weights, in two launches that run at once, each
+   512², TF32 off, seeded weights, in two launches that run at once (after
+   phase 21's 8-rank launch), each
    run against the same CLI in this process: 4 ranks, the recipes CLI at
    ``--mesh 2,1,2`` (18b) and ``--mesh 2,2,1`` (19b), SERVE_NAFNET at batch 2
    for 2 steps; 2 ranks, ``--mesh 2,1,1`` (16b) for diffusion (batch 2),
@@ -218,7 +220,20 @@ Phases (any failure exits non-zero, and no result line is printed):
    machine's g++, a seeded 2048² uint8 image resized to 512² within
    ``NATIVE_PIL_LSB`` of PIL (both timed), and ``PairedXRayDataset`` over
    16 seeded 1024² pairs at 256² on the loader's two threads with
-   ``MIDD_TPU_NATIVE`` 0 and 1, timed, within the same bound.
+   ``MIDD_TPU_NATIVE`` 0 and 1, timed, within the same bound;
+21. (inside phase 18's launches) training at sp and tp together, 512²,
+   TF32 off, gloo, seeded weights, the ranks sharing the card: (a) the
+   recipes CLI at ``--mesh 1,2,2``, SERVE_DIFFUSION at batch 1 for 3 steps
+   on tp's pairs, a run of the 4-rank launch; (b) ``--mesh 2,2,2``,
+   SERVE_NAFNET at batch 2 for 2 steps, in an 8-rank launch that runs
+   before the 4- and 2-rank ones; each against phase 18's one-process run
+   on the same pairs (``DP_*``), every rank's launches a step (6/6/6 flash, 60
+   ln2d), tp split count (``TP2_TRAIN_SHARDED``), row-split parameters
+   (every convolution's but SCA's) and losses equal on every rank, the
+   ``.pth`` in the single-process layout, and (b)'s ``.pth`` resumed
+   exactly in this process and at ``--mesh 2,1,2`` in the 4-rank launch;
+   the step walls beside the card's name and power limit (a correctness
+   run, not a speed result).
 The CPU halves of phases 9, 10 and 12c's calibration run on another thread
 while the kernels build (phase 2): the same functions on the same seeded
 inputs (``on_devices``).
@@ -265,9 +280,11 @@ import base64
 import contextlib
 import copy
 import dataclasses
+import gc
 import http.client
 import io
 import json
+import math
 import os
 import shutil
 import signal
@@ -631,6 +648,16 @@ SP_FP32_BOUND = 1e-4
 # Spatial-parallel training (phase 19b): the same runs as tp's (TP_*), at
 # --mesh 1,2,1 (diffusion, 2 ranks) and 2,2,1 (NAFNet, 4 ranks)
 SP_MESH = {"nafnet": "2,2,1", "diffusion": "1,2,1"}
+# Training at sp and tp together (phase 21): the same runs again (TP_*
+# pairs, batches and steps, held to the same one-process runs and DP_*
+# bounds), at --mesh 1,2,2 (diffusion, a run of the 4-rank launch) and
+# 2,2,2 (NAFNet, 8 ranks on the one card, first, before the 4- and 2-rank
+# launches: beside the 2-rank one the 8 ranks ran out of the card's 80 GB)
+SPTP_MESH = {"nafnet": "2,2,2", "diffusion": "1,2,2"}
+# where a parallel run's NAFNet .pth is resumed in another launch (and in
+# this process): tp's and sp's in the 2-rank launch, sp x tp's in the
+# 4-rank one (the 2-rank launch is the longer of the two)
+RESUME_MESH = {"tp": "1,1,2", "sp": "1,2,1", "sptp": "2,1,2"}
 # The FLOP counter on the card (phase 20): counts at 256² in bf16 on the
 # canonical plain layout (UNetDiffusion(fuse_updown=False, use_flash=False)),
 # equal to the JAX package's count_flops of the same functions (recomputed
@@ -3241,7 +3268,8 @@ REMAT_GRAD_REL_L2 = 1e-5
 REMAT_LOOSE_SHARE = 0.01
 DP_MODELS = ("diffusion", "nafnet", "expert")
 DP_BATCH = {"diffusion": 2, "nafnet": 2, "expert": 4}
-DP_PAIRS = {m: 4 * b for m, b in DP_BATCH.items()}  # 4 steps of the global batch
+DP_STEPS = 4  # of the global batch
+DP_PAIRS = {m: DP_STEPS * b for m, b in DP_BATCH.items()}
 DP_TIMEOUT_S = 420  # the torchrun launch: 2 ranks' start-up, 4 runs, validations
 DP_PER_STEP = {"diffusion": {**NO_LAUNCHES, "flash_fwd": 6, "flash_bwd_dq": 6, "flash_bwd_dkv": 6},
                "nafnet": {**NO_LAUNCHES, "ln2d": 60}, "expert": NO_LAUNCHES}
@@ -3345,6 +3373,15 @@ def remat_slice(report: dict, smi: str) -> dict:
     return {k: res["diffusion"]["remat"]["launches"][k] + res["expert"]["remat"]["launches"][k] for k in NO_LAUNCHES}
 
 
+def wait_for_files(paths: list, what: str) -> None:
+    """Wait until every one of ``paths`` exists, bounded by DP_TIMEOUT_S."""
+    deadline = time.time() + DP_TIMEOUT_S
+    while not all(os.path.exists(p) for p in paths):
+        if time.time() > deadline:
+            raise TimeoutError(f"{what}: {paths} not written in {DP_TIMEOUT_S} s")
+        time.sleep(0.5)
+
+
 def dp_rank_main(job_path: str) -> int:
     """One rank of phase 18's torchrun launches (``--dp-rank JOB``): each run
     of the job through ``recipes.main`` in its directory, with TF32 off,
@@ -3358,11 +3395,7 @@ def dp_rank_main(job_path: str) -> int:
     set_tf32(False)
     runs = []
     for run in job["runs"]:
-        deadline = time.time() + DP_TIMEOUT_S
-        while not all(os.path.exists(p) for p in run.get("after", [])):
-            if time.time() > deadline:
-                raise TimeoutError(f"{run['name']}: {run['after']} not written in {DP_TIMEOUT_S} s")
-            time.sleep(0.5)
+        wait_for_files(run.get("after", []), run["name"])
         record, state = recipe_run(run["cwd"], run["argv"])
         runs.append({"name": run["name"], **record, "device": str(next(state.model.parameters()).device)})
     out = {"rank": dist.get_rank(), "world": dist.get_world_size(), "backend": dist.get_backend(), "runs": runs}
@@ -3385,9 +3418,18 @@ def torchrun_start(job: dict, tmp: str, nproc: int = 2, name: str = "dp_job") ->
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node", str(nproc),
            os.path.abspath(__file__), "--dp-rank", path]
     log = open(f"{path}.log", "w")
-    proc = subprocess.Popen(cmd, cwd=tmp, stdout=log, stderr=subprocess.STDOUT, text=True, start_new_session=True)
+    # ranks sharing one card: segments that grow in place leave less of it cached and unusable by the others
+    env = dict(os.environ, PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True")
+    proc = subprocess.Popen(cmd, cwd=tmp, stdout=log, stderr=subprocess.STDOUT, text=True, start_new_session=True,
+                            env=env)
     log.close()
     return {"proc": proc, "path": path, "nproc": nproc, "t0": time.perf_counter()}
+
+
+def card_memory_used() -> str:
+    """The card's memory in use, all processes, as ``nvidia-smi`` reads it."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=memory.used,memory.total", "--format=csv,noheader"],
+                          capture_output=True, text=True, timeout=60).stdout.strip()
 
 
 def rank_files(launch: dict) -> list:
@@ -3445,26 +3487,31 @@ def row_split_params(model: torch.nn.Module) -> int:
 
 
 def parallel_training_slice(report: dict, smi: str, meanwhile) -> tuple:
-    """Phases 16b-c, 18a-b and 19b: the recipes CLI under torchrun on the one
-    card, 512², TF32 off, seeded weights, in two launches that the three
-    phases share (each process takes seconds to reach the card) and that
-    run at once: 4 ranks (18b's ``--mesh 2,1,2`` and 19b's ``--mesh 2,2,1``,
-    SERVE_NAFNET at batch 2 for 2 steps) and 2 ranks (16b's ``--mesh 2,1,1``
-    diffusion at batch 2, nafnet 2 and expert 4 for 4 steps; 18a's ``--mesh
-    1,1,2`` and 19b's ``--mesh 1,2,1`` SERVE_DIFFUSION at batch 1 for 3
-    steps; 16c's one-process diffusion ``.pth`` resumed at dp 2; once the
-    4-rank launch has ended, its NAFNet ``.pth`` files resumed at tp 2 and
-    at sp 2). (Three launches at once, the 2-rank jobs split, were no
-    faster: the ranks then contend for the host's cores.) Each run against the same CLI in this process, run beside the
-    4-rank launch before the 2-rank one starts (dp's on its own pairs; tp's
-    and sp's on the same pairs, one reference for both), and each parallel
-    ``.pth`` resumed here too. A resumed run
-    trains one step of its second epoch; every resume is checked against
-    its file as it loads (``restored_matches``). ``meanwhile()`` runs here
-    once the 4-rank launch has ended, beside the 2-rank one's last runs.
-    Ranks that share one card are a correctness run, not a speed result.
-    Returns each parallel run's launches, all ranks summed, and what
-    ``meanwhile()`` returned."""
+    """Phases 16b-c, 18a-b, 19b and 21: the recipes CLI under torchrun on
+    the one card, 512², TF32 off, seeded weights, in launches that the
+    phases share (each process takes seconds to reach the card). First 8
+    ranks (21's ``--mesh 2,2,2``, SERVE_NAFNET at batch 2 for 2 steps),
+    beside the one-process references that fit beside them on the card;
+    then, at once, 4 ranks (18b's ``--mesh 2,1,2`` and 19b's ``--mesh
+    2,2,1``, SERVE_NAFNET at batch 2 for 2 steps; 21's ``--mesh 1,2,2``
+    SERVE_DIFFUSION at batch 1 for 3 steps; the 8 ranks' ``.pth`` resumed at
+    ``--mesh 2,1,2``) and 2 ranks (16b's ``--mesh 2,1,1`` diffusion at batch
+    2, nafnet 2 and expert 4 for ``DP_STEPS`` steps; 18a's ``--mesh 1,1,2``
+    and 19b's ``--mesh 1,2,1`` SERVE_DIFFUSION at batch 1 for 3 steps; 16c's
+    one-process diffusion ``.pth`` resumed at dp 2; once the 4-rank launch
+    has ended, its NAFNet ``.pth`` files resumed at tp 2 and at sp 2).
+    (Three launches at once, the 2-rank jobs split, were no faster: the
+    ranks then contend for the host's cores; the 8 ranks beside the 2-rank
+    launch ran out of the card's memory.) Each run against the same CLI in
+    this process (dp's on its own pairs; tp's, sp's and sp x tp's on the
+    same pairs, one reference for all), and each parallel NAFNet ``.pth``
+    resumed here too. A resumed run trains one step of its second epoch;
+    every resume is checked against its file as it loads
+    (``restored_matches``). ``meanwhile()`` runs here once the 4-rank
+    launch has ended, beside the 2-rank one's last runs. Ranks that share
+    one card are a correctness run, not a speed result. Returns each
+    parallel run's launches, all ranks summed, and what ``meanwhile()``
+    returned."""
     set_tf32(False)
     with tempfile.TemporaryDirectory() as tmp:
         dp_data = {m: write_pairs(os.path.join(tmp, "data_dp", m), DP_PAIRS[m], TRAIN_SIZE) for m in DP_MODELS}
@@ -3489,43 +3536,55 @@ def parallel_training_slice(report: dict, smi: str, meanwhile) -> tuple:
         def run(name, kind, m, args, after=()):
             return {"name": name, "cwd": os.path.join(tmp, kind, m), "argv": args, "after": list(after)}
 
-        four = {"runs": [run("tp_nafnet", "tp", "nafnet", tp_argv("nafnet") + ["--mesh", TP_MESH["nafnet"]]),
-                         run("sp_nafnet", "sp", "nafnet", tp_argv("nafnet") + ["--mesh", SP_MESH["nafnet"]])]}
-        four_job = torchrun_start(four, tmp, nproc=4, name="four_job")
-        try:  # the one-process references beside the 4-rank launch
-            single = {"dp": {m: recipe_run(os.path.join(tmp, "one_dp", m), dp_argv(m))[0] for m in DP_MODELS},
-                      "tp": {m: recipe_run(os.path.join(tmp, "one_tp", m), tp_argv(m))[0] for m in TP_MODELS}}
-        except BaseException:
-            os.killpg(four_job["proc"].pid, signal.SIGKILL)
-            raise
-        torch.cuda.empty_cache()  # the 2-rank launch shares the card too
-        two = {"runs": [  # beside the 4-rank launch, the card shared; what needs that launch's .pth, or
-            # would contend with its sp ranks for the host, waits for it to end
-            *(run(f"dp_{m}", "dp", m, dp_argv(m) + ["--mesh", "2,1,1"]) for m in DP_MODELS),
-            run("tp_diffusion", "tp", "diffusion", tp_argv("diffusion") + ["--mesh", TP_MESH["diffusion"]]),
-            run("resume_one_at_dp2", "dp_resume", "diffusion",
-                dp_argv("diffusion", pth("one_dp", "diffusion")) + ["--mesh", "2,1,1"]),
-            run("resume_nafnet_at_tp2", "tp_resume", "nafnet", tp_argv("nafnet", pth("tp", "nafnet"))
-                + ["--mesh", "1,1,2"], after=rank_files(four_job)),
-            run("sp_diffusion", "sp", "diffusion", tp_argv("diffusion") + ["--mesh", SP_MESH["diffusion"]],
-                after=rank_files(four_job)),
-            run("resume_nafnet_at_sp2", "sp_resume", "nafnet", tp_argv("nafnet", pth("sp", "nafnet"))
-                + ["--mesh", "1,2,1"], after=rank_files(four_job)),
-        ]}
-        two_job = torchrun_start(two, tmp, nproc=2, name="two_job")
+        meshes = {"dp": {m: "2,1,1" for m in DP_MODELS}, "tp": TP_MESH, "sp": SP_MESH, "sptp": SPTP_MESH}
+        eight = {"runs": [run("sptp_nafnet", "sptp", "nafnet", tp_argv("nafnet") + ["--mesh", SPTP_MESH["nafnet"]])]}
+        four = {"runs": [*(run(f"{kind}_{m}", kind, m, tp_argv(m) + ["--mesh", meshes[kind][m]])
+                           for kind, m in (("tp", "nafnet"), ("sp", "nafnet"), ("sptp", "diffusion"))),
+                         run("resume_sptp_nafnet", "sptp_resume", "nafnet", tp_argv("nafnet", pth("sptp", "nafnet"))
+                             + ["--mesh", RESUME_MESH["sptp"]])]}
+        gc.collect()  # the 8 ranks take most of the card: beside the 2-rank launch they ran out of it
+        torch.cuda.empty_cache()
+        print(json.dumps({"before_8_ranks": {"reserved_gib": torch.cuda.memory_reserved() / 2**30,
+                                             "card_used": card_memory_used()}}), flush=True)
+        launches = [torchrun_start(eight, tmp, nproc=8, name="eight_job")]
         try:
+            # the one-process references, beside the 8 ranks those that fit there on the card (the dp
+            # diffusion one, 25 GiB at its peak, runs beside the 4-rank launch)
+            single = {"tp": {}, "dp": {}}
+            for kind, m in (("tp", "nafnet"), ("tp", "diffusion"), ("dp", "nafnet"), ("dp", "expert")):
+                torch.cuda.empty_cache()
+                argv_m = dp_argv(m) if kind == "dp" else tp_argv(m)
+                single[kind][m] = recipe_run(os.path.join(tmp, f"one_{kind}", m), argv_m)[0]
+            eight_ranks, eight_s = torchrun_wait(launches[0])
+            four_job = torchrun_start(four, tmp, nproc=4, name="four_job")
+            launches.append(four_job)
+            torch.cuda.empty_cache()
+            single["dp"]["diffusion"] = recipe_run(os.path.join(tmp, "one_dp", "diffusion"), dp_argv("diffusion"))[0]
+            torch.cuda.empty_cache()  # the 2-rank launch shares the card too
+            two = {"runs": [  # beside the 4-rank launch, the card shared; what needs that launch's .pth waits
+                *(run(f"dp_{m}", "dp", m, dp_argv(m) + ["--mesh", "2,1,1"]) for m in DP_MODELS),
+                run("tp_diffusion", "tp", "diffusion", tp_argv("diffusion") + ["--mesh", TP_MESH["diffusion"]]),
+                run("resume_one_at_dp2", "dp_resume", "diffusion",
+                    dp_argv("diffusion", pth("one_dp", "diffusion")) + ["--mesh", "2,1,1"]),
+                run("sp_diffusion", "sp", "diffusion", tp_argv("diffusion") + ["--mesh", SP_MESH["diffusion"]]),
+                *(run(f"resume_{kind}_nafnet", f"{kind}_resume", "nafnet", tp_argv("nafnet", pth(kind, "nafnet"))
+                      + ["--mesh", RESUME_MESH[kind]], after=rank_files(four_job)) for kind in ("tp", "sp")),
+            ]}
+            two_job = torchrun_start(two, tmp, nproc=2, name="two_job")
+            launches.append(two_job)
             four_ranks, four_s = torchrun_wait(four_job)
             in_one = {kind: recipe_run(os.path.join(tmp, f"one_resume_{kind}", "nafnet"),
-                                       tp_argv("nafnet", pth(kind, "nafnet")))[0] for kind in ("tp", "sp")}
+                                       tp_argv("nafnet", pth(kind, "nafnet")))[0] for kind in ("tp", "sp", "sptp")}
             beside = meanwhile()
+            wait_for_files([pth("dp", "diffusion")], "the 2-rank launch's dp diffusion .pth")
+            in_one["dp"] = recipe_run(os.path.join(tmp, "one_resume_dp", "diffusion"),
+                                      dp_argv("diffusion", pth("dp", "diffusion")))[0]
             two_ranks, two_s = torchrun_wait(two_job)
         finally:
-            for launch in (four_job, two_job):
+            for launch in launches:
                 if launch["proc"].poll() is None:
                     os.killpg(launch["proc"].pid, signal.SIGKILL)
                     launch["proc"].wait()
-        in_one["dp"] = recipe_run(os.path.join(tmp, "one_resume_dp", "diffusion"),
-                                  dp_argv("diffusion", pth("dp", "diffusion")))[0]
 
         def fresh(m):
             build = {"diffusion": lambda: UNetDiffusion(config.SERVE_DIFFUSION),
@@ -3542,6 +3601,7 @@ def parallel_training_slice(report: dict, smi: str, meanwhile) -> tuple:
             want = torch.load(pth("one_dp" if kind == "dp" else "one_tp", m), map_location="cpu",
                               weights_only=True)["model_state_dict"]
             return {
+                "mesh": meshes[kind][m], "batch": (DP_BATCH if kind == "dp" else TP_BATCH)[m],
                 "launch_s": launch_s, "backend": [r["backend"] for r in ranks], "world": [r["world"] for r in ranks],
                 "steps": [r["steps"] for r in runs], "devices": [r["device"] for r in runs],
                 "n_sharded": [r["n_sharded"] for r in runs], "row_split": [r["row_split"] for r in runs],
@@ -3558,53 +3618,54 @@ def parallel_training_slice(report: dict, smi: str, meanwhile) -> tuple:
             }
 
         res = {kind: {"card": smi, "note": "ranks share one card over gloo: a correctness run, not a speed result"}
-               for kind in ("dp", "tp", "sp")}
-        for m in DP_MODELS:
-            res["dp"][m] = {"batch": DP_BATCH[m], **compared("dp", m, two_ranks, two_s)}
-        for kind, mesh in (("tp", TP_MESH), ("sp", SP_MESH)):
-            for m in TP_MODELS:
-                ranks, launch_s = (four_ranks, four_s) if m == "nafnet" else (two_ranks, two_s)
-                res[kind][m] = {"mesh": mesh[m], "batch": TP_BATCH[m], **compared(kind, m, ranks, launch_s)}
+               for kind in meshes}
+        ran = {4: (four_ranks, four_s), 2: (two_ranks, two_s), 8: (eight_ranks, eight_s)}
+        for kind, models in meshes.items():
+            for m, mesh in models.items():
+                res[kind][m] = compared(kind, m, *ran[math.prod(int(x) for x in mesh.split(","))])
         res["dp"]["resume"] = {
             "one_at_dp2": [r["resumed"] for r in _runs(two_ranks, "resume_one_at_dp2")],
             "one_at_dp2_epochs": [len(r["history"]["losses"]) for r in _runs(two_ranks, "resume_one_at_dp2")],
             "dp2_in_one": in_one["dp"]["resumed"], "dp2_in_one_epochs": len(in_one["dp"]["history"]["losses"])}
-        for kind, mesh in (("tp", "2,1,2"), ("sp", "2,2,1")):
-            at = _runs(two_ranks, f"resume_nafnet_at_{kind}2")
-            res[kind]["resume"] = {"mesh": mesh, "in_one": in_one[kind]["resumed"],
-                                   "in_one_epochs": len(in_one[kind]["history"]["losses"]),
-                                   "at_2": [r["resumed"] for r in at],
-                                   "at_2_epochs": [len(r["history"]["losses"]) for r in at]}
-    report.update(dp=res["dp"], tp_train=res["tp"], sp_train=res["sp"])
-    for kind in ("dp", "tp", "sp"):
+        for kind, ranks in (("tp", two_ranks), ("sp", two_ranks), ("sptp", four_ranks)):
+            at = _runs(ranks, f"resume_{kind}_nafnet")
+            res[kind]["resume"] = {"mesh": meshes[kind]["nafnet"], "in_one": in_one[kind]["resumed"],
+                                   "in_one_epochs": len(in_one[kind]["history"]["losses"]), "at": RESUME_MESH[kind],
+                                   "at_mesh": [r["resumed"] for r in at],
+                                   "at_mesh_epochs": [len(r["history"]["losses"]) for r in at]}
+    report.update(dp=res["dp"], tp_train=res["tp"], sp_train=res["sp"], sptp_train=res["sptp"])
+    for kind in meshes:
         print(json.dumps({f"{kind}_train": res[kind]}), flush=True)
 
-    for kind, models in (("dp", DP_MODELS), ("tp", TP_MODELS), ("sp", TP_MODELS)):
+    for kind, models in meshes.items():
         for m in models:
             r = res[kind][m]
-            nproc = 4 if kind != "dp" and m == "nafnet" else 2
+            nproc = math.prod(int(x) for x in r["mesh"].split(","))
             assert r["backend"] == ["gloo"] * nproc and r["world"] == [nproc] * nproc, (kind, m, r)
-            steps = 4 if kind == "dp" else TP_STEPS[m]
+            steps = DP_STEPS if kind == "dp" else TP_STEPS[m]
             assert r["steps"] == [steps] * nproc and r["devices"] == ["cuda:0"] * nproc, (kind, m, r)
-            assert r["n_sharded"] == [TP2_TRAIN_SHARDED[m] if kind == "tp" else 0] * nproc, (kind, m, r["n_sharded"])
-            assert r["row_split"] == [r["row_split_want"] if kind == "sp" else 0] * nproc, (kind, m, r["row_split"])
+            split = TP2_TRAIN_SHARDED[m] if kind in ("tp", "sptp") else 0
+            assert r["n_sharded"] == [split] * nproc, (kind, m, r["n_sharded"])
+            rows = r["row_split_want"] if kind in ("sp", "sptp") else 0
+            assert r["row_split"] == [rows] * nproc, (kind, m, r["row_split"])
             assert all(losses == r["losses"][0] for losses in r["losses"]), (kind, m, r["losses"])
             assert all(n == DP_PER_STEP[m] for rank in r["launches_per_step_per_rank"] for n in rank), (kind, m)
             assert r["loss_max_rel_diff"] <= DP_LOSS_REL and r["update_rel_l2"] <= DP_UPDATE_REL_L2[m], (kind, m, r)
             assert r["weight_max_abs_diff"] <= 2 * steps * recipes.default_train_config(m).lr, (kind, m, r)
             assert r["pth_keys_unsharded"], (kind, m)
-    assert res["dp"]["expert"]["stats_max_rel"] <= DP_STATS_REL and res["dp"]["expert"]["buffers_counter"] == [4], res
+    expert = res["dp"]["expert"]
+    assert expert["stats_max_rel"] <= DP_STATS_REL and expert["buffers_counter"] == [DP_STEPS], res
     rs = res["dp"]["resume"]
     assert rs["one_at_dp2"] == [[True], [True]] and rs["dp2_in_one"] == [True], rs
     assert rs["one_at_dp2_epochs"] == [2, 2] and rs["dp2_in_one_epochs"] == 2, rs
-    for kind in ("tp", "sp"):
+    for kind in ("tp", "sp", "sptp"):
         rs = res[kind]["resume"]
+        nproc = math.prod(int(x) for x in rs["at"].split(","))
         assert rs["in_one"] == [True] and rs["in_one_epochs"] == 2, (kind, rs)
-        assert rs["at_2"] == [[True], [True]] and rs["at_2_epochs"] == [2, 2], (kind, rs)
-    return {f"{prefix}_{m}": {k: sum(rank[k] for rank in res[kind][m]["launches_per_rank"]) for k in NO_LAUNCHES}
-            for kind, prefix, models in (("dp", "dp", DP_MODELS), ("tp", "train_tp", TP_MODELS),
-                                         ("sp", "train_sp", TP_MODELS))
-            for m in models}, beside
+        assert rs["at_mesh"] == [[True]] * nproc and rs["at_mesh_epochs"] == [2] * nproc, (kind, rs)
+    return {f"{'dp' if kind == 'dp' else 'train_' + kind}_{m}": {
+                k: sum(rank[k] for rank in res[kind][m]["launches_per_rank"]) for k in NO_LAUNCHES}
+            for kind, models in meshes.items() for m in models}, beside
 
 
 def parallel_serving_slice(report: dict, smi: str, unsharded: dict) -> dict:
@@ -4195,8 +4256,9 @@ def main(argv=None) -> int:
         report["phase_17_s"] = time.time() - t
         print(json.dumps({"phase_17_s": report["phase_17_s"]}), flush=True)
 
-        phase("slice: training under torchrun at 512² (dp 2, tp 2, dp 2 x tp 2, sp 2, dp 2 x sp 2; "
-              "phases 16b, 18a-b and 19b in two launches at once), and int8 under tp")
+        phase("slice: training under torchrun at 512² (dp 2, tp 2, dp 2 x tp 2, sp 2, dp 2 x sp 2, "
+              "sp 2 x tp 2, dp 2 x sp 2 x tp 2; phases 16b, 18a-b, 19b and 21 in three launches), "
+              "and int8 under tp")
         t = time.time()
         torch.cuda.empty_cache()  # the ranks share the card
         trained, paths["serve_int8_tp"] = parallel_training_slice(

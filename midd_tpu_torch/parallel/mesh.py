@@ -17,9 +17,10 @@ replicated over sp and tp. tp: the layout rule (``param_shardings``,
 in the engine, over the mesh's tp group in the trainer. sp: a rank's batch
 rows and its index along sp (``image_sharding``); ``parallel/sp.py`` splits
 the convolutions' output rows over the engine's sp devices or the
-trainer's sp group. The trainer takes sp or tp, not both yet
-(``check_mesh_shape``, ROADMAP.md queue 1 item 15d); the engine composes
-them.
+trainer's sp group. Both compose, in the engine and in the trainer: a
+layer split on its channels is then row-split too. The ranks of one (sp,
+tp) block of the trainer's mesh share a dp coordinate, so they hold the
+same batch rows.
 """
 
 from __future__ import annotations
@@ -32,8 +33,6 @@ import torch.distributed as dist
 import torch.nn as nn
 
 AXES = ("dp", "sp", "tp")
-SP_TP_MESSAGE = ("training at sp > 1 and tp > 1 together is not ported yet: ROADMAP.md queue 1 item 15d "
-                 "(train at (dp, sp, 1) or (dp, 1, tp))")
 
 
 def mesh_layout(n_devices: Optional[int] = None, tp: Optional[int] = None, sp: int = 1,
@@ -142,11 +141,8 @@ def count_tp_sharded(shardings: Dict[str, Optional[int]]) -> int:
 
 
 def check_mesh_shape(mesh_shape: Sequence[int]) -> Tuple[int, int, int]:
-    """(dp, sp, tp) of a mesh shape the port can train on; sp > 1 with
-    tp > 1 raises, naming the ROADMAP item."""
+    """(dp, sp, tp) of a mesh shape, as ints; an axis under 1 raises."""
     dp, sp, tp = (int(x) for x in mesh_shape)
-    if sp > 1 and tp > 1:
-        raise NotImplementedError(SP_TP_MESSAGE)
     if min(dp, sp, tp) < 1:
         raise ValueError(f"mesh_shape {tuple(mesh_shape)}: every axis needs at least 1 device")
     return dp, sp, tp

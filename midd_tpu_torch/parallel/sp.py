@@ -47,6 +47,23 @@ Two forms, as tp has:
   trainer sums those over sp (``parallel/train_dp.py``). Without gradients
   (validation) every rank computes the whole layer, as the JAX trainer's
   eval runs replicated.
+
+At sp > 1 and tp > 1 together the tp split comes first and the row split
+wraps it, in both forms: ``RowParallel`` over ``ColumnParallel`` in the
+engine, ``RankRowParallel`` over ``RankColumnParallel`` in the trainer.
+The other order, a channel split of a row-split layer, computes the same
+function; this one is chosen because it keeps the tp split as it is: its
+parameter names and slices, and the tp ``RankShards``, which
+``shard_rows_over_group`` extends, so that a checkpoint still gathers and
+slices over tp only. The ranks of a tp group read the same row block; each
+computes its channel slice of the block, the slices are gathered over tp,
+then the blocks over sp. The backward runs the same pieces in reverse: the
+sp gather keeps this rank's rows, the tp gather its channels, the tp
+copy-in sums the block's dx over tp and the sp copy-in the whole input's
+over sp. A weight slice's gradient on a rank covers its rows only, and is
+summed over sp as a whole weight's is. Without gradients every rank
+computes every row of its channel slice, and the tp group still gathers
+the slices.
 """
 
 from __future__ import annotations
@@ -60,7 +77,7 @@ import torch.distributed as dist
 import torch.nn as nn
 import torch.nn.functional as F
 
-from midd_tpu_torch.parallel.tp import ColumnParallel, RankShards, SplitLayer, copy_in
+from midd_tpu_torch.parallel.tp import ColumnParallel, RankColumnParallel, RankShards, SplitLayer, copy_in
 
 LAYERS = (nn.Conv2d, nn.ConvTranspose2d)
 WHOLE = "sca"  # the NAFBlock's squeeze-and-excite: a 1×1 convolution of a pooled 1×1 map
@@ -128,15 +145,31 @@ class RowGeometry:
         return y.narrow(2, o0 + self.p - a * self.s, o1 - o0)
 
 
-def _unpadded_rows(layer: nn.Module) -> nn.Module:
-    """``layer`` with no padding along H, in place (a block reads padded
-    rows, or crops a transposed convolution's output)."""
-    layer.padding = (0, *tuple(layer.padding)[1:])
-    return layer
+def _convs(layer: nn.Module) -> List[nn.Module]:
+    """The convolutions that compute ``layer``: a tp split layer's slices
+    (``ColumnParallel``, ``RankColumnParallel``), else the layer."""
+    if isinstance(layer, ColumnParallel):
+        return list(layer.shards)
+    return [layer.shard] if isinstance(layer, RankColumnParallel) else [layer]
 
 
 def _base(layer: nn.Module) -> nn.Module:
-    return layer.shards[0] if isinstance(layer, ColumnParallel) else layer
+    return _convs(layer)[0]
+
+
+def _unpadded_rows(layer: nn.Module) -> nn.Module:
+    """``layer`` with no padding along H, in place, its tp slices' where it
+    is split (a block reads padded rows, or crops a transposed
+    convolution's output)."""
+    for conv in _convs(layer):
+        conv.padding = (0, *tuple(conv.padding)[1:])
+    return layer
+
+
+def _apply(fn: Callable, layer: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """``fn(layer, x)``, or, for a tp split layer, ``fn`` of each slice,
+    gathered."""
+    return layer.map(fn, x) if isinstance(layer, SplitLayer) else fn(layer, x)
 
 
 def _dynamic_int8(layer: nn.Module) -> bool:
@@ -202,8 +235,7 @@ class RowParallel(SplitLayer):
                 continue
             a, b = geom.in_rows(o0, o1, h)
             dev = block.devices[0] if isinstance(block, ColumnParallel) else block.weight.device
-            xi = xp[:, :, a:b].to(dev)
-            y = block.map(fn, xi) if isinstance(block, ColumnParallel) else fn(block, xi)
+            y = _apply(fn, block, xp[:, :, a:b].to(dev))
             parts.append(geom.crop(y, o0, o1, a).to(x.device))
         return torch.cat(parts, dim=2)
 
@@ -264,17 +296,18 @@ class _GatherRows(torch.autograd.Function):
 
 
 class RankRowParallel(SplitLayer):
-    """``layer``, whole, computing this rank's block of output rows of
+    """``layer``, whole or this rank's tp slice of it (a
+    ``RankColumnParallel``), computing this rank's block of output rows of
     ``group``; the forward all-gathers the blocks. Every rank of the group
     must run it. The layer's parameters stay trainable; their gradient on
     a rank covers its rows only. A forward without gradients (the
     trainer's validation) computes every row on every rank and gathers
-    nothing, as the JAX trainer's jitted eval, whose input is not
+    nothing over sp, as the JAX trainer's jitted eval, whose input is not
     image-sharded, runs replicated over sp."""
 
     def __init__(self, layer: nn.Module, group):
         super().__init__()
-        self.geometry = RowGeometry.of(layer)
+        self.geometry = RowGeometry.of(_base(layer))
         self.group = group
         self.layer = _unpadded_rows(layer)
 
@@ -283,9 +316,10 @@ class RankRowParallel(SplitLayer):
         geom = self.geometry if rows is None else RowGeometry(*rows)
         h = x.shape[2]
         h_out = geom.out_rows(h)
+        run = _block_fn(fn, self.layer, x)
         if not torch.is_grad_enabled():
             a, b = geom.in_rows(0, h_out, h)
-            return geom.crop(_block_fn(fn, self.layer, x)(self.layer, geom.padded(x)[:, :, a:b]), 0, h_out, a)
+            return geom.crop(_apply(run, self.layer, geom.padded(x)[:, :, a:b]), 0, h_out, a)
         sp, rank = dist.get_world_size(self.group), dist.get_rank(self.group)
         x = copy_in(x, self.group)
         blocks = row_blocks(h_out, sp)
@@ -294,26 +328,30 @@ class RankRowParallel(SplitLayer):
             o0 = min(o0, h_out - 1)
             o1 = o0 + 1
         a, b = geom.in_rows(o0, o1, h)
-        y = geom.crop(_block_fn(fn, self.layer, x)(self.layer, geom.padded(x)[:, :, a:b]), o0, o1, a)
+        y = geom.crop(_apply(run, self.layer, geom.padded(x)[:, :, a:b]), o0, o1, a)
         y = y.narrow(2, 0, blocks[rank][1] - blocks[rank][0])
         return _GatherRows.apply(y, [hi - lo for lo, hi in blocks], self.group)
 
 
-def shard_rows_over_group(module: nn.Module, group) -> RankShards:
+def shard_rows_over_group(module: nn.Module, group, shards: Optional[RankShards] = None) -> RankShards:
     """Split every convolution of ``module`` in place over the ranks of
     ``group`` (``RankRowParallel``). Every rank must hold the same weights
     when it is called. Returns the ``RankShards`` that maps the split
-    module back to the unsharded one: every parameter whole (``dims`` all
-    None), the row-split layers' in ``summed``, whose gradients the
-    trainer sums over the group."""
-    names = list(module.state_dict())
-    param_names = [n for n, p in module.named_parameters() if p.requires_grad]
-    local = {n: n for n in names}
-    summed = []
+    module back to the unsharded one, with the row-split layers'
+    parameters in ``summed``, whose gradients the trainer sums over the
+    group. ``shards``: the ``RankShards`` of a tp split of ``module``
+    (``parallel.tp.shard_over_group``) made first; it is extended in place
+    (its keys followed into the row-split layers, its tp ``dims``, group
+    and count kept) and returned. Without it every parameter is whole."""
+    if shards is None:
+        names = list(module.state_dict())
+        shards = RankShards(module, group, names, [n for n, p in module.named_parameters() if p.requires_grad],
+                            {n: n for n in names}, {n: None for n in names}, 0)
+    summed = set()
     for name in _row_split(module, lambda layer: RankRowParallel(layer, group)):
-        for key in list(local):
-            if key.startswith(name + "."):
-                local[key] = f"{name}.layer.{key[len(name) + 1:]}"
-                summed.append(key)
-    return RankShards(module, group, names, param_names, local, {n: None for n in names}, 0,
-                      summed=[n for n in param_names if n in set(summed)])
+        for key, held in list(shards.local.items()):
+            if held.startswith(name + "."):
+                shards.local[key] = f"{name}.layer.{held[len(name) + 1:]}"
+                summed.add(key)
+    shards.summed = [n for n in shards.param_names if n in summed]
+    return shards

@@ -34,7 +34,9 @@ Two forms of the same column split, by ``mesh.param_shardings``'s rule:
   ``shard_over_group`` returns, maps the split module back to the unsharded
   one: its parameters in the unsharded order, and its state and AdamW's
   gathered into (or sliced from) the single-process layout, so that a
-  checkpoint reads the same at any (dp, tp).
+  checkpoint reads the same at any (dp, sp, tp). At sp > 1 the row split
+  of ``parallel/sp.py`` wraps these layers and extends the same
+  ``RankShards``.
 
 The collectives are ``dist.all_reduce`` and the list form of
 ``dist.all_gather``, which gloo (the CPU, and ranks that share a card) and
@@ -313,16 +315,19 @@ class _RankGatheredParameter(nn.Module):
 
 @dataclass
 class RankShards:
-    """A module split over a tp process group by ``shard_over_group``, and
-    the map back to the unsharded module. ``names``: the unsharded
-    ``state_dict``'s keys in order; ``param_names``: its trainable
-    parameters in ``parameters()`` order (a single-process optimizer's
-    indices); ``local``: each key's name in the split module; ``dims``: the
-    dim along which this rank holds a slice of each key (None: whole).
-    ``n_sharded``: the rule's ``count_tp_sharded``. ``summed``: the
-    parameters whose gradient each rank computes for its part of the
-    output only, to be summed over the group (a row split's,
-    ``parallel/sp.py``; none under tp)."""
+    """A module split over a tp process group by ``shard_over_group``,
+    row-split over an sp group by ``parallel.sp.shard_rows_over_group``, or
+    both (the tp split first), and the map back to the unsharded module.
+    ``group``: the tp group, over which the slices are gathered and cut
+    (the sp group where there is no tp split: every key is whole then).
+    ``names``: the unsharded ``state_dict``'s keys in order;
+    ``param_names``: its trainable parameters in ``parameters()`` order (a
+    single-process optimizer's indices); ``local``: each key's name in the
+    split module, through both wrappers; ``dims``: the dim along which this
+    rank holds a tp slice of each key (None: whole). ``n_sharded``: the tp
+    rule's ``count_tp_sharded``. ``summed``: the parameters whose gradient
+    each rank computes for its block of output rows only, to be summed
+    over the sp group (the row-split layers'; none under tp alone)."""
 
     module: nn.Module
     group: Any
@@ -413,6 +418,6 @@ def shard_over_group(module: nn.Module, group, min_size: int = 1 << 16) -> RankS
         owner, _, pname = name.rpartition(".")
         parametrize.register_parametrization(module.get_submodule(owner), pname,
                                              _RankGatheredParameter(rule[name], group))
-        local[name] = f"{owner}.parametrizations.{pname}.original"
+        local[name] = f"{owner + '.' if owner else ''}parametrizations.{pname}.original"
         dims[name] = rule[name]
     return RankShards(module, group, names, param_names, local, dims, count_tp_sharded(rule))

@@ -1,6 +1,6 @@
-"""The data- and tensor-parallel training step of the port (counterpart of
-``midd_tpu/parallel/train_dp.py``, and of the JAX trainer's step over a
-(dp, 1, tp) mesh).
+"""The data-, tensor- and spatial-parallel training step of the port
+(counterpart of ``midd_tpu/parallel/train_dp.py``, and of the JAX
+trainer's step over a (dp, sp, tp) mesh).
 
 The JAX package runs one program on a batch sharded over dp, and XLA
 inserts the gradient psum. The port runs one process per rank, each with a
@@ -42,8 +42,18 @@ same loss. Each rank's gradient of a row-split layer covers its block of
 output rows only, so those gradients are summed over the sp group; the
 others, equal in exact arithmetic, are averaged, with the loss, in the
 same ``all_reduce``. The dp mean follows, and the clip takes the plain
-norm of the result, which is the whole gradient's. A mesh with sp > 1 and
-tp > 1 raises (ROADMAP.md queue 1 item 15d).
+norm of the result, which is the whole gradient's.
+
+At sp > 1 and tp > 1 together the tp split comes first and the row split
+wraps it (``parallel/sp.py``): the ranks of one (sp, tp) block hold the
+same rows of the batch, and a rank holds its tp slice of each split
+parameter, with a gradient over its block of rows where the layer is
+row-split. The three reductions run in the same order: over sp, the
+row-split parameters' gradients (slices and whole) are summed and the
+others averaged, with the loss; over dp, everything is averaged; over tp,
+the whole parameters' gradients are averaged, with the loss. The sp sum
+leaves every sp rank with its tp slice's whole gradient, so the clip sums
+the slices' squares over the tp group only (``trainer.global_norm``).
 """
 
 from __future__ import annotations
@@ -148,8 +158,8 @@ def make_sharded_train_step(loss_fn: Callable, optimizer: torch.optim.Optimizer,
     a gradient. ``mesh=None`` or dp 1: the single-process step. Sets
     ``model``'s BatchNorm statistics to the global batch's
     (``sync_batch_stats``). ``shards``: the ``RankShards`` of a ``model``
-    split over the mesh's tp group, or row-split over its sp group, whose
-    ``params()`` are the trained ones."""
+    split over the mesh's tp group, row-split over its sp group, or both,
+    whose ``params()`` are the trained ones."""
     from midd_tpu_torch.train.trainer import finite_update  # the trainer imports this module
 
     group = dp_group(mesh)

@@ -36,16 +36,18 @@ CLI:
         --clear-dir data/clean --noisy-dirs data/noisy [--device cuda|cpu] \\
         [--nafnet-ckpt N.pth --diffusion-ckpt D.pth] [--mesh DP,SP,TP] ...
 
-Data parallel over two ranks, dp 2 x tp 2 or dp 2 x sp 2 over four (one
-process a rank; gloo on the CPU, or when the ranks share a card; NCCL when
-each has its own). At tp > 1 each rank holds its slice of the convolutions
-that the JAX rule splits (``TrainConfig.tp_min_size``); at sp > 1 each rank
-computes its block of every convolution's output rows; either way the
-``.pth`` is written in the single-process layout. sp and tp together are
-not ported yet (ROADMAP.md queue 1 item 15d):
+Data parallel over two ranks, dp 2 x tp 2 or dp 2 x sp 2 over four, dp 2
+x sp 2 x tp 2 over eight (one process a rank; gloo on the CPU, or when the
+ranks share a card; NCCL when each has its own). At tp > 1 each rank holds
+its slice of the convolutions that the JAX rule splits
+(``TrainConfig.tp_min_size``); at sp > 1 each rank computes its block of
+every convolution's output rows (of its slice, at tp > 1 too); the
+hybrid's frozen backends stay whole on every rank; the ``.pth`` is written
+in the single-process layout:
     torchrun --nproc_per_node 2 -m midd_tpu_torch.train.recipes --mesh 2,1,1 ...
     torchrun --nproc_per_node 4 -m midd_tpu_torch.train.recipes --mesh 2,1,2 ...
     torchrun --nproc_per_node 4 -m midd_tpu_torch.train.recipes --mesh 2,2,1 ...
+    torchrun --nproc_per_node 8 -m midd_tpu_torch.train.recipes --mesh 2,2,2 ...
 """
 
 from __future__ import annotations
@@ -397,11 +399,10 @@ def main(argv: Optional[Sequence[str]] = None) -> TrainerState:
     ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
     ap.add_argument("--mesh", default=None, metavar="DP,SP,TP",
                     help="multi-chip training mesh, e.g. '4,1,1' for 4-way "
-                         "data parallelism, '2,1,2' for dp2 x tp2 or '2,2,1' "
-                         "for dp2 x sp2; batches shard over dp, image rows "
-                         "over sp, large kernels over tp (one process a rank, "
-                         "started by torchrun; sp and tp together are not "
-                         "ported yet)")
+                         "data parallelism, '2,1,2' for dp2 x tp2, '2,2,1' "
+                         "for dp2 x sp2 or '2,2,2' for all three; batches "
+                         "shard over dp, image rows over sp, large kernels "
+                         "over tp (one process a rank, started by torchrun)")
     args = ap.parse_args(argv)
     if args.model == "tiny" and args.resume:
         ap.error("--model tiny: the tiny recipe takes no --resume")

@@ -29,12 +29,13 @@ package's draws instead.
 ``TrainConfig.remat`` recomputes the whole loss function in the backward
 pass (``torch.utils.checkpoint``), as the JAX trainer wraps its loss in
 ``jax.checkpoint``. ``TrainConfig.mesh_shape = (dp, sp, tp)`` trains over
-dp x sp x tp ranks, one process each (``parallel/``), with sp or tp at 1:
-every rank starts from rank 0's weights; at tp > 1 it then keeps its tp
-slice of each parameter that ``param_shardings(model, tp,
-cfg.tp_min_size)`` splits (``parallel.tp.shard_over_group``), at sp > 1 it
-computes its block of each convolution's output rows with the whole
-weights (``parallel.sp.shard_rows_over_group``); every rank draws for the
+dp x sp x tp ranks, one process each (``parallel/``): every rank starts
+from rank 0's weights; at tp > 1 it then keeps its tp slice of each
+parameter that ``param_shardings(model, tp, cfg.tp_min_size)`` splits
+(``parallel.tp.shard_over_group``), at sp > 1 it computes its block of
+each convolution's output rows (``parallel.sp.shard_rows_over_group``),
+with the whole weights, or, at sp and tp > 1 together, with its tp slice
+of a split layer's (the row split wraps the tp split); every rank draws for the
 global batch and keeps its dp group's rows (``image_sharding``: the rows of
 a dp group, replicated over sp and tp), loads only those rows of each
 global batch, and applies the update of the global batch
@@ -44,8 +45,7 @@ eval runs replicated over sp) and rank 0's numbers decide; rank 0 writes the ``.
 in the single-process layout (the unsharded ``state_dict`` and AdamW's
 state gathered slice by slice), so a checkpoint resumes at any (dp, sp,
 tp), and each rank slices what it holds. Frozen modules (the hybrid's
-backends) run whole on every rank. sp and tp together are not ported yet
-(ROADMAP.md queue 1 item 15d).
+backends) run whole on every rank.
 """
 
 from __future__ import annotations
@@ -98,7 +98,7 @@ class TrainConfig:
     # rematerialise the loss's forward in the backward pass
     remat: bool = False
     # (dp, sp, tp): data parallel over dp, spatial over sp, tensor parallel
-    # over tp, one process a rank (the process group started); sp or tp is 1
+    # over tp, one process a rank (the process group started)
     mesh_shape: Optional[Tuple[int, int, int]] = None
     tp_min_size: int = 1 << 16  # the JAX trainer's tp threshold: smaller parameters stay whole
 
@@ -455,8 +455,9 @@ class Trainer:
         if self.mesh is not None:  # every replica starts from rank 0's weights and statistics
             replicated([*model.parameters(), *model.buffers()], self.mesh)
         tp, sp = tp_group(self.mesh), sp_group(self.mesh)
-        self.shards = (shard_over_group(model, tp, cfg.tp_min_size) if tp is not None
-                       else shard_rows_over_group(model, sp) if sp is not None else None)
+        self.shards = shard_over_group(model, tp, cfg.tp_min_size) if tp is not None else None
+        if sp is not None:  # the row split wraps the tp split, and extends its map
+            self.shards = shard_rows_over_group(model, sp, self.shards)
         self.frozen = None if frozen is None else {
             k: m.to(self.device).eval().requires_grad_(False) for k, m in frozen.items()
         }
@@ -526,7 +527,8 @@ class Trainer:
 
     def resume(self, ckpt_path: str) -> None:
         """Full resume from a checkpoint written by ``save``, at any (dp,
-        tp): weights, optimizer state, epoch, best metrics and histories."""
+        sp, tp): weights, optimizer state, epoch, best metrics and
+        histories (each rank loads its tp slices)."""
         ckpt = load_checkpoint(ckpt_path)
         st = self.state
         if self.shards is None:
@@ -544,8 +546,9 @@ class Trainer:
 
     def state_dicts(self) -> Tuple[Dict[str, torch.Tensor], Dict]:
         """(model, optimizer) ``state_dict``s in the single-process layout:
-        at tp > 1 the unsharded keys and AdamW's state gathered slice by
-        slice (every rank must call it then)."""
+        under sp or tp the unsharded keys, and at tp > 1 the parameters and
+        AdamW's state gathered slice by slice over the tp group (every rank
+        must call it then)."""
         st = self.state
         if self.shards is None:
             return st.model.state_dict(), st.optimizer.state_dict()

@@ -378,19 +378,19 @@ def test_resume_across_world_sizes_through_the_cli(cli_runs, monkeypatch):
 
 @pytest.mark.parametrize("mesh", ["1,2,2"])
 def test_sp_and_tp_are_refused_naming_the_roadmap_item(tmp_path, mesh):
-    """Training at sp > 1 and tp > 1 together (item 15d) refuses, in the
-    CLI, the trainer and the mesh check. Training at sp > 1 alone
-    (tests/test_torch_sp.py) and at tp > 1 alone
-    (tests/test_torch_tp_train.py) is ported."""
-    item = "ROADMAP.md queue 1 item 15d"
+    """Training at sp > 1 and tp > 1 together is ported
+    (tests/test_torch_sp_tp_train.py): the mesh check takes the shape, and
+    in one process the CLI and the trainer refuse it only for its missing
+    ranks, as they refuse any mesh whose ranks do not run."""
+    shape = tuple(int(x) for x in mesh.split(","))
+    missing = r"mesh_shape \(1, 2, 2\) needs 4 devices, have 1"
     dirs = _write_pairs(tmp_path, n=2)
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(ValueError, match=missing):
         trecipes.main(worker.cli_argv("nafnet", *dirs) + ["--mesh", mesh])
-    cfg = ttrainer.TrainConfig(mesh_shape=tuple(int(x) for x in mesh.split(",")))
-    with pytest.raises(NotImplementedError, match=item):
+    cfg = ttrainer.TrainConfig(mesh_shape=shape)
+    with pytest.raises(ValueError, match=missing):
         ttrainer.Trainer(lambda *a: None, lambda *a: None, cfg, torch.nn.Linear(2, 2), ttrainer.no_draw, device="cpu")
-    with pytest.raises(NotImplementedError, match=item):
-        tmesh.check_mesh_shape(mesh.split(","))
+    assert tmesh.check_mesh_shape(mesh.split(",")) == shape
 
 
 def test_a_mesh_needs_its_ranks():

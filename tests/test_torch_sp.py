@@ -452,11 +452,12 @@ def test_every_recipe_trains_at_sp2_under_torchrun(sp_runs, model):
 
 
 def test_trainer_refuses_sp_with_tp_naming_item_15d():
-    item = "ROADMAP.md queue 1 item 15d"
-    with pytest.raises(NotImplementedError, match=item):
-        check_mesh_shape((1, 2, 2))
+    """sp with tp is ported (tests/test_torch_sp_tp_train.py): the mesh
+    check returns the shape, and in one process the trainer refuses (2, 2,
+    2) only for its missing ranks."""
+    assert check_mesh_shape((1, 2, 2)) == (1, 2, 2) and check_mesh_shape((2, 2, 2)) == (2, 2, 2)
     cfg = ttrainer.TrainConfig(mesh_shape=(2, 2, 2))
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(ValueError, match=r"mesh_shape \(2, 2, 2\) needs 8 devices, have 1"):
         ttrainer.Trainer(lambda *a: None, lambda *a: None, cfg, torch.nn.Linear(2, 2), ttrainer.no_draw,
                          device="cpu")
     assert check_mesh_shape((2, 2, 1)) == (2, 2, 1) and check_mesh_shape(("1", "4", "1")) == (1, 4, 1)

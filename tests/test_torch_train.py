@@ -291,14 +291,13 @@ def test_two_train_steps_match_the_jax_trainer(rng, tmp_path):
 
 
 def test_trainer_refuses_what_is_not_ported():
-    """sp > 1 with tp > 1 is not ported (ROADMAP item 15d); sp > 1 and tp > 1
-    alone are, and a mesh whose ranks are missing raises rather than train
-    in one process."""
+    """sp > 1 with tp > 1 is ported, as sp > 1 and tp > 1 alone are; a mesh
+    whose ranks are missing raises rather than train in one process."""
     m = torch.nn.Linear(2, 2)
     args = (lambda *a: None, lambda *a: None)
-    for cfg in (ttrainer.TrainConfig(mesh_shape=(1, 2, 2)), ttrainer.TrainConfig(mesh_shape=(2, 2, 2))):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 15d"):
-            ttrainer.Trainer(*args, cfg, m, lambda *a: None, device="cpu")
+    for shape, n in (((1, 2, 2), 4), ((2, 2, 2), 8)):
+        with pytest.raises(ValueError, match=re.escape(f"mesh_shape {shape} needs {n} devices, have 1")):
+            ttrainer.Trainer(*args, ttrainer.TrainConfig(mesh_shape=shape), m, lambda *a: None, device="cpu")
     for shape in ((1, 2, 1), (1, 1, 2)):
         with pytest.raises(ValueError, match=re.escape(f"mesh_shape {shape} needs 2 devices, have 1")):
             ttrainer.Trainer(*args, ttrainer.TrainConfig(mesh_shape=shape), m, lambda *a: None, device="cpu")
