@@ -17,7 +17,8 @@ spatial parallel (dp 2, tp 2, dp 2 x tp 2, sp 2, dp 2 x sp 2, sp 2 x tp
 2, dp 2 x sp 2 x tp 2) over ranks,
 serves int8 under tp, serves spatial-parallel (``--sp``, with dp, tp
 and int8), and counts FLOPs on the card, runs the training benchmark
-(``bench_train_torch.py --quick``) and the native data path.
+(``bench_train_torch.py --quick``) and the native data path, and serves
+from AOT-pinned programs (``--aot``), compiled beside the other phases.
 
     python3 chip_smoke.py [--report FILE] [--naf-only]
 
@@ -233,7 +234,21 @@ Phases (any failure exits non-zero, and no result line is printed):
    ``.pth`` in the single-process layout, and (b)'s ``.pth`` resumed
    exactly in this process and at ``--mesh 2,1,2`` in the 4-rank launch;
    the step walls beside the card's name and power limit (a correctness
-   run, not a speed result).
+   run, not a speed result);
+22. AOT-pinned serving at 512², SERVE widths (``EngineConfig(aot_dir=D,
+   cache_dir=C)``, ``utils/compile_cache.py``): the cold start, in a process
+   of its own (``--aot-cold``) that starts after phase 2 and compiles beside
+   phases 3-21, pins every path at bucket 1 into empty D and C and serves 3
+   seeded requests; then a second start loads every pin, and with TF32 off
+   the two pinned engines agree bit for bit, nafnet and expert within 1e-4
+   and the bf16-eval rollouts within 5e-2 of the eager engine, each pinned
+   request makes 48 flash and 120 ln2d launches (the kernels run inside
+   the programs as custom ops) and no pin is dropped; ``python -m
+   midd_tpu_torch.serve.server --aot D`` in a new process loads every pin
+   (its ``aot_load`` events, no ``aot_compile``) and answers a request.
+   Each start's time to ready, each path's wall, device ms and launches,
+   pinned beside eager, and ``flash_host_us`` (the custom op's dispatch
+   beside the direct call) are printed: facts, not gates.
 The CPU halves of phases 9, 10 and 12c's calibration run on another thread
 while the kernels build (phase 2): the same functions on the same seeded
 inputs (``on_devices``).
@@ -248,7 +263,8 @@ The second-to-last line is the kernels JSON (each flash entry with an
 ``fp32`` object and the times of every timed shape), the last
 {"ok": true, ...}.
 
-``--dp-rank JOB`` is phase 18's rank mode (run by torchrun, not by hand).
+``--dp-rank JOB`` is phase 18's rank mode (run by torchrun, not by hand);
+``--aot-cold DIR`` is phase 22's cold start (run by the script).
 ``--naf-only`` runs phases 1, 2 (ln2d and naf_ffn), 6 and 7 (with
 phase 7's profile) and prints the kernels line without a result line: an
 A/B of the NAFNet kernels, each tree's own package beside this script.
@@ -276,6 +292,7 @@ request's.
 
 from __future__ import annotations
 
+import atexit
 import base64
 import contextlib
 import copy
@@ -1976,12 +1993,15 @@ def profile_request(engine, addr) -> dict:
 
 
 def flash_host_us(calls: int = 2000) -> dict:
-    """``--report`` only: host time per serving call (inference_mode) of the
-    forward through ``FlashAttention.apply`` and of ``flash_attention``
-    called directly, at a shape small enough that the host, not the kernel,
-    sets the pace. Median of 5 loops of ``calls`` calls each, in turns."""
+    """Host time per serving call (inference_mode) of the forward through
+    ``FlashAttention.apply`` (eager: the wrapper called directly), through
+    the custom op ``flash_fwd_op`` (the dispatch a traced graph takes) and of
+    ``flash_attention`` called directly, at a shape small enough that the
+    host, not the kernel, sets the pace. Median of 5 loops of ``calls``
+    calls each, in turns."""
     q = torch.randn(2, 64, 32, device="cuda")
     fns = {"FlashAttention.apply": lambda: fa.FlashAttention.apply(q, q, q),
+           "flash_fwd_op": lambda: fa.flash_fwd_op(q, q, q),
            "flash_attention": lambda: fa.flash_attention(q, q, q)}
     times = {name: [] for name in fns}
     with torch.inference_mode():
@@ -4096,6 +4116,228 @@ def time_host_ms(fn, reps: int = 5) -> float:
     return statistics.median(times)
 
 
+# AOT-pinned serving (phase 22): 512², SERVE_* widths, the default engine.
+# fp32 paths (nafnet, expert) within PERF.md §2's fp32 serving bound of eager
+# with TF32 off (Inductor sums the norms and elementwise chains around the
+# kernels in its own order); the bf16-eval rollouts (diffusion, hybrid) within
+# their bound (Inductor keeps a fused kernel's bf16 intermediates in fp32).
+# The cold start compiles for minutes on the host's cores, in a process of its
+# own (``--aot-cold DIR``) that the script starts after the build and that
+# runs beside phases 3-21; phase 22 waits for it at most AOT_COLD_WAIT_S more.
+AOT_REQUESTS = 3
+AOT_BOUNDS = {"nafnet": 1e-4, "expert": 1e-4, "diffusion": 5e-2, "hybrid": 5e-2}
+AOT_COLD_WAIT_S = 900
+AOT_SERVER_READY_S = 600
+
+
+def aot_requests() -> list:
+    rng = np.random.default_rng(22)
+    return [rng.random((1, 512, 512, 1), dtype=np.float32) for _ in range(AOT_REQUESTS)]
+
+
+def aot_engine_config(root: str) -> EngineConfig:
+    return EngineConfig(aot_dir=os.path.join(root, "aot"), cache_dir=os.path.join(root, "cache"))
+
+
+def aot_serve(engine: InferenceEngine, xs: list) -> tuple:
+    """The seeded requests through every path of ``engine``: their outputs
+    and each request's launches (``PER_REQUEST`` required)."""
+    outs, per_request = [], []
+    for x in xs:
+        before = counts()
+        outs.append({name: engine.fns[name](x) for name in MODEL_NAMES})
+        per_request.append(since(before))
+        assert per_request[-1] == PER_REQUEST, per_request[-1]
+    return outs, per_request
+
+
+def aot_cold_main(root: str) -> int:
+    """Phase 22's cold start (``--aot-cold DIR``, a process the script starts
+    after the build): ``EngineConfig()`` with ``aot_dir`` and ``cache_dir``
+    empty under DIR, every pin compiled, the seeded requests served with
+    TF32 off; writes ``cold.json`` (time to ready, pins, launches, dropped
+    pins) and ``cold.npz`` (outputs) into DIR. It runs niced, its compile
+    workers too: the other phases keep the host's cores first (beside it
+    at the same priority, phase 18's ranks took 1.5× as long)."""
+    os.nice(10)
+    set_tf32(False)
+    t = time.time()
+    engine = InferenceEngine(aot_engine_config(root))
+    ready = time.time() - t
+    try:
+        outs, per_request = aot_serve(engine, aot_requests())
+        np.savez(os.path.join(root, "cold.npz"),
+                 **{f"{i}/{name}": out[name] for i, out in enumerate(outs) for name in MODEL_NAMES})
+        record = {"ready_s": ready, "pins": engine.aot_report, "launches_per_request": per_request,
+                  "dropped": engine.aot_dropped}
+    finally:
+        engine.close()
+    with open(os.path.join(root, "cold.json.tmp"), "w") as f:
+        json.dump(record, f)
+    os.replace(os.path.join(root, "cold.json.tmp"), os.path.join(root, "cold.json"))
+    return 0
+
+
+def aot_cold_start() -> dict:
+    """Start phase 22's cold start in a process of its own; its output goes
+    to ``cold.log`` beside its results."""
+    root = tempfile.mkdtemp(prefix="aot_")
+    log_file = open(os.path.join(root, "cold.log"), "w")
+    proc = subprocess.Popen([sys.executable, os.path.abspath(__file__), "--aot-cold", root],
+                            stdout=log_file, stderr=subprocess.STDOUT)
+    log_file.close()
+    return {"root": root, "proc": proc, "started": time.time()}
+
+
+def aot_cold_stop(cold: dict) -> None:
+    proc = cold["proc"]
+    if proc.poll() is None:
+        proc.kill()
+        proc.wait()
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def aot_server(report: dict, aot_dir: str, cache_dir: str) -> None:
+    """The server started as a user starts it (``python -m
+    midd_tpu_torch.serve.server --aot DIR``, a new process) on a warm
+    directory: every pin loaded (its ``aot_load`` events; no
+    ``aot_compile``), one request answered."""
+    port = free_port()
+    log_path = os.path.join(os.path.dirname(aot_dir), "server.log")
+    env = {**os.environ, "MIDD_TPU_TORCH_CACHE_DIR": cache_dir}
+    env.pop("TORCHINDUCTOR_CACHE_DIR", None)
+    env.pop("TRITON_CACHE_DIR", None)
+    t = time.time()
+    with open(log_path, "w") as log_file:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "midd_tpu_torch.serve.server", "--aot", aot_dir,
+             "--host", "127.0.0.1", "--port", str(port)],
+            cwd=os.path.dirname(os.path.abspath(__file__)), env=env, stdout=log_file,
+            stderr=subprocess.STDOUT)
+        try:
+            while True:
+                if proc.poll() is not None:
+                    raise AssertionError(f"the --aot server exited ({proc.returncode}): "
+                                         + open(log_path).read()[-4000:])
+                if time.time() - t > AOT_SERVER_READY_S:
+                    raise AssertionError("the --aot server did not answer in time: "
+                                         + open(log_path).read()[-4000:])
+                try:
+                    status, _ = http_json(("127.0.0.1", port), "GET", "/health")
+                    if status == 200:
+                        break
+                except OSError:
+                    pass
+                time.sleep(1)
+            ready = time.time() - t
+            ms = post_denoise(("127.0.0.1", port), xray_png(512, 512, 21), (512, 512))
+        finally:
+            proc.terminate()
+            try:
+                proc.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+    events = []
+    for line in open(log_path):
+        try:
+            events.append(json.loads(line))
+        except ValueError:
+            continue
+    loads = sorted(e["model"] for e in events if e.get("event") == "aot_load")
+    compiles = [e["model"] for e in events if e.get("event") == "aot_compile"]
+    report["server"] = {"ready_s": ready, "request_ms": ms, "aot_load": loads, "aot_compile": compiles,
+                        "load_ms": {e["model"]: e["latency_ms"] for e in events if e.get("event") == "aot_load"}}
+    print(json.dumps({"aot_server": report["server"]}), flush=True)
+    assert loads == sorted(MODEL_NAMES) and not compiles, report["server"]
+
+
+def aot_slice(report: dict, smi: str, cold: dict) -> dict:
+    """Phase 22: AOT-pinned serving at 512², SERVE widths. The cold start
+    (``aot_cold_main``, started after the build) compiled every pin into
+    empty directories and served the seeded requests; here a second start
+    loads every pin, and the eager engine serves beside it: the pinned
+    engines bit-equal, each path within ``AOT_BOUNDS`` of eager (TF32 off),
+    each pinned request making ``PER_REQUEST``'s launches (the kernels run
+    inside the programs) and no pin dropped; then the server with ``--aot``
+    in a new process loads every pin and answers. Prints each start's time
+    to ready and each path's wall, device ms and launches, pinned beside
+    eager (facts, not gates). Returns the launches of the second start's
+    requests."""
+    out = {"nvidia_smi": smi}
+    root, proc = cold["root"], cold["proc"]
+    t = time.time()
+    try:
+        proc.wait(timeout=AOT_COLD_WAIT_S)
+    except subprocess.TimeoutExpired:
+        aot_cold_stop(cold)
+        raise AssertionError("the cold start did not end in time: "
+                             + open(os.path.join(root, "cold.log")).read()[-4000:])
+    out["cold_waited_s"] = time.time() - t
+    log_tail = open(os.path.join(root, "cold.log")).read()[-4000:]
+    assert proc.returncode == 0, f"the cold start failed ({proc.returncode}): {log_tail}"
+    with open(os.path.join(root, "cold.json")) as f:
+        out["cold"] = json.load(f)
+    cold_outs = dict(np.load(os.path.join(root, "cold.npz")))
+    print(json.dumps({"aot_cold": out["cold"], "waited_s": out["cold_waited_s"]}), flush=True)
+    pins = out["cold"]["pins"]
+    assert sorted(pins) == sorted(f"{n}_b1" for n in MODEL_NAMES), pins
+    assert not any(p["loaded"] for p in pins.values()) and out["cold"]["dropped"] == 0, out["cold"]
+    out["flash_host_us"] = flash_host_us()  # with the host to itself again
+    print(json.dumps({"flash_host_us": out["flash_host_us"]}), flush=True)
+
+    set_tf32(False)
+    xs = aot_requests()
+    engines = {}
+    try:
+        for key, cfg in (("warm", aot_engine_config(root)), ("eager", EngineConfig())):
+            t = time.time()
+            engines[key] = InferenceEngine(cfg)
+            out[key] = {"ready_s": time.time() - t, "pins": dict(engines[key].aot_report)}
+            print(json.dumps({f"aot_{key}": out[key]}), flush=True)
+        assert sorted(out["warm"]["pins"]) == sorted(pins), out["warm"]
+        assert all(p["loaded"] for p in out["warm"]["pins"].values()), out["warm"]
+        outs = {}
+        for key, engine in engines.items():
+            outs[key], out[f"{key}_launches_per_request"] = aot_serve(engine, xs)
+        errs = {}
+        for name in MODEL_NAMES:
+            for i in range(AOT_REQUESTS):
+                warm, eager = outs["warm"][i][name], outs["eager"][i][name]
+                assert warm.shape == eager.shape == (1, 512, 512, 1) and np.isfinite(warm).all(), name
+                assert np.array_equal(warm, cold_outs[f"{i}/{name}"]), f"{name}: the loaded pin differs from the compiled one"
+            errs[name] = max(float(np.abs(outs["warm"][i][name] - outs["eager"][i][name]).max())
+                             for i in range(AOT_REQUESTS))
+        out["max_abs_err_vs_eager"] = errs
+        out["dropped"] = engines["warm"].aot_dropped
+        print(json.dumps({"aot_vs_eager": errs, "bounds": AOT_BOUNDS, "dropped": out["dropped"]}), flush=True)
+        assert all(errs[n] <= AOT_BOUNDS[n] for n in MODEL_NAMES), errs
+        assert out["dropped"] == 0, out["dropped"]
+        launched = {k: sum(r[k] for r in out["warm_launches_per_request"]) for k in KERNEL_COUNTERS}
+        default_tf32()
+        keep = ("wall_ms", "wall_p50_ms", "device_ms", "idle_share", "launches")
+        out["paths"] = {key: {name: {k: v for k, v in row.items() if k in keep}
+                              for name, row in path_times(engine, xs[0]).items()}
+                        for key, engine in engines.items()}
+        print(json.dumps({"aot_paths": out["paths"]}), flush=True)
+    finally:
+        for engine in engines.values():
+            engine.close()
+        engines.clear()
+        torch.cuda.empty_cache()
+    aot_server(out, os.path.join(root, "aot"), os.path.join(root, "cache"))
+    shutil.rmtree(root, ignore_errors=True)
+    report["aot"] = out
+    return launched
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -4107,6 +4349,8 @@ def main(argv=None) -> int:
                          "NAFNet kernels); prints no result line")
     ap.add_argument("--dp-rank", default=None, metavar="JOB",
                     help="(the ranks of phase 18's torchrun launches) run JOB's recipes; prints no result line")
+    ap.add_argument("--aot-cold", default=None, metavar="DIR",
+                    help="(phase 22's cold start, run by the script) pin into DIR; prints no result line")
     args = ap.parse_args(argv)
     t_all = time.time()
     phase("device")
@@ -4115,6 +4359,8 @@ def main(argv=None) -> int:
         return 2
     if args.dp_rank:
         return dp_rank_main(args.dp_rank)
+    if args.aot_cold:
+        return aot_cold_main(args.aot_cold)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
@@ -4155,6 +4401,10 @@ def main(argv=None) -> int:
         print(json.dumps({"total_s": time.time() - t_all, "profiler": PROFILER}), flush=True)
         print(json.dumps({"kernels": [entry]}), flush=True)
         return 0
+
+    # phase 22's cold start compiles beside phases 3-21 (stopped at exit if it still runs)
+    cold = aot_cold_start()
+    atexit.register(aot_cold_stop, cold)
 
     phase("forward kernel vs plain")
     entries = [check_kernel(report)]
@@ -4284,6 +4534,12 @@ def main(argv=None) -> int:
     if args.report:
         report["bench_step_profile"] = {m: profile_bench_step(m) for m in bench_train_torch.QUICK}
     print(json.dumps({"phase_20_s": report["phase_20_s"]}), flush=True)
+
+    phase("slice: AOT-pinned serving at 512² (compiled beside phases 3-21, loaded, and through the server's --aot)")
+    t = time.time()
+    paths["serve_aot"] = aot_slice(report, smi, cold)
+    report["phase_22_s"] = time.time() - t
+    print(json.dumps({"phase_22_s": report["phase_22_s"]}), flush=True)
 
     for entry in entries:
         by_path = {p: launched[entry["name"]] for p, launched in paths.items()}

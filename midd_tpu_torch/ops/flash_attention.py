@@ -12,6 +12,11 @@ build or a failed launch raises.
 ``mha_flash`` is differentiable on both devices through ``FlashAttention``,
 the counterpart of the JAX package's ``_flash_padded`` custom_vjp. A forward
 with gradients off (serving runs under ``inference_mode``) saves nothing.
+Traced (``torch.compiler.is_compiling()``), its forward reaches the kernel
+through the custom op ``midd::flash_fwd`` (``flash_fwd_op``), so that
+``torch.export`` keeps the kernel as one opaque node and a program compiled
+from the graph (``utils/compile_cache.py``) calls the wrapper, and counts
+its launches, at run time; run eagerly, it calls the wrapper directly.
 
 Each kernel source is compiled with ``nvcc`` at first use, from the sources
 in this package only, into ``midd_tpu_torch/build/`` (``ops/_build.py``: a
@@ -125,6 +130,23 @@ def flash_attention(
 
 
 flash_attention.launches = 0
+
+
+@torch.library.custom_op("midd::flash_fwd", mutates_args=())
+def flash_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``flash_attention`` as a custom op: one node in an exported graph,
+    whose implementation is the wrapper (the kernel for CUDA tensors, the
+    plain version for CPU ones)."""
+    return flash_attention(q, k, v)
+
+
+@flash_fwd_op.register_fake
+def _(q, k, v):
+    # the outputs' real layouts: O dense (BH, N, D) as the wrapper allocates
+    # it for the contiguous q it takes (the plain version's is dense too),
+    # lse dense (BH, N) fp32; compiled code reads them with these strides
+    return (torch.empty(q.shape, dtype=q.dtype, device=q.device),
+            torch.empty(q.shape[:2], dtype=torch.float32, device=q.device))
 
 
 def _delta(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
@@ -245,7 +267,9 @@ class FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v):
-        o, lse = flash_attention(q, k, v)
+        # the op where a graph is traced (export); eager calls launch directly,
+        # without the op's dispatch (chip_smoke.py's flash_host_us times both)
+        o, lse = flash_fwd_op(q, k, v) if torch.compiler.is_compiling() else flash_attention(q, k, v)
         ctx.save_for_backward(q, k, v, o, lse)
         return o
 

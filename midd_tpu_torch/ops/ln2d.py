@@ -18,7 +18,10 @@ kernels): fp32 statistics, one-pass variance E[x²] − u² clamped at 0, eps
 the counterpart of the JAX ``custom_vjp``: its backward is the gradient of
 the formula in plain PyTorch recomputed from the saved inputs, as
 ``_ln2d_bwd`` is the vjp of ``_ln2d_xla``, so there is no backward kernel.
-With gradients off it saves nothing.
+With gradients off it saves nothing. Traced, its forward reaches the kernel
+through the custom op ``midd::ln2d`` (``ln2d_op``): one opaque node in an
+exported graph, which a compiled program (``utils/compile_cache.py``) calls
+at run time; run eagerly, it calls ``ln2d`` directly.
 """
 
 from __future__ import annotations
@@ -138,6 +141,21 @@ def ln2d(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
 ln2d.launches = 0
 
 
+@torch.library.custom_op("midd::ln2d", mutates_args=())
+def ln2d_op(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, eps: float) -> torch.Tensor:
+    """``ln2d`` as a custom op: one node in an exported graph, whose
+    implementation is the wrapper. y has the layout of ``empty_like(x)``
+    on both devices (the kernel allocates it so; the plain version's
+    elementwise chain keeps x's), as the fake says."""
+    return ln2d(x, scale, bias, eps)
+
+
+@ln2d_op.register_fake
+def _(x, scale, bias, eps):
+    # x's layout, channels-last included: compiled code reads y with these strides
+    return torch.empty_like(x)
+
+
 class LayerNorm2dFn(torch.autograd.Function):
     """``ln2d`` with the gradient of the formula: the counterpart of the JAX
     ``ln2d_fused`` custom_vjp."""
@@ -146,7 +164,8 @@ class LayerNorm2dFn(torch.autograd.Function):
     def forward(ctx, x, scale, bias, eps):
         ctx.eps = eps
         ctx.save_for_backward(x, scale, bias)
-        return ln2d(x, scale, bias, eps)
+        # the op where a graph is traced (export); eager calls launch directly
+        return ln2d_op(x, scale, bias, eps) if torch.compiler.is_compiling() else ln2d(x, scale, bias, eps)
 
     @staticmethod
     def backward(ctx, dy):

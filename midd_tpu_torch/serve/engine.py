@@ -53,8 +53,19 @@ calibrated whole, then split; a slice of a ``QuantConv2d`` keeps the
 layer's activation scale (on the slice's device) and computes its weight
 scales from its own output channels, which are the whole layer's.
 
-Left out, so asking for them fails: AOT pinning and the persistent
-compilation cache (ROADMAP.md queue 1 item 16).
+``aot_dir`` pins every serving program (``_pin_executables``: each path,
+and each turbo path under ``adaptive_turbo``, at each batch bucket) as an
+AOTInductor package in that directory at the first start, and loads the
+packages on later starts (``utils/compile_cache.py``). The hand-written
+kernels run inside the programs as custom ops; the weights are program
+inputs, so a pin serves any checkpoint of the same architecture. A pin's
+key holds what the JAX engine's holds and, unlike it, the schedule, the
+resolved model, router and fusion configs (``num_heads``, a schedule's
+betas: program constants that leave the weights' shapes as they are).
+``persistent_cache`` / ``cache_dir`` keep Inductor's and Triton's caches on
+disk. Pinning takes a single-device engine (no mesh), as the JAX engine's
+does; unlike it, the port does not refuse a one-device engine on a machine
+with more cards, since a package is not tied to the process's device set.
 """
 
 from __future__ import annotations
@@ -62,6 +73,9 @@ from __future__ import annotations
 import collections
 import copy
 import dataclasses
+import functools
+import hashlib
+import math
 import os
 import threading
 import time
@@ -73,6 +87,7 @@ from typing import Any, Callable, Deque, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 import torch.nn as nn
+from torch.nn.utils.stateless import _reparametrize_module
 
 from midd_tpu_torch import config
 from midd_tpu_torch.benchmarks.xray_bench import make_phantoms
@@ -170,6 +185,19 @@ class EngineConfig:
     # None: alone, every device up to the deepest feature map's rows, else 2
     spatial_parallel: bool = False
     sp_size: Optional[int] = None
+    # Inductor's and Triton's compile caches on disk (utils/compile_cache.py),
+    # in cache_dir (None: the one the process set, else <repo>/.torch_cache,
+    # or MIDD_TPU_TORCH_CACHE_DIR): a pin compiled again reuses the kernels
+    # compiled for the last one
+    persistent_cache: bool = True
+    cache_dir: Optional[str] = None
+    # AOT pinning: every serving program (path x batch bucket) is compiled by
+    # AOTInductor into this directory at the first start and loaded on later
+    # starts. Single-device engines only. Keyed by the JAX engine's fields,
+    # the schedule, the resolved model configs, the state's structure and
+    # the torch, CUDA and device identity; a stale or broken pin is
+    # recompiled and overwritten
+    aot_dir: Optional[str] = None
 
 
 def _eps_kwargs(setting) -> Dict[str, Any]:
@@ -203,6 +231,35 @@ def _demo_generator(name: str) -> torch.Generator:
     return torch.Generator().manual_seed(zlib.crc32(name.encode()) % (2**31))
 
 
+class _Pinned(nn.Module):
+    """A serving path as a module of ``(flats, x)`` that holds no tensor:
+    ``models`` (kept out of the module's state, so that export takes no
+    weight as a constant) run reparametrised by views of ``flats`` at
+    ``layout``'s offsets (``InferenceEngine._pack``)."""
+
+    def __init__(self, fn: Callable, models: nn.ModuleDict, layout: Dict[str, tuple]):
+        super().__init__()
+        self.fn, self.layout = fn, layout
+        object.__setattr__(self, "models", models)
+
+    def forward(self, flats: Dict[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:
+        state = {name: flats[key].narrow(0, off, math.prod(shape)).view(shape)
+                 for name, (key, off, shape) in self.layout.items()}
+        with _reparametrize_module(self.models, state, tie_weights=True, strict=True):
+            return self.fn(x)
+
+
+def pin_module(cfg: "EngineConfig", name: str, batch: int) -> Tuple[nn.Module, tuple]:
+    """The module and example inputs of the pin of path ``name`` at
+    ``batch``, from an engine of ``cfg`` built in the calling process (a
+    compile worker of ``utils/compile_cache.pin_all``): the same models,
+    layout and path as the engine that asked for the pin. Its weights are
+    the checkpoints' or the seeded ones; the program takes them as inputs."""
+    engine = InferenceEngine(dataclasses.replace(cfg, aot_dir=None, warmup=False, batching=False,
+                                                 persistent_cache=False))
+    return engine._pinned(name, batch)
+
+
 class InferenceEngine:
     """``devices``: the devices the parallel flags lay out (the JAX engine's
     ``jax.devices()``); default every local card of ``cfg.device``'s type,
@@ -228,7 +285,20 @@ class InferenceEngine:
         self.meta: Dict[str, Dict] = {}
         self.mesh = self._layout(devices)  # sp's guard reads the checkpoints' metadata
         if self.mesh is not None:
+            if cfg.aot_dir:
+                raise ValueError(
+                    "aot_dir requires a single-device engine: a pinned program is "
+                    "compiled for one device, and the dp, tp and sp layouts split "
+                    f"the models over {self.mesh.size} (mesh {self.mesh.shape})"
+                )
             self.device = self.mesh[0, 0, 0]
+        if cfg.persistent_cache:
+            from midd_tpu_torch.utils.compile_cache import enable_persistent_cache
+
+            enable_persistent_cache(cfg.cache_dir)
+        # per pin "{path}_b{batch}": {"loaded", "secs"} (aot_dir only)
+        self.aot_report: Dict[str, Dict[str, Any]] = {}
+        self._aot: Dict[str, Any] = {}
         self.n_tp_sharded = 0
         # static int8: each calibrated UNet's scales and calibration time
         self.int8_scales: Dict[str, Dict[str, torch.Tensor]] = {}
@@ -506,6 +576,14 @@ class InferenceEngine:
         else:
             hyb_unet, hschedule = unet, schedule
         share_backends = hyb_naf is naf and hyb_unet is unet
+        # what the programs compute beyond the weights' shapes: the pin key's
+        self._resolved = {
+            "schedule": dataclasses.replace(cfg.schedule_cfg, noise_steps=noise_steps),
+            "hybrid_noise_steps": hschedule.noise_steps,
+            "diffusion": diff_cfg, "nafnet": naf_cfg, "expert": cfg.expert_cfg,
+            "hybrid_diffusion": hyb_unet_cfg, "hybrid_nafnet": hyb_naf_cfg,
+            "router": self._router_cfg_from_meta(hmeta, cfg.router_cfg), "fusion": fusion_cfg,
+        }
         if cfg.quantize_int8 == "static":
             # the standalone scales serve the hybrid where its weights and
             # rollout are the standalone ones; else it calibrates its own
@@ -650,6 +728,18 @@ class InferenceEngine:
                 {n: self._over_dp([b[1][n] for b in built]) for n in built[0][1]},
                 self._over_dp([b[2] for b in built]) if cfg.fused_request else None,
             )
+
+        s = cfg.img_size
+        dp = len(replicas)
+        buckets = cfg.batch_buckets
+        if buckets == "auto":
+            buckets = (1, 2, 4, 8) if s <= 256 else (1,)
+        # a batch splits over dp: each bucket rounds up to a multiple of dp
+        buckets = tuple(sorted({-(-int(b) // dp) * dp for b in buckets}))
+        if cfg.aot_dir:
+            # every caller below (fns, turbo_fns, the batcher, the warm-up,
+            # process_all) serves the pins
+            self._pin_executables(buckets if cfg.batching else (1,))
         self.fns = {n: self._bind(self._paths, n) for n in self._paths}
         self.turbo_fns: Optional[Dict[str, Callable]] = (
             {n: self._bind(self._turbo_paths, n) for n in self._turbo_paths} if cfg.adaptive_turbo else None
@@ -658,18 +748,11 @@ class InferenceEngine:
             (lambda x: self._on_device_thread(self._run_fused, x)) if cfg.fused_request else None
         )
 
-        s = cfg.img_size
-        dp = len(replicas)
         if cfg.batching:
-            buckets = cfg.batch_buckets
-            if buckets == "auto":
-                buckets = (1, 2, 4, 8) if s <= 256 else (1,)
-            # a batch splits over dp: each bucket rounds up to a multiple of dp
-            buckets = sorted({-(-int(b) // dp) * dp for b in buckets})
             # the batcher warms every bucket of every function
             self.batcher = MicroBatcher(
                 self.fns,
-                buckets=tuple(buckets),
+                buckets=buckets,
                 max_wait_ms=cfg.batch_max_wait_ms,
                 warmup_shape=(s, s, 1) if cfg.warmup else None,
                 fused_fn=self.fused,
@@ -689,6 +772,110 @@ class InferenceEngine:
 
         for n in MODEL_NAMES:
             self.loaded[n] = True
+
+    @staticmethod
+    def _pack(state: Dict[str, torch.Tensor]) -> Tuple[Dict[str, torch.Tensor], Dict[str, tuple]]:
+        """The tensors of ``state``, by dtype, in one flat buffer each (in
+        name order, each start aligned to 16 elements), and where each lies:
+        {name: (dtype key, offset, shape)}. A program takes the few buffers
+        as its inputs, not a tensor a weight: AOTInductor writes checks for
+        every input of a program, and at a thousand inputs their code made
+        most of the compile."""
+        layout, sizes = {}, collections.Counter()
+        for name in sorted(state):
+            t = state[name]
+            key = str(t.dtype).replace("torch.", "")
+            layout[name] = (key, sizes[key], tuple(t.shape))
+            sizes[key] += -(-t.numel() // 16) * 16
+        some = next(iter(state.values()))
+        flats = {key: torch.zeros(n, dtype=getattr(torch, key), device=some.device) for key, n in sizes.items()}
+        for name, (key, off, shape) in layout.items():
+            flats[key][off:off + state[name].numel()].copy_(state[name].reshape(-1))
+        return flats, layout
+
+    @staticmethod
+    def _tree_ident(layout: Dict[str, tuple]) -> str:
+        """Structural identity of a packed state (names, dtypes, offsets,
+        shapes). The weights are program inputs, so a pin serves any values
+        of the same structure; a change of architecture changes this."""
+        return hashlib.sha256(repr(sorted(layout.items())).encode()).hexdigest()[:16]
+
+    def _pin_state(self) -> Tuple[Dict[str, torch.Tensor], Dict[str, tuple], nn.ModuleDict]:
+        """(flats, layout, models): the replica's models as one
+        ``ModuleDict`` (each model once, so weights two paths share stay
+        shared) and their parameters and buffers (int8 scales included),
+        packed by ``_pack``."""
+        models = nn.ModuleDict({k: m for k, m in self.replicas[0].items() if m is not None})
+        flats, layout = self._pack(
+            {k: t.detach() for k, t in (*models.named_parameters(), *models.named_buffers())})
+        return flats, layout, models
+
+    def _pinned(self, name: str, batch: int) -> Tuple[nn.Module, tuple]:
+        """The module that the pin of path ``name`` (``turbo@<path>`` for a
+        turbo path) at ``batch`` exports, and its example inputs ``(flats,
+        x)``: the path, its models reparametrised by views of ``flats``."""
+        flats, layout, models = self._pin_state()
+        table = self._turbo_paths if name.startswith("turbo@") else self._paths
+        s = self.cfg.img_size
+        x = torch.zeros((batch, 1, s, s), dtype=torch.float32, device=self.device)
+        return _Pinned(table[name.split("@")[-1]], models, layout), (flats, x)
+
+    def _pin_executables(self, batches: Tuple[int, ...]) -> None:
+        """Pin every serving program (each path, and each turbo path under
+        ``adaptive_turbo``, at each of ``batches``; the fused function is not
+        pinned): load it from ``cfg.aot_dir`` where a pin with its key is
+        there, else compile it there, in a worker process that builds this
+        engine's models and path anew (``pin_module``: the weights are
+        inputs, so any values serve) and exports them, all of a start's
+        missing pins at once. Each entry of ``_paths`` / ``_turbo_paths``
+        becomes an ``AotDispatch`` that serves the pinned batch sizes and
+        sends other sizes to the eager path."""
+        from midd_tpu_torch.utils.compile_cache import AotDispatch, aot_fingerprint, pin_all
+
+        cfg = self.cfg
+        s = cfg.img_size
+        t_all = time.time()
+        flats, layout, _ = self._pin_state()
+        ident = dict(
+            img_size=s, device=str(self.device),
+            steps=(cfg.diffusion_steps, cfg.hybrid_diffusion_steps),
+            eps=(self.diffusion_eps_reuse, self.hybrid_eps_reuse,
+                 cfg.adaptive_diffusion_eps if cfg.adaptive_turbo else None,
+                 cfg.adaptive_hybrid_eps if cfg.adaptive_turbo else None),
+            dtype=(str(cfg.compute_dtype), bool(cfg.diffusion_eval_bf16), bool(cfg.hybrid_rollout_bf16)),
+            quant=str(cfg.quantize_int8), flash=bool(cfg.use_flash_attention), s2d=bool(cfg.nafnet_s2d),
+            # beyond the JAX engine's key: program constants the weights'
+            # shapes do not show
+            schedule_cfg=cfg.schedule_cfg, resolved=self._resolved,
+            expert_tree=self.hybrid_expert_tree, weights=self._tree_ident(layout),
+        )
+        tables = [(name, self._paths) for name in self._paths]
+        tables += [(f"turbo@{name}", self._turbo_paths) for name in self._turbo_paths]
+        pins = [(name, int(b)) for name, _ in tables for b in batches]
+        x_like = torch.zeros((1, 1, s, s), dtype=torch.float32, device=self.device)
+        jobs = [(os.path.join(cfg.aot_dir, f"{name}_b{b}_{aot_fingerprint(model=name, batch=b, **ident)}.pt2"),
+                 (flats, x_like.expand(b, -1, -1, -1).contiguous()), functools.partial(pin_module, cfg, name, b))
+                for name, b in pins]
+        t = time.time()
+        results = pin_all(jobs, device=self.device)
+        secs = time.time() - t  # one start's pins load, or compile, together
+        execs: Dict[str, Dict[int, Any]] = collections.defaultdict(dict)
+        for (name, b), (program, loaded) in zip(pins, results):
+            execs[name][b] = program
+            self.aot_report[f"{name}_b{b}"] = {"loaded": loaded, "secs": round(secs, 2)}
+            log.latency("aot_load" if loaded else "aot_compile", secs, model=name, batch=b)
+        for name, table in tables:
+            path = name.split("@")[-1]
+            self._aot[name] = AotDispatch(table[path], execs[name], bound_args=(flats,), like=x_like)
+            # every caller (fns, turbo_fns, the batcher, the warm-up,
+            # process_all) reads the table
+            table[path] = self._aot[name]
+        log.latency("aot_ready", time.time() - t_all, n=len(self.aot_report))
+
+    @property
+    def aot_dropped(self) -> int:
+        """Pinned programs that raised and were dropped for the eager path."""
+        return sum(d.dropped for d in self._aot.values())
 
     def _to_device(self, x: np.ndarray) -> torch.Tensor:
         """(B, H, W, 1) NHWC numpy -> (B, 1, H, W) fp32 on the device."""

@@ -16,7 +16,10 @@ Run: ``python -m midd_tpu_torch.serve.server --port 8000`` (on the GPU;
 --max-queue 6``, ``--int8`` (static int8 convolutions in the diffusion
 UNets, calibrated at startup), ``--img-size 1024``, or ``--dp`` / ``--tp``
 / ``--sp N`` (data-, tensor- and spatial-parallel serving over the local
-cards; on one card each is a no-op, as in the JAX server).
+cards; on one card each is a no-op, as in the JAX server), or ``--aot DIR``
+(the serving programs compiled ahead of time into DIR at the first start and
+loaded from there on later starts; ``MIDD_TPU_TORCH_CACHE_DIR`` moves the
+compiler's cache).
 """
 
 from __future__ import annotations
@@ -178,6 +181,10 @@ def config_from_args(argv=None):
     ap.add_argument("--max-queue", type=int, default=None,
                     help="bounded admission: 503 beyond this many waiting requests "
                          "(with --batching)")
+    ap.add_argument("--aot", default=None, metavar="DIR",
+                    help="pinned serving programs: compile them into DIR at the first start, "
+                         "load them from there on later starts (one-device engines; see "
+                         "EngineConfig.aot_dir)")
     args = ap.parse_args(argv)
     cfg = EngineConfig(
         img_size=args.img_size,
@@ -199,6 +206,7 @@ def config_from_args(argv=None):
         adaptive_turbo=args.adaptive,
         adaptive_queue_depth=args.queue_depth,
         max_queue_depth=args.max_queue,
+        aot_dir=args.aot,
     )
     return args, cfg
 

@@ -140,9 +140,14 @@ def test_exact_mode_and_defaults_in_serving_mode():
 
 
 def test_engine_refuses_fields_outside_the_slice():
-    for field in ("aot_dir", "persistent_cache", "cache_dir"):
-        with pytest.raises(TypeError):
-            EngineConfig(**{field: True})
+    """No field of the JAX engine's config is outside the port's slice any
+    more: the pinning fields are accepted (``tests/test_torch_compile_cache.py``
+    drives them), and a field the config does not have is still refused."""
+    cfg = EngineConfig(aot_dir="/pins", persistent_cache=False, cache_dir="/cache")
+    assert (cfg.aot_dir, cfg.persistent_cache, cfg.cache_dir) == ("/pins", False, "/cache")
+    assert (EngineConfig().aot_dir, EngineConfig().persistent_cache, EngineConfig().cache_dir) == (None, True, None)
+    with pytest.raises(TypeError):
+        EngineConfig(no_such_field=True)
 
 
 # the layouts the port computes, whatever the config's nafnet_s2d says
