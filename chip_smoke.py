@@ -249,6 +249,34 @@ Phases (any failure exits non-zero, and no result line is printed):
    Each start's time to ready, each path's wall, device ms and launches,
    pinned beside eager, and ``flash_host_us`` (the custom op's dispatch
    beside the direct call) are printed: facts, not gates.
+   The same cold process then pins one static ``QuantConv2d`` at a SERVE
+   int8 shape (``AOT_QCONV``) with the card's int8 product
+   (``torch._int_mm``): loaded here, it equals eager bit for bit at two
+   scales passed through the state (inputs and weights on their exact int8
+   grids), with as many int8 GEMM kernels as eager by the profiler's names.
+22b. (``--aot-int8-only``, not in the default run: its cold start, 1459 to
+   1974 s alone on the card's host for 12 programs, and past the limit for
+   6 beside phases 3-21, does not fit the script's 1200 s; ROADMAP queue 1
+   item 16c stays open until it does.) The pinned ``--img-size 256 --int8
+   --batching --buckets 1,2 --adaptive --aot D`` server (``AOT_INT8_ARGS``):
+   its cold start, in a niced process, compiles the 12 programs (the four paths
+   and the two turbo paths at batches 1 and 2) into an empty D; each pin's
+   export and compile seconds, Inductor's timers, its worker's peak card
+   memory and the host's cores are printed. Then the server starts on D in
+   a new process (an ``aot_load`` event a pin, no ``aot_compile``) while a
+   second start here loads every pin and an eager engine of the same
+   configuration sits beside it, TF32 off: their calibrated scales within
+   ``INT8_ABSMAX_REL``; each program called on a seeded 256² batch of 2
+   against eager (nafnet and expert within 1e-4, the int8 rollouts within
+   phase 12's rollout gates) and against each of its rows alone (the batch-1
+   pins); a pinned batch makes 48 flash and 120 ln2d launches and a turbo
+   batch 36 and 120, as eager, and as many int8 GEMM kernels as eager's (by
+   the profiler's kernel names: the launch counters cannot see inside a
+   program); no pin dropped. The server then answers 12 closed-loop clients
+   × 2 requests with a mean batch above 1, turbo batches, no pin dropped and
+   its batch-2 exact and turbo programs serving (``/health``'s ``batching``
+   and ``aot`` counts). Each program's wall, device ms and idle share,
+   pinned beside eager, are printed last.
 The CPU halves of phases 9, 10 and 12c's calibration run on another thread
 while the kernels build (phase 2): the same functions on the same seeded
 inputs (``on_devices``).
@@ -264,7 +292,9 @@ The second-to-last line is the kernels JSON (each flash entry with an
 {"ok": true, ...}.
 
 ``--dp-rank JOB`` is phase 18's rank mode (run by torchrun, not by hand);
-``--aot-cold DIR`` is phase 22's cold start (run by the script).
+``--aot-cold DIR [--aot-configs default,qconv|int8]`` is phases 22 and
+22b's cold starts (run by the script). ``--aot-int8-only`` runs phases 1,
+2 (the flash forward and ln2d) and 22b alone and prints no result line.
 ``--naf-only`` runs phases 1, 2 (ln2d and naf_ffn), 6 and 7 (with
 phase 7's profile) and prints the kernels line without a result line: an
 A/B of the NAFNet kernels, each tree's own package beside this script.
@@ -347,6 +377,7 @@ from midd_tpu_torch.train.trainer import (Trainer, cddpm_loss_fn, diffusion_draw
                                           expert_loss_fn, hybrid_loss_fn, nafnet_loss_fn, no_draw,
                                           tiny_draw, tiny_loss_fn)
 from midd_tpu_torch.utils import flops
+from midd_tpu_torch.utils.compile_cache import load_executable, pin_or_load, pin_workers
 from midd_tpu_torch.utils.profiling import Timer
 
 # H100 SXM data sheet (dense): bf16 and TF32 tensor-core peaks, fp32
@@ -3568,18 +3599,20 @@ def parallel_training_slice(report: dict, smi: str, meanwhile) -> tuple:
                                              "card_used": card_memory_used()}}), flush=True)
         launches = [torchrun_start(eight, tmp, nproc=8, name="eight_job")]
         try:
-            # the one-process references, beside the 8 ranks those that fit there on the card (the dp
-            # diffusion one, 25 GiB at its peak, runs beside the 4-rank launch)
+            # the one-process references, beside the 8 ranks those that fit there on the card beside
+            # the pins' compile workers (the dp diffusion and expert ones, 26 and 18 GiB at their
+            # peaks, run beside the 4-rank launch)
             single = {"tp": {}, "dp": {}}
-            for kind, m in (("tp", "nafnet"), ("tp", "diffusion"), ("dp", "nafnet"), ("dp", "expert")):
+            for kind, m in (("tp", "nafnet"), ("tp", "diffusion"), ("dp", "nafnet")):
                 torch.cuda.empty_cache()
                 argv_m = dp_argv(m) if kind == "dp" else tp_argv(m)
                 single[kind][m] = recipe_run(os.path.join(tmp, f"one_{kind}", m), argv_m)[0]
             eight_ranks, eight_s = torchrun_wait(launches[0])
             four_job = torchrun_start(four, tmp, nproc=4, name="four_job")
             launches.append(four_job)
-            torch.cuda.empty_cache()
-            single["dp"]["diffusion"] = recipe_run(os.path.join(tmp, "one_dp", "diffusion"), dp_argv("diffusion"))[0]
+            for m in ("diffusion", "expert"):
+                torch.cuda.empty_cache()
+                single["dp"][m] = recipe_run(os.path.join(tmp, "one_dp", m), dp_argv(m))[0]
             torch.cuda.empty_cache()  # the 2-rank launch shares the card too
             two = {"runs": [  # beside the 4-rank launch, the card shared; what needs that launch's .pth waits
                 *(run(f"dp_{m}", "dp", m, dp_argv(m) + ["--mesh", "2,1,1"]) for m in DP_MODELS),
@@ -4127,6 +4160,7 @@ def time_host_ms(fn, reps: int = 5) -> float:
 AOT_REQUESTS = 3
 AOT_BOUNDS = {"nafnet": 1e-4, "expert": 1e-4, "diffusion": 5e-2, "hybrid": 5e-2}
 AOT_COLD_WAIT_S = 900
+AOT_COLD_ALONE_WAIT_S = 3000  # --aot-int8-only: 12 programs took 1974 s alone
 AOT_SERVER_READY_S = 600
 
 
@@ -4151,16 +4185,11 @@ def aot_serve(engine: InferenceEngine, xs: list) -> tuple:
     return outs, per_request
 
 
-def aot_cold_main(root: str) -> int:
-    """Phase 22's cold start (``--aot-cold DIR``, a process the script starts
-    after the build): ``EngineConfig()`` with ``aot_dir`` and ``cache_dir``
-    empty under DIR, every pin compiled, the seeded requests served with
-    TF32 off; writes ``cold.json`` (time to ready, pins, launches, dropped
-    pins) and ``cold.npz`` (outputs) into DIR. It runs niced, its compile
-    workers too: the other phases keep the host's cores first (beside it
-    at the same priority, phase 18's ranks took 1.5× as long)."""
-    os.nice(10)
-    set_tf32(False)
+def aot_cold_default(root: str) -> None:
+    """Phase 22's cold start: ``EngineConfig()`` with ``aot_dir`` and
+    ``cache_dir`` empty under ``root``, every pin compiled, the seeded
+    requests served; writes ``cold.json`` (time to ready, pins, launches,
+    dropped pins) and ``cold.npz`` (outputs) into ``root``."""
     t = time.time()
     engine = InferenceEngine(aot_engine_config(root))
     ready = time.time() - t
@@ -4169,24 +4198,158 @@ def aot_cold_main(root: str) -> int:
         np.savez(os.path.join(root, "cold.npz"),
                  **{f"{i}/{name}": out[name] for i, out in enumerate(outs) for name in MODEL_NAMES})
         record = {"ready_s": ready, "pins": engine.aot_report, "launches_per_request": per_request,
-                  "dropped": engine.aot_dropped}
+                  "dropped": engine.aot_dropped, "cores": len(os.sched_getaffinity(0)),
+                  "workers": pin_workers(len(engine.aot_report))}
     finally:
         engine.close()
-    with open(os.path.join(root, "cold.json.tmp"), "w") as f:
+    write_json(os.path.join(root, "cold.json"), record)
+
+
+def aot_cold_int8(root: str) -> None:
+    """Phase 22b's cold start: the server's ``AOT_INT8_ARGS`` configuration
+    with its ``aot_dir`` empty and the cache directory under ``root``, every
+    pin compiled; writes ``cold_int8.json`` (time to ready, pins with each
+    one's export and compile seconds, dropped pins, the calls each pin
+    answered in the batcher's warm-up, the host's cores and the compile
+    workers run at once) into ``root``."""
+    t = time.time()
+    engine = InferenceEngine(aot_int8_config(root))
+    ready = time.time() - t
+    try:
+        record = {"ready_s": ready, "pins": engine.aot_report, "dropped": engine.aot_dropped,
+                  "served_in_warmup": engine.aot_served, "cores": len(os.sched_getaffinity(0)),
+                  "cpu_count": os.cpu_count(), "workers": pin_workers(len(AOT_INT8_PINS))}
+    finally:
+        engine.close()
+    write_json(os.path.join(root, "cold_int8.json"), record)
+
+
+# Phase 22's int8 product inside a pinned program, in every run: one static
+# QuantConv2d at SERVE_DIFFUSION's first int8 convolution at 256² (48 -> 48
+# channels, 3x3), batch 2. Its inputs are whole multiples of the activation
+# step (act_absmax 127 * 2^-5: the step is 2^-5) and each output channel's
+# weights whole multiples of its step (a largest |w| of 127 * 2^-6), so both
+# quantisations are exact and any division gives the same integers; the
+# int32 sums are exact, and the dequantisation multiplies by powers of two.
+# So the program must equal eager bit for bit. Another scale through the
+# state (127 * 2^-4) must change the output, with no recompile.
+AOT_QCONV = (48, 48, 256, 2)  # in and out channels, size, batch
+AOT_QCONV_ABSMAX = (127 * 2.0 ** -5, 127 * 2.0 ** -4)
+
+
+def qconv_pin_module():
+    """(module, example inputs) of phase 22's int8 product check
+    (``AOT_QCONV``), seeded, its weights and scale in a packed state
+    (``InferenceEngine._pack``) as the engine's pins take theirs, on the
+    card."""
+    c_in, c_out, size, batch = AOT_QCONV
+    gen = torch.Generator().manual_seed(222)
+    conv = qconv.QuantConv2d(c_in, c_out, 3, mode="static")
+    with torch.no_grad():
+        w = torch.randint(-127, 128, conv.weight.shape, generator=gen).float()
+        w[:, 0, 0, 0] = 127.0  # each channel's largest |w|: its step is 2^-6
+        conv.weight.copy_(w * 2.0 ** -6)
+        conv.bias.copy_(torch.randint(-64, 65, conv.bias.shape, generator=gen).float() * 2.0 ** -6)
+    qconv.load_qscales(conv, {"": torch.tensor(AOT_QCONV_ABSMAX[0])})
+    models = torch.nn.ModuleDict({"conv": conv.cuda()})
+    flats, layout = InferenceEngine._pack(
+        {k: t.detach() for k, t in (*models.named_parameters(), *models.named_buffers())})
+    x = (torch.randint(-127, 128, (batch, c_in, size, size), generator=gen).float() * 2.0 ** -5).cuda()
+    return engine_module._Pinned(lambda a: models["conv"](a), models, layout), (flats, x)
+
+
+def aot_qconv_check(report: dict, cold: dict) -> None:
+    """Phase 22's int8 product inside a pinned program (``AOT_QCONV``):
+    the pin the cold process compiled, loaded here, equal to eager bit for
+    bit at two scales passed through the state, and its int8 GEMM kernels
+    (by the profiler's kernel names) as many as eager's."""
+    out = {"waited_s": aot_cold_wait(cold, "cold_qconv.json")}
+    with open(os.path.join(cold["root"], "cold_qconv.json")) as f:
+        out["cold"] = json.load(f)
+    module, (flats, x) = qconv_pin_module()
+    program = load_executable(os.path.join(cold["root"], "qconv.pt2"))
+    key, off, _ = module.layout["conv.act_absmax"]
+    outs = {}
+    with torch.no_grad():
+        for absmax in AOT_QCONV_ABSMAX:
+            state = {**flats, key: flats[key].clone()}
+            state[key][off] = absmax
+            outs[absmax] = (module(state, x), program(state, x))
+    torch.cuda.synchronize()
+    names = int8_gemm_names(lambda: module(flats, x))
+    runs = {side: kernel_runs(fn) for side, fn in (("eager", lambda: module(flats, x)),
+                                                   ("pinned", lambda: program(flats, x)))}
+    out.update(int8_gemm_kernels=sorted(names),
+               int8_gemms={side: sum(c for k, c in r.items() if k in names) for side, r in runs.items()},
+               bitwise_equal=[bool(torch.equal(e, p)) for e, p in outs.values()],
+               max_abs_diff=[float((e - p).abs().max()) for e, p in outs.values()],
+               scales_differ=not torch.equal(*(p for _, p in outs.values())))
+    report["aot_qconv"] = out
+    print(json.dumps({"aot_qconv": out}), flush=True)
+    assert not out["cold"]["loaded"] and all(out["bitwise_equal"]) and out["scales_differ"], out
+    assert out["int8_gemms"]["pinned"] == out["int8_gemms"]["eager"] >= 1, out
+
+
+def aot_cold_qconv(root: str) -> None:
+    """Phase 22's int8 product check, compiled cold in the cold process:
+    ``qconv_pin_module`` pinned into ``root/qconv.pt2``; writes
+    ``cold_qconv.json`` (its seconds)."""
+    t = time.time()
+    module, args = qconv_pin_module()
+    _, loaded = pin_or_load(module, args, os.path.join(root, "qconv.pt2"))
+    write_json(os.path.join(root, "cold_qconv.json"), {"secs": time.time() - t, "loaded": loaded})
+
+
+AOT_COLD = {"default": aot_cold_default, "qconv": aot_cold_qconv, "int8": aot_cold_int8}
+
+
+def write_json(path: str, record) -> None:
+    with open(f"{path}.tmp", "w") as f:
         json.dump(record, f)
-    os.replace(os.path.join(root, "cold.json.tmp"), os.path.join(root, "cold.json"))
+    os.replace(f"{path}.tmp", path)
+
+
+def aot_cold_main(root: str, configs: str) -> int:
+    """The cold starts (``--aot-cold DIR --aot-configs default,qconv``, a
+    process the script starts after the build; ``int8`` for phase 22b's),
+    one after another into DIR, sharing its compiler cache, with TF32 off.
+    It runs niced, its compile workers too: the other phases keep the host's
+    cores first (beside it at the same priority, phase 18's ranks took 1.5×
+    as long)."""
+    os.nice(10)
+    set_tf32(False)
+    for name in configs.split(","):
+        AOT_COLD[name](root)
     return 0
 
 
-def aot_cold_start() -> dict:
-    """Start phase 22's cold start in a process of its own; its output goes
-    to ``cold.log`` beside its results."""
+def aot_cold_start(configs: str) -> dict:
+    """Start the cold starts ``configs`` in a process of their own, into a
+    new directory; its output goes to ``cold_<configs>.log`` there."""
     root = tempfile.mkdtemp(prefix="aot_")
-    log_file = open(os.path.join(root, "cold.log"), "w")
-    proc = subprocess.Popen([sys.executable, os.path.abspath(__file__), "--aot-cold", root],
-                            stdout=log_file, stderr=subprocess.STDOUT)
-    log_file.close()
-    return {"root": root, "proc": proc, "started": time.time()}
+    log_path = os.path.join(root, f"cold_{configs.replace(',', '_')}.log")
+    with open(log_path, "w") as log_file:
+        proc = subprocess.Popen([sys.executable, os.path.abspath(__file__), "--aot-cold", root,
+                                 "--aot-configs", configs],
+                                stdout=log_file, stderr=subprocess.STDOUT)
+    return {"root": root, "proc": proc, "log": log_path, "started": time.time()}
+
+
+def aot_cold_wait(cold: dict, result: str) -> float:
+    """Wait until the cold process has written ``result`` into its
+    directory (at most ``cold["wait_s"]``, default ``AOT_COLD_WAIT_S``); the
+    seconds waited. A cold process that failed, or ended or ran out of time
+    without writing it, fails the phase."""
+    t, path = time.time(), os.path.join(cold["root"], result)
+    while not os.path.exists(path):
+        code = cold["proc"].poll()
+        log_tail = open(cold["log"]).read()[-4000:]
+        assert code is None, f"the cold start ended ({code}) without {result}: {log_tail}"
+        if time.time() - t > cold.get("wait_s", AOT_COLD_WAIT_S):
+            aot_cold_stop(cold)
+            raise AssertionError(f"the cold start did not write {result} in time: {log_tail}")
+        time.sleep(1)
+    return time.time() - t
 
 
 def aot_cold_stop(cold: dict) -> None:
@@ -4204,59 +4367,84 @@ def free_port() -> int:
         return sock.getsockname()[1]
 
 
-def aot_server(report: dict, aot_dir: str, cache_dir: str) -> None:
-    """The server started as a user starts it (``python -m
-    midd_tpu_torch.serve.server --aot DIR``, a new process) on a warm
-    directory: every pin loaded (its ``aot_load`` events; no
-    ``aot_compile``), one request answered."""
+def aot_server_start(aot_dir: str, cache_dir: str, args=()) -> dict:
+    """The server as a user starts it (``python -m
+    midd_tpu_torch.serve.server --aot DIR`` and ``args``) in a new process
+    on a free port, its output to ``server.log`` beside DIR."""
     port = free_port()
-    log_path = os.path.join(os.path.dirname(aot_dir), "server.log")
+    log_path = os.path.join(os.path.dirname(aot_dir), f"server_{os.path.basename(aot_dir)}.log")
     env = {**os.environ, "MIDD_TPU_TORCH_CACHE_DIR": cache_dir}
     env.pop("TORCHINDUCTOR_CACHE_DIR", None)
     env.pop("TRITON_CACHE_DIR", None)
-    t = time.time()
     with open(log_path, "w") as log_file:
         proc = subprocess.Popen(
-            [sys.executable, "-m", "midd_tpu_torch.serve.server", "--aot", aot_dir,
+            [sys.executable, "-m", "midd_tpu_torch.serve.server", "--aot", aot_dir, *args,
              "--host", "127.0.0.1", "--port", str(port)],
             cwd=os.path.dirname(os.path.abspath(__file__)), env=env, stdout=log_file,
             stderr=subprocess.STDOUT)
+    return {"proc": proc, "addr": ("127.0.0.1", port), "log": log_path, "started": time.time()}
+
+
+def aot_server_ready(srv: dict) -> float:
+    """Wait until the server answers ``/health``; its seconds from start."""
+    while True:
+        if srv["proc"].poll() is not None:
+            raise AssertionError(f"the --aot server exited ({srv['proc'].returncode}): "
+                                 + open(srv["log"]).read()[-4000:])
+        if time.time() - srv["started"] > AOT_SERVER_READY_S:
+            raise AssertionError("the --aot server did not answer in time: " + open(srv["log"]).read()[-4000:])
         try:
-            while True:
-                if proc.poll() is not None:
-                    raise AssertionError(f"the --aot server exited ({proc.returncode}): "
-                                         + open(log_path).read()[-4000:])
-                if time.time() - t > AOT_SERVER_READY_S:
-                    raise AssertionError("the --aot server did not answer in time: "
-                                         + open(log_path).read()[-4000:])
-                try:
-                    status, _ = http_json(("127.0.0.1", port), "GET", "/health")
-                    if status == 200:
-                        break
-                except OSError:
-                    pass
-                time.sleep(1)
-            ready = time.time() - t
-            ms = post_denoise(("127.0.0.1", port), xray_png(512, 512, 21), (512, 512))
-        finally:
-            proc.terminate()
-            try:
-                proc.wait(timeout=60)
-            except subprocess.TimeoutExpired:
-                proc.kill()
-                proc.wait()
+            status, _ = http_json(srv["addr"], "GET", "/health")
+            if status == 200:
+                return time.time() - srv["started"]
+        except OSError:
+            pass
+        time.sleep(1)
+
+
+def aot_server_stop(srv: dict) -> list:
+    """Stop the server; the JSON events of its log."""
+    proc = srv["proc"]
+    proc.terminate()
+    try:
+        proc.wait(timeout=60)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
     events = []
-    for line in open(log_path):
+    for line in open(srv["log"]):
         try:
             events.append(json.loads(line))
         except ValueError:
             continue
-    loads = sorted(e["model"] for e in events if e.get("event") == "aot_load")
-    compiles = [e["model"] for e in events if e.get("event") == "aot_compile"]
-    report["server"] = {"ready_s": ready, "request_ms": ms, "aot_load": loads, "aot_compile": compiles,
-                        "load_ms": {e["model"]: e["latency_ms"] for e in events if e.get("event") == "aot_load"}}
+    return events
+
+
+def aot_server_pins(events: list) -> dict:
+    """The pins a server start loaded and compiled (its ``aot_load`` and
+    ``aot_compile`` events), each load's seconds, and the seconds its
+    engine took from the first pin to the last (its ``aot_ready`` event)."""
+    loads = [e for e in events if e.get("event") == "aot_load"]
+    return {"aot_load": sorted(f"{e['model']}_b{e['batch']}" for e in loads),
+            "aot_compile": [f"{e['model']}_b{e['batch']}" for e in events if e.get("event") == "aot_compile"],
+            "load_ms": {f"{e['model']}_b{e['batch']}": e.get("load_s") for e in loads},
+            "aot_ready_s": [e["latency_ms"] / 1e3 for e in events if e.get("event") == "aot_ready"]}
+
+
+def aot_server(report: dict, srv: dict, ready: float) -> None:
+    """The server started as a user starts it (``python -m
+    midd_tpu_torch.serve.server --aot DIR``, a new process: ``srv``) on a
+    warm directory, answering ``/health`` ``ready`` seconds after its start
+    at the latest: every pin loaded (its ``aot_load`` events; no
+    ``aot_compile``), one request answered. Stops the server."""
+    try:
+        ms = post_denoise(srv["addr"], xray_png(512, 512, 21), (512, 512))
+    finally:
+        events = aot_server_stop(srv)
+    report["server"] = {"ready_s": ready, "request_ms": ms, **aot_server_pins(events)}
     print(json.dumps({"aot_server": report["server"]}), flush=True)
-    assert loads == sorted(MODEL_NAMES) and not compiles, report["server"]
+    assert report["server"]["aot_load"] == sorted(f"{n}_b1" for n in MODEL_NAMES), report["server"]
+    assert not report["server"]["aot_compile"], report["server"]
 
 
 def aot_slice(report: dict, smi: str, cold: dict) -> dict:
@@ -4266,23 +4454,15 @@ def aot_slice(report: dict, smi: str, cold: dict) -> dict:
     loads every pin, and the eager engine serves beside it: the pinned
     engines bit-equal, each path within ``AOT_BOUNDS`` of eager (TF32 off),
     each pinned request making ``PER_REQUEST``'s launches (the kernels run
-    inside the programs) and no pin dropped; then the server with ``--aot``
-    in a new process loads every pin and answers. Prints each start's time
-    to ready and each path's wall, device ms and launches, pinned beside
-    eager (facts, not gates). Returns the launches of the second start's
-    requests."""
+    inside the programs) and no pin dropped; the server with ``--aot``, in
+    a new process started before the second start, loads every pin meanwhile
+    and answers once the comparisons are done. Prints each start's time to
+    ready and each path's wall, device ms and launches, pinned beside eager
+    (facts, not gates; timed once the server is ready and idle). Returns the
+    launches of the second start's requests."""
     out = {"nvidia_smi": smi}
-    root, proc = cold["root"], cold["proc"]
-    t = time.time()
-    try:
-        proc.wait(timeout=AOT_COLD_WAIT_S)
-    except subprocess.TimeoutExpired:
-        aot_cold_stop(cold)
-        raise AssertionError("the cold start did not end in time: "
-                             + open(os.path.join(root, "cold.log")).read()[-4000:])
-    out["cold_waited_s"] = time.time() - t
-    log_tail = open(os.path.join(root, "cold.log")).read()[-4000:]
-    assert proc.returncode == 0, f"the cold start failed ({proc.returncode}): {log_tail}"
+    root = cold["root"]
+    out["cold_waited_s"] = aot_cold_wait(cold, "cold.json")
     with open(os.path.join(root, "cold.json")) as f:
         out["cold"] = json.load(f)
     cold_outs = dict(np.load(os.path.join(root, "cold.npz")))
@@ -4293,6 +4473,7 @@ def aot_slice(report: dict, smi: str, cold: dict) -> dict:
     out["flash_host_us"] = flash_host_us()  # with the host to itself again
     print(json.dumps({"flash_host_us": out["flash_host_us"]}), flush=True)
 
+    srv = aot_server_start(os.path.join(root, "aot"), os.path.join(root, "cache"))  # loads beside the comparisons
     set_tf32(False)
     xs = aot_requests()
     engines = {}
@@ -4321,20 +4502,304 @@ def aot_slice(report: dict, smi: str, cold: dict) -> dict:
         assert all(errs[n] <= AOT_BOUNDS[n] for n in MODEL_NAMES), errs
         assert out["dropped"] == 0, out["dropped"]
         launched = {k: sum(r[k] for r in out["warm_launches_per_request"]) for k in KERNEL_COUNTERS}
+        server_ready = aot_server_ready(srv)  # idle from here, while the paths are timed
         default_tf32()
         keep = ("wall_ms", "wall_p50_ms", "device_ms", "idle_share", "launches")
         out["paths"] = {key: {name: {k: v for k, v in row.items() if k in keep}
                               for name, row in path_times(engine, xs[0]).items()}
                         for key, engine in engines.items()}
         print(json.dumps({"aot_paths": out["paths"]}), flush=True)
+    except BaseException:
+        aot_server_stop(srv)
+        raise
     finally:
         for engine in engines.values():
             engine.close()
         engines.clear()
         torch.cuda.empty_cache()
-    aot_server(out, os.path.join(root, "aot"), os.path.join(root, "cache"))
-    shutil.rmtree(root, ignore_errors=True)
+    aot_server(out, srv, server_ready)
     report["aot"] = out
+    return launched
+
+
+# Phase 22b (``--aot-int8-only``): the server's ``--int8 --batching --buckets
+# 1,2 --adaptive`` configuration at 256² (static int8 in the UNets; the size
+# at which the engine batches by default), pinned: the four paths and the
+# two turbo paths at batches 1 and 2, 12 programs, compiled cold in a niced
+# process, loaded by a second start in this process and by the server in a
+# new one. Pinned against eager on the same seeded inputs with TF32 off:
+# nafnet and expert within AOT_BOUNDS; the int8 rollouts within phase 12's
+# rollout gates (int8 is chaotic: a last-bit change of an fp32 sum flips a
+# rounding, and Inductor sums the elementwise chains in its own order), as
+# is each row of a pinned batch against the batch-1 pin (the fp32 paths:
+# BATCH_VS_SINGLE_BOUND). The cold start does not fit the default run: 12
+# programs took 1974 s alone on the card's host, and 6 (batch 2) had not
+# finished 1430 s after they began beside phases 3-21 (PERF.md §6).
+AOT_INT8_SIZE = 256
+AOT_INT8_NAMES = (*MODEL_NAMES, "turbo@diffusion", "turbo@hybrid")
+AOT_INT8_BUCKETS = (1, 2)
+AOT_INT8_ARGS = ["--img-size", str(AOT_INT8_SIZE), "--int8", "--batching", "--buckets",
+                 ",".join(map(str, AOT_INT8_BUCKETS)), "--adaptive"]
+AOT_INT8_PINS = sorted(f"{n}_b{b}" for n in AOT_INT8_NAMES for b in AOT_INT8_BUCKETS)
+AOT_INT8_ROLLOUTS = ("diffusion", "hybrid", "turbo@diffusion", "turbo@hybrid")
+AOT_INT8_CLIENTS, AOT_INT8_PER_CLIENT = 12, 2  # phase 8b's adaptive cell's clients, at 256²
+TURBO_BATCH = {**PER_REQUEST, "flash_fwd": 36}  # both rollouts at (0, 2, 7): 3 evals x 6 blocks each
+
+
+def aot_int8_config(root: str) -> EngineConfig:
+    """The server's ``AOT_INT8_ARGS`` configuration with ``--aot`` under
+    ``root`` and the compiler cache that phase 22 shares."""
+    _, cfg = server.config_from_args([*AOT_INT8_ARGS, "--aot", os.path.join(root, "aot_int8")])
+    return dataclasses.replace(cfg, cache_dir=os.path.join(root, "cache"))
+
+
+def _path_fn(engine: InferenceEngine, name: str):
+    """The function of path ``name`` (``turbo@<path>`` for a turbo path):
+    the pinned dispatch on an engine with ``aot_dir``, else the eager path."""
+    table = engine._turbo_paths if name.startswith("turbo@") else engine._paths
+    return table[name.split("@")[-1]]
+
+
+def _on_engine(engine: InferenceEngine, fn, x: torch.Tensor) -> torch.Tensor:
+    """``fn(x)`` on the engine's device thread under inference mode."""
+    def run():
+        with torch.inference_mode():
+            out = fn(x)
+        torch.cuda.synchronize()
+        return out
+
+    return engine._on_device_thread(run)
+
+
+def _rollout_stats(a: torch.Tensor, b: torch.Tensor) -> dict:
+    a, b = a.float().cpu().numpy().ravel(), b.float().cpu().numpy().ravel()
+    return {"max_abs": float(np.abs(a - b).max()), "corr": float(np.corrcoef(a, b)[0, 1])}
+
+
+def _within(name: str, stats: dict, fp32_bound: float) -> bool:
+    if name in AOT_INT8_ROLLOUTS:
+        return stats["max_abs"] < INT8_ROLLOUT_MAX and stats["corr"] > INT8_ROLLOUT_CORR
+    return stats["max_abs"] <= fp32_bound
+
+
+def kernel_runs(fn) -> dict:
+    """Runs of each device kernel in one call of ``fn`` under the profiler
+    (after ``_profile_once``'s pad), retaken up to 3 times while the profile
+    is empty or lost a launch's record; raises if none is whole."""
+    for _ in range(3):
+        before = counts()
+        _, calls, _, lost = _profile_once(fn)
+        _restore_counts(before)
+        if calls and not lost:
+            return calls
+    raise AssertionError("no whole profile of the call in 3 tries: its kernels cannot be counted")
+
+
+def int8_gemm_names(run) -> set:
+    """The device kernels of the int8 products: ``torch._int_mm``'s operands
+    recorded through one eager ``run()``, then one product of each recorded
+    shape and layout alone under the profiler; the names of the kernels
+    those launch."""
+    seen, int_mm = set(), torch._int_mm
+
+    def recording(a, b):
+        seen.add((tuple(a.shape), a.stride(), tuple(b.shape), b.stride()))
+        return int_mm(a, b)
+
+    torch._int_mm = recording
+    try:
+        run()
+    finally:
+        torch._int_mm = int_mm
+    assert seen, "the eager int8 call ran no torch._int_mm"
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    names = set()
+    for a_shape, a_stride, b_shape, b_stride in sorted(seen):
+        a = torch.empty_strided(a_shape, a_stride, dtype=torch.int8, device="cuda")
+        b = torch.empty_strided(b_shape, b_stride, dtype=torch.int8, device="cuda")
+        for t in (a, b):
+            t.copy_(torch.randint(-127, 128, t.shape, generator=gen, device="cuda", dtype=torch.int8))
+        names |= set(kernel_runs(lambda: int_mm(a, b)))
+    return names
+
+
+def aot_int8_launches(engines: dict, x2: np.ndarray) -> dict:
+    """Launches of an exact batch (the four paths) and of a turbo batch (the
+    turbo rollouts and the one-forward paths) at batch 2 on each engine, by
+    the counters, and the int8 GEMM kernels of an exact batch, by the
+    profiler's kernel names (``count_launch`` runs only while a program is
+    traced, so it cannot count inside one)."""
+    eager = engines["eager"]
+
+    def exact_batch(engine):
+        return lambda: [engine.fns[n](x2) for n in MODEL_NAMES]
+
+    def turbo_batch(engine):
+        return lambda: [(engine.turbo_fns if n in engine.turbo_fns else engine.fns)[n](x2) for n in MODEL_NAMES]
+
+    names = int8_gemm_names(exact_batch(eager))
+    out = {"int8_gemm_kernels": sorted(names)}
+    for key, engine in engines.items():
+        before, products = counts(), qconv.int8_conv2d.calls
+        exact_batch(engine)()
+        out[f"{key}_batch"] = since(before)
+        out[f"{key}_batch_int8_products"] = qconv.int8_conv2d.calls - products
+        before = counts()
+        turbo_batch(engine)()
+        out[f"{key}_turbo_batch"] = since(before)
+        runs = kernel_runs(exact_batch(engine))
+        out[f"{key}_batch_int8_gemms"] = sum(c for k, c in runs.items() if k in names)
+        # the library kernels beside them (Inductor's own are named triton_*)
+        out[f"{key}_batch_other_library_kernels"] = sum(
+            c for k, c in runs.items() if _kind(k).startswith("conv / gemm") and k not in names
+            and not k.startswith("triton"))
+    return out
+
+
+def aot_int8_times(engines: dict, xs: dict) -> dict:
+    """Facts, not gates (default TF32): each path's wall p50 of 3 calls, one
+    call's device ms under the profiler and the idle share, pinned beside
+    eager, at each batch size."""
+    default_tf32()
+    out = {}
+    for key, engine in engines.items():
+        for name in AOT_INT8_NAMES:
+            for b, x in xs.items():
+                fn = _path_fn(engine, name)
+                walls = []
+                for _ in range(3):
+                    t = time.perf_counter()
+                    _on_engine(engine, fn, x)
+                    walls.append((time.perf_counter() - t) * 1e3)
+                by_kernel, _ = device_profile(lambda: _on_engine(engine, fn, x))
+                wall, device = statistics.median(walls), sum(by_kernel.values())
+                out.setdefault(key, {})[f"{name}_b{b}"] = {"wall_p50_ms": wall, "device_ms": device,
+                                                           "idle_share": 1.0 - device / wall}
+    return out
+
+
+def aot_int8_load(srv: dict) -> dict:
+    """The adaptive cell at 256²: ``AOT_INT8_CLIENTS`` closed-loop clients of
+    ``AOT_INT8_PER_CLIENT`` seeded requests each against the ``--aot``
+    server; its batcher's counts and what each pin served during it
+    (``/health``'s ``batching`` and ``aot``)."""
+    status, before = http_json(srv["addr"], "GET", "/health")
+    assert status == 200 and "aot" in before and "batching" in before, before
+    pngs = [[xray_png(AOT_INT8_SIZE, AOT_INT8_SIZE, seed=2200 + AOT_INT8_PER_CLIENT * c + i)
+             for i in range(AOT_INT8_PER_CLIENT)] for c in range(AOT_INT8_CLIENTS)]
+    load = client_load(srv["addr"], pngs, (AOT_INT8_SIZE, AOT_INT8_SIZE))
+    _, after = http_json(srv["addr"], "GET", "/health")
+    served = {name: {b: n - before["aot"]["served"][name].get(b, 0) for b, n in per_batch.items()}
+              for name, per_batch in after["aot"]["served"].items()}
+    stats = {k: after["batching"][k] - before["batching"][k] for k in ("requests", "batches", "turbo_batches")}
+    return {**{k: v for k, v in load.items() if k != "answers"},
+            "statuses": sorted({a["status"] for a in load["answers"]}), "served": served,
+            "served_in_warmup": before["aot"]["served"], **stats,
+            "mean_batch": stats["requests"] / max(stats["batches"], 1), "aot_dropped": after["aot"]["dropped"]}
+
+
+def aot_int8_slice(report: dict, smi: str, cold: dict) -> dict:
+    """Phase 22b (see the module docstring). The cold start (``aot_cold_int8``,
+    in the cold process started after the build) compiled the programs into an empty
+    directory; here the server starts on it in a new process while a second
+    start in this process loads every pin and an eager engine of the same
+    configuration sits beside it (each calibrates its own scales on the same
+    seeded batches, TF32 off): the scales agree, every program is called on
+    a seeded 256² batch against eager and against its rows alone, a pinned
+    exact and turbo batch make the eager one's launches and int8 GEMM
+    kernels; then the server serves the adaptive cell with no pin dropped,
+    its exact and turbo programs answering. Walls, device ms and idle
+    shares, pinned beside eager, are printed last. Returns the launches of
+    both engines' batches."""
+    root = cold["root"]
+    out = {"nvidia_smi": smi, "cold_waited_s": aot_cold_wait(cold, "cold_int8.json")}
+    with open(os.path.join(root, "cold_int8.json")) as f:
+        out["cold"] = json.load(f)
+    pins = out["cold"]["pins"]
+    print(json.dumps({"aot_int8_cold": {
+        "ready_s": out["cold"]["ready_s"], "cores": out["cold"]["cores"], "cpu_count": out["cold"]["cpu_count"],
+        "workers": out["cold"]["workers"],
+        "pins": {k: {f: p.get(f) for f in ("queued_s", "worker_s", "build_s", "export_s", "compile_s",
+                                            "peak_device_mb", "phases")} for k, p in pins.items()}}}), flush=True)
+    assert sorted(pins) == AOT_INT8_PINS, sorted(pins)
+    assert not any(p["loaded"] for p in pins.values()) and out["cold"]["dropped"] == 0, out["cold"]
+    cfg = aot_int8_config(root)
+    srv = aot_server_start(cfg.aot_dir, cfg.cache_dir, AOT_INT8_ARGS)  # loads beside the comparisons
+    engines = {}
+    try:
+        set_tf32(False)
+        for key, c in (("warm", cfg), ("eager", dataclasses.replace(cfg, aot_dir=None))):
+            t = time.time()
+            engines[key] = InferenceEngine(c)
+            out[key] = {"ready_s": time.time() - t, "calibration_ms": engines[key].calibration_ms,
+                        "pins": {k: p.get("load_s") for k, p in engines[key].aot_report.items()}}
+            print(json.dumps({f"aot_int8_{key}": out[key]}), flush=True)
+        warm, eager = engines["warm"], engines["eager"]
+        assert sorted(warm.aot_report) == AOT_INT8_PINS, sorted(warm.aot_report)
+        assert all(p["loaded"] for p in warm.aot_report.values()), warm.aot_report
+        assert set(warm.int8_scales) == set(eager.int8_scales) == {"diffusion", "hybrid"}, eager.int8_scales
+        out["int8_scales_max_rel_diff"] = max(
+            abs(warm.int8_scales[m][n].item() - eager.int8_scales[m][n].item()) / eager.int8_scales[m][n].item()
+            for m in eager.int8_scales for n in eager.int8_scales[m])
+
+        rng = np.random.default_rng(221)
+        x2 = torch.from_numpy(rng.random((2, 1, AOT_INT8_SIZE, AOT_INT8_SIZE), dtype=np.float32)).cuda()
+        rows = (x2[:1].contiguous(), x2[1:].contiguous())
+        served0 = warm.aot_served
+        errs = {}
+        for name in AOT_INT8_NAMES:
+            pinned, eager2 = (_on_engine(e, _path_fn(e, name), x2) for e in (warm, eager))
+            # each row alone: the batch-1 pin where there is one, else the engine's eager fallback
+            singles = torch.cat([_on_engine(warm, _path_fn(warm, name), r) for r in rows])
+            assert pinned.shape == (2, 1, AOT_INT8_SIZE, AOT_INT8_SIZE) and torch.isfinite(pinned).all(), name
+            errs[name] = {"b2_vs_eager": _rollout_stats(pinned, eager2), "b2_vs_rows_alone": _rollout_stats(pinned, singles)}
+        served = {n: {b: c - served0[n].get(b, 0) for b, c in d.items()} for n, d in warm.aot_served.items()}
+        out.update(vs_eager=errs, served_by_direct_calls=served, dropped=warm.aot_dropped)
+        print(json.dumps({"aot_int8_vs_eager": errs, "int8_scales_max_rel_diff": out["int8_scales_max_rel_diff"],
+                          "served_by_direct_calls": served, "dropped": out["dropped"],
+                          "bounds": {"fp32": AOT_BOUNDS["nafnet"], "batch_vs_single": BATCH_VS_SINGLE_BOUND,
+                                     "int8_rollout_max": INT8_ROLLOUT_MAX, "int8_rollout_corr": INT8_ROLLOUT_CORR,
+                                     "int8_absmax_rel": INT8_ABSMAX_REL}}), flush=True)
+        assert out["int8_scales_max_rel_diff"] <= INT8_ABSMAX_REL, out["int8_scales_max_rel_diff"]
+        assert all(served[n] == {b: 2 if b == 1 else 1 for b in AOT_INT8_BUCKETS} for n in AOT_INT8_NAMES), served
+        for name, e in errs.items():
+            assert _within(name, e["b2_vs_eager"], AOT_BOUNDS.get(name, 0.0)), (name, e)
+            assert _within(name, e["b2_vs_rows_alone"], BATCH_VS_SINGLE_BOUND), (name, e)
+
+        zero_counts()
+        out["launches"] = aot_int8_launches(engines, x2.permute(0, 2, 3, 1).cpu().numpy())
+        launched = counts()  # both engines' batches, eager's included: the kernels ran in both
+        print(json.dumps({"aot_int8_launches": out["launches"]}), flush=True)
+        lz = out["launches"]
+        for key in engines:
+            assert lz[f"{key}_batch"] == PER_REQUEST, (key, lz)
+            assert lz[f"{key}_turbo_batch"] == TURBO_BATCH, (key, lz)
+        assert lz["eager_batch_int8_products"] > 0 and lz["warm_batch_int8_products"] == 0, lz
+        assert lz["warm_batch_int8_gemms"] == lz["eager_batch_int8_gemms"] >= lz["eager_batch_int8_products"], lz
+        assert warm.aot_dropped == 0, warm.aot_dropped
+
+        out["server_ready_s"] = aot_server_ready(srv)
+        out["load"] = aot_int8_load(srv)
+        events = aot_server_stop(srv)
+        out["server"] = aot_server_pins(events)
+        print(json.dumps({"aot_int8_server": {"ready_s": out["server_ready_s"], **out["server"]},
+                          "aot_int8_load": out["load"]}), flush=True)
+        assert out["server"]["aot_load"] == AOT_INT8_PINS and not out["server"]["aot_compile"], out["server"]
+        ld = out["load"]
+        assert ld["n_ok"] == ld["n"] == AOT_INT8_CLIENTS * AOT_INT8_PER_CLIENT and ld["statuses"] == [200], ld
+        assert ld["aot_dropped"] == 0 and ld["turbo_batches"] > 0 and ld["mean_batch"] > 1, ld
+        assert ld["served"]["diffusion"]["2"] > 0 and ld["served"]["turbo@diffusion"]["2"] > 0, ld
+        out["paths"] = aot_int8_times(engines, {b: rows[0] if b == 1 else x2 for b in AOT_INT8_BUCKETS})
+    finally:
+        for engine in engines.values():
+            engine.close()
+        if srv["proc"].poll() is None:
+            aot_server_stop(srv)
+        torch.cuda.empty_cache()
+    print(smi, flush=True)
+    print(json.dumps({"aot_int8_paths": out["paths"]}), flush=True)
+    shutil.rmtree(root, ignore_errors=True)
+    report["aot_int8"] = out
     return launched
 
 
@@ -4350,7 +4815,13 @@ def main(argv=None) -> int:
     ap.add_argument("--dp-rank", default=None, metavar="JOB",
                     help="(the ranks of phase 18's torchrun launches) run JOB's recipes; prints no result line")
     ap.add_argument("--aot-cold", default=None, metavar="DIR",
-                    help="(phase 22's cold start, run by the script) pin into DIR; prints no result line")
+                    help="(phases 22 and 22b's cold starts, run by the script) pin into DIR; prints no "
+                         "result line")
+    ap.add_argument("--aot-configs", default="default,qconv",
+                    help="(with --aot-cold) the cold starts to run, in order: default and qconv (phase 22), "
+                         "int8 (22b)")
+    ap.add_argument("--aot-int8-only", action="store_true",
+                    help="run only the device and build phases and phase 22b; prints no result line")
     args = ap.parse_args(argv)
     t_all = time.time()
     phase("device")
@@ -4360,7 +4831,7 @@ def main(argv=None) -> int:
     if args.dp_rank:
         return dp_rank_main(args.dp_rank)
     if args.aot_cold:
-        return aot_cold_main(args.aot_cold)
+        return aot_cold_main(args.aot_cold, args.aot_configs)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
@@ -4376,7 +4847,9 @@ def main(argv=None) -> int:
                  ln.SOURCE: ln._SIGNATURES, ffn.SOURCE: ffn._SIGNATURES}
     if args.naf_only:  # phase 7's module forward runs ln2d
         libraries = {ln.SOURCE: ln._SIGNATURES, ffn.SOURCE: ffn._SIGNATURES}
-    cpu_checks = () if args.naf_only else CPU_CHECKS
+    if args.aot_int8_only:  # the served kernels
+        libraries = {fa.SOURCE: fa._SIGNATURES[fa.SOURCE], ln.SOURCE: ln._SIGNATURES}
+    cpu_checks = () if args.naf_only or args.aot_int8_only else CPU_CHECKS
     with ThreadPoolExecutor(max_workers=len(libraries) + 1) as pool:  # one nvcc per source, all at once
         cpu_sides = pool.submit(prefetch_cpu_sides, cpu_checks)  # the CPU halves of phases 9, 10, 12c meanwhile
         for lib in pool.map(lambda src: _build.build(src, verbose=True), libraries):
@@ -4402,8 +4875,17 @@ def main(argv=None) -> int:
         print(json.dumps({"kernels": [entry]}), flush=True)
         return 0
 
+    if args.aot_int8_only:
+        cold_int8 = {**aot_cold_start("int8"), "wait_s": AOT_COLD_ALONE_WAIT_S}
+        atexit.register(aot_cold_stop, cold_int8)
+        phase(f"slice: the pinned {' '.join(AOT_INT8_ARGS)} server ({len(AOT_INT8_PINS)} programs)")
+        t = time.time()
+        aot_int8_slice(report, smi, cold_int8)
+        print(json.dumps({"phase_22b_s": time.time() - t, "total_s": time.time() - t_all}), flush=True)
+        return 0
+
     # phase 22's cold start compiles beside phases 3-21 (stopped at exit if it still runs)
-    cold = aot_cold_start()
+    cold = aot_cold_start("default,qconv")
     atexit.register(aot_cold_stop, cold)
 
     phase("forward kernel vs plain")
@@ -4535,11 +5017,15 @@ def main(argv=None) -> int:
         report["bench_step_profile"] = {m: profile_bench_step(m) for m in bench_train_torch.QUICK}
     print(json.dumps({"phase_20_s": report["phase_20_s"]}), flush=True)
 
-    phase("slice: AOT-pinned serving at 512² (compiled beside phases 3-21, loaded, and through the server's --aot)")
+    phase("slice: AOT-pinned serving at 512² (compiled beside phases 3-21, loaded, and through the server's --aot), "
+          "and the int8 product in a pinned program")
     t = time.time()
     paths["serve_aot"] = aot_slice(report, smi, cold)
+    aot_qconv_check(report, cold)
+    shutil.rmtree(cold["root"], ignore_errors=True)
     report["phase_22_s"] = time.time() - t
     print(json.dumps({"phase_22_s": report["phase_22_s"]}), flush=True)
+
 
     for entry in entries:
         by_path = {p: launched[entry["name"]] for p, launched in paths.items()}

@@ -98,7 +98,7 @@ from midd_tpu_torch.models.direct_unet import ExpertDenoiser
 from midd_tpu_torch.models.hybrid import FusionModule, NoiseAnalyzer, hybrid_forward
 from midd_tpu_torch.models.nafnet import EnhancedNAFNet
 from midd_tpu_torch.models.unet_diffusion import UNetDiffusion
-from midd_tpu_torch.ops.qconv import calibrate_unet_rollout, load_qscales, with_quant_mode
+from midd_tpu_torch.ops.qconv import QuantConv2d, calibrate_unet_rollout, load_qscales, with_quant_mode
 from midd_tpu_torch.parallel.mesh import AXES, count_tp_sharded, mesh_layout, param_shardings
 from midd_tpu_torch.parallel.sp import shard_rows
 from midd_tpu_torch.parallel.tp import shard_params
@@ -106,6 +106,7 @@ from midd_tpu_torch.serve.batching import MicroBatcher
 from midd_tpu_torch.serve.codec import tensor_to_base64_png
 from midd_tpu_torch.train.data import NOISE_FNS
 from midd_tpu_torch.utils.checkpoint import orbax_message
+from midd_tpu_torch.utils.compile_cache import AotDispatch, aot_fingerprint, enable_persistent_cache, pin_all
 from midd_tpu_torch.utils.logging import get_logger
 
 MODEL_NAMES = ("diffusion", "nafnet", "expert", "hybrid")
@@ -231,21 +232,38 @@ def _demo_generator(name: str) -> torch.Generator:
     return torch.Generator().manual_seed(zlib.crc32(name.encode()) % (2**31))
 
 
+# The models (keys of a replica's model dict) that each path runs; its pin
+# reads only their tensors from the packed state. A key that a replica
+# lacks raises (``_pinned``); a model the configuration leaves out (None,
+# the hybrid without its expert) is skipped
+PATH_MODELS = {"diffusion": ("unet_eval",), "nafnet": ("naf",), "expert": ("expert",),
+               "hybrid": ("hyb_naf", "hyb_unet_eval", "router", "fusion", "hyb_expert")}
+
+
 class _Pinned(nn.Module):
     """A serving path as a module of ``(flats, x)`` that holds no tensor:
     ``models`` (kept out of the module's state, so that export takes no
     weight as a constant) run reparametrised by views of ``flats`` at
-    ``layout``'s offsets (``InferenceEngine._pack``)."""
+    ``layout``'s offsets (``InferenceEngine._pack``). ``others``, the
+    replica's models that the path does not run, hold meta tensors while it
+    runs: a path that read one would fail to trace, rather than take that
+    model's weights as constants."""
 
-    def __init__(self, fn: Callable, models: nn.ModuleDict, layout: Dict[str, tuple]):
+    def __init__(self, fn: Callable, models: nn.ModuleDict, layout: Dict[str, tuple],
+                 others: Optional[nn.ModuleDict] = None):
         super().__init__()
         self.fn, self.layout = fn, layout
         object.__setattr__(self, "models", models)
+        others = others if others is not None else nn.ModuleDict()
+        object.__setattr__(self, "others", others)
+        self.poison = {n: torch.empty(t.shape, dtype=t.dtype, device="meta")
+                       for n, t in (*others.named_parameters(), *others.named_buffers())}
 
     def forward(self, flats: Dict[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:
         state = {name: flats[key].narrow(0, off, math.prod(shape)).view(shape)
                  for name, (key, off, shape) in self.layout.items()}
-        with _reparametrize_module(self.models, state, tie_weights=True, strict=True):
+        with _reparametrize_module(self.others, self.poison, strict=True), \
+                _reparametrize_module(self.models, state, tie_weights=True, strict=True):
             return self.fn(x)
 
 
@@ -254,9 +272,10 @@ def pin_module(cfg: "EngineConfig", name: str, batch: int) -> Tuple[nn.Module, t
     ``batch``, from an engine of ``cfg`` built in the calling process (a
     compile worker of ``utils/compile_cache.pin_all``): the same models,
     layout and path as the engine that asked for the pin. Its weights are
-    the checkpoints' or the seeded ones; the program takes them as inputs."""
-    engine = InferenceEngine(dataclasses.replace(cfg, aot_dir=None, warmup=False, batching=False,
-                                                 persistent_cache=False))
+    the checkpoints' or the seeded ones, its static int8 scales
+    placeholders (``_PinEngine``); the program takes them as inputs."""
+    engine = _PinEngine(dataclasses.replace(cfg, aot_dir=None, warmup=False, batching=False,
+                                            persistent_cache=False))
     return engine._pinned(name, batch)
 
 
@@ -293,10 +312,10 @@ class InferenceEngine:
                 )
             self.device = self.mesh[0, 0, 0]
         if cfg.persistent_cache:
-            from midd_tpu_torch.utils.compile_cache import enable_persistent_cache
-
             enable_persistent_cache(cfg.cache_dir)
-        # per pin "{path}_b{batch}": {"loaded", "secs"} (aot_dir only)
+        # per pin "{path}_b{batch}" (aot_dir only): "loaded", "secs" (the
+        # start's pins together), and the pin's "load_s", or its compile
+        # worker's report ("export_s", "compile_s", ...: pin_all)
         self.aot_report: Dict[str, Dict[str, Any]] = {}
         self._aot: Dict[str, Any] = {}
         self.n_tp_sharded = 0
@@ -813,28 +832,33 @@ class InferenceEngine:
     def _pinned(self, name: str, batch: int) -> Tuple[nn.Module, tuple]:
         """The module that the pin of path ``name`` (``turbo@<path>`` for a
         turbo path) at ``batch`` exports, and its example inputs ``(flats,
-        x)``: the path, its models reparametrised by views of ``flats``."""
+        x)``: the path, its models (``PATH_MODELS``) reparametrised by views
+        of the whole replica's ``flats``."""
         flats, layout, models = self._pin_state()
+        path = name.split("@")[-1]
         table = self._turbo_paths if name.startswith("turbo@") else self._paths
+        used = nn.ModuleDict({k: m for k in PATH_MODELS[path] if (m := self.replicas[0][k]) is not None})
+        ids = {id(m) for m in used.modules()}
+        others = nn.ModuleDict({k: m for k, m in models.items() if id(m) not in ids})
+        where = {id(t): layout[n] for n, t in (*models.named_parameters(), *models.named_buffers())}
+        own = {n: where[id(t)] for n, t in (*used.named_parameters(), *used.named_buffers())}
         s = self.cfg.img_size
         x = torch.zeros((batch, 1, s, s), dtype=torch.float32, device=self.device)
-        return _Pinned(table[name.split("@")[-1]], models, layout), (flats, x)
+        return _Pinned(table[path], used, own, others), (flats, x)
 
-    def _pin_executables(self, batches: Tuple[int, ...]) -> None:
-        """Pin every serving program (each path, and each turbo path under
-        ``adaptive_turbo``, at each of ``batches``; the fused function is not
-        pinned): load it from ``cfg.aot_dir`` where a pin with its key is
-        there, else compile it there, in a worker process that builds this
-        engine's models and path anew (``pin_module``: the weights are
-        inputs, so any values serve) and exports them, all of a start's
-        missing pins at once. Each entry of ``_paths`` / ``_turbo_paths``
-        becomes an ``AotDispatch`` that serves the pinned batch sizes and
-        sends other sizes to the eager path."""
-        from midd_tpu_torch.utils.compile_cache import AotDispatch, aot_fingerprint, pin_all
-
+    def _pin_jobs(self, batches: Tuple[int, ...], aot_dir: str) -> list:
+        """The pins of every serving program (each path, and each turbo
+        path under ``adaptive_turbo``, at each of ``batches``; the fused
+        function is not pinned) as ``pin_all``'s jobs, and the packed state
+        they take: (flats, [(name, batch, (pin path under ``aot_dir``,
+        (flats, x), build))]), ``build`` a ``pin_module`` of this engine's
+        config. They come in the order a
+        cold start compiles them, the longest first (a compile is Python on
+        one core: the hybrid rollouts, the diffusion ones, then the one-forward
+        paths; larger batches first), so that the queued ones fill the cores
+        the long ones leave."""
         cfg = self.cfg
         s = cfg.img_size
-        t_all = time.time()
         flats, layout, _ = self._pin_state()
         ident = dict(
             img_size=s, device=str(self.device),
@@ -849,28 +873,53 @@ class InferenceEngine:
             schedule_cfg=cfg.schedule_cfg, resolved=self._resolved,
             expert_tree=self.hybrid_expert_tree, weights=self._tree_ident(layout),
         )
-        tables = [(name, self._paths) for name in self._paths]
-        tables += [(f"turbo@{name}", self._turbo_paths) for name in self._turbo_paths]
-        pins = [(name, int(b)) for name, _ in tables for b in batches]
+        names = [*self._paths, *(f"turbo@{name}" for name in self._turbo_paths)]
+        rank = ("hybrid", "diffusion", "turbo@hybrid", "turbo@diffusion", "nafnet", "expert")
+        order = sorted(names, key=rank.index)
         x_like = torch.zeros((1, 1, s, s), dtype=torch.float32, device=self.device)
-        jobs = [(os.path.join(cfg.aot_dir, f"{name}_b{b}_{aot_fingerprint(model=name, batch=b, **ident)}.pt2"),
-                 (flats, x_like.expand(b, -1, -1, -1).contiguous()), functools.partial(pin_module, cfg, name, b))
-                for name, b in pins]
+        return flats, [
+            (name, b, (os.path.join(aot_dir, f"{name}_b{b}_{aot_fingerprint(model=name, batch=b, **ident)}.pt2"),
+                       (flats, x_like.expand(b, -1, -1, -1).contiguous()),
+                       functools.partial(pin_module, cfg, name, b)))
+            for name in order for b in sorted(map(int, batches), reverse=True)]
+
+    def _pin_executables(self, batches: Tuple[int, ...]) -> None:
+        """Pin every serving program (``_pin_jobs``): load it from
+        ``cfg.aot_dir`` where a pin with its key is there, else compile it
+        there, in a worker process that builds this engine's models and
+        path anew (``pin_module``: the weights and int8 scales are inputs,
+        so any values serve) and exports them, as many at once as
+        ``pin_workers`` allows. Each entry of ``_paths`` / ``_turbo_paths``
+        becomes an ``AotDispatch`` that serves the pinned batch sizes and
+        sends other sizes to the eager path. ``aot_report`` gets each pin's
+        load seconds, or its export and compile seconds."""
+        t_all = time.time()
+        flats, jobs = self._pin_jobs(batches, self.cfg.aot_dir)
+        s = self.cfg.img_size
+        x_like = torch.zeros((1, 1, s, s), dtype=torch.float32, device=self.device)
         t = time.time()
-        results = pin_all(jobs, device=self.device)
+        results = pin_all([job for _, _, job in jobs], device=self.device)
         secs = time.time() - t  # one start's pins load, or compile, together
         execs: Dict[str, Dict[int, Any]] = collections.defaultdict(dict)
-        for (name, b), (program, loaded) in zip(pins, results):
+        for (name, b, _), (program, loaded, info) in zip(jobs, results):
             execs[name][b] = program
-            self.aot_report[f"{name}_b{b}"] = {"loaded": loaded, "secs": round(secs, 2)}
-            log.latency("aot_load" if loaded else "aot_compile", secs, model=name, batch=b)
-        for name, table in tables:
+            self.aot_report[f"{name}_b{b}"] = {"loaded": loaded, "secs": round(secs, 2),
+                                               **{k: round(v, 2) if isinstance(v, float) else v for k, v in info.items()}}
+            times = {k: round(info[k], 2) for k in ("load_s", "export_s", "compile_s") if k in info}
+            log.latency("aot_load" if loaded else "aot_compile", secs, model=name, batch=b, **times)
+        for name in execs:
+            table = self._turbo_paths if name.startswith("turbo@") else self._paths
             path = name.split("@")[-1]
             self._aot[name] = AotDispatch(table[path], execs[name], bound_args=(flats,), like=x_like)
             # every caller (fns, turbo_fns, the batcher, the warm-up,
             # process_all) reads the table
             table[path] = self._aot[name]
         log.latency("aot_ready", time.time() - t_all, n=len(self.aot_report))
+
+    @property
+    def aot_served(self) -> Dict[str, Dict[int, int]]:
+        """Calls each pinned program answered: {name: {batch: calls}}."""
+        return {name: dict(d.served) for name, d in self._aot.items()}
 
     @property
     def aot_dropped(self) -> int:
@@ -1066,4 +1115,22 @@ class InferenceEngine:
             "models_loaded": dict(self.loaded),
             "serving_mode": self.serving_mode(),
             "fused_failures": self.fused_failures,
+            # with batching, the batcher's counts (requests, batches, turbo
+            # batches, rejections); pinned, the calls each program answered
+            # by batch size and the programs dropped for the eager path
+            **({"batching": self.batcher.stats} if self.batcher is not None else {}),
+            **({"aot": {"served": self.aot_served, "dropped": self.aot_dropped}} if self._aot else {}),
         }
+
+
+class _PinEngine(InferenceEngine):
+    """The engine a compile worker builds (``pin_module``). Static int8 does
+    not calibrate here: the scales are buffers, which ride in the packed
+    state as program inputs, so the worker's values never reach a program.
+    Each int8 convolution takes a placeholder of the calibrated scale's
+    shape (a scalar NaN: a program that read it would answer NaN), and
+    ``int8_scales`` and ``calibration_ms`` stay empty."""
+
+    def _calibrate(self, name: str, unet: nn.Module, schedule: Schedule, steps: int) -> None:
+        load_qscales(unet, {n: torch.tensor(float("nan")) for n, mod in unet.named_modules()
+                            if isinstance(mod, QuantConv2d)})

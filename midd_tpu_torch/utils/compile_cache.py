@@ -22,9 +22,11 @@ AOTInductor package:
 
 3. ``pin_or_load`` (one program, in this process) and ``pin_all`` (a
    start's programs, each missing one built, exported and compiled in a
-   worker process of its own, all at once) load a pin or compile it;
-   ``AotDispatch`` serves the pinned batch sizes and sends the others to
-   the eager path; ``aot_fingerprint`` keys a pin.
+   worker process of its own, as many at once as ``pin_workers`` allows,
+   the others queued; each worker reports its export and compile seconds)
+   load a pin or compile it; ``AotDispatch`` serves the pinned batch sizes,
+   counts what each served, and sends the others to the eager path;
+   ``aot_fingerprint`` keys a pin.
 
 A program takes the weights as inputs (the serving engine's pins take
 ``(flats, x)``, its weights packed into one buffer per dtype), never as
@@ -45,6 +47,7 @@ import subprocess
 import sys
 import tempfile
 import threading
+import time
 from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
@@ -65,12 +68,28 @@ DEFAULT_CACHE_DIR = os.environ.get(
 # A start compiles its pins for minutes of the host's cores at 512²: the
 # host code that launches a program's kernels (thousands of launches a
 # rollout) is compiled unoptimised, and a pointwise kernel takes Inductor's
-# heuristic block size rather than timing each candidate on the card. A CPU
-# pin serves the tests (the port serves on the card): its kernels are plain
-# C++ loops, without Inductor's vectorisation analysis.
-INDUCTOR_CONFIGS = {"aot_inductor.compile_wrapper_opt_level": "O0"}
-CUDA_INDUCTOR_CONFIGS = {"triton.autotune_pointwise": False}
+# heuristic block size rather than timing each candidate on the card. Every
+# kernel that reads a weight reads the one packed buffer, and Inductor's
+# search for fusions tries each kernel against the next ones that read a
+# buffer it reads: 16 of them rather than 64 (at 64 the search took 51 of
+# the 304 s of compile of the int8 diffusion rollout at 256² on the CPU,
+# at 16 it took 14). The int8 product keeps eager's ``torch._int_mm``
+# (cuBLASLt): Inductor's lowering of it (``tuned_int_mm``) offers its Triton
+# matmul template beside it even with max-autotune off, and with two
+# choices times both at every int8 shape of a program while compiling and
+# may bake the template in; with the ATen backend alone it has one choice
+# and times nothing. A CPU pin serves the tests
+# (the port serves on the card): its kernels are plain C++ loops, without
+# Inductor's vectorisation analysis.
+INDUCTOR_CONFIGS = {"aot_inductor.compile_wrapper_opt_level": "O0", "max_fusion_buffer_group_pairwise_attempts": 16}
+CUDA_INDUCTOR_CONFIGS = {"triton.autotune_pointwise": False, "max_autotune_gemm_backends": "ATEN"}
 CPU_INDUCTOR_CONFIGS = {"cpp.vec_isa_ok": False}
+
+# A compile worker runs Python for most of its time (export, lowering,
+# scheduling: one core) beside Inductor's own pool of kernel compilers, and
+# builds an engine on the device: ``pin_all`` runs one worker for this many
+# of the host's cores and queues the rest.
+CORES_PER_PIN_WORKER = 2
 
 
 def enable_persistent_cache(cache_dir: Optional[str] = None) -> str:
@@ -192,65 +211,133 @@ def _load_pin(path: str, example_args: Sequence, device: Optional[torch.device])
         return None
 
 
-def _compile_job(build_path: str, path: str) -> None:
+def pin_workers(n_pins: int, cores: Optional[int] = None) -> int:
+    """Compile workers to run at once for ``n_pins`` missing pins: one for
+    each ``CORES_PER_PIN_WORKER`` of ``cores`` (default: the cores this
+    process may run on), at least one, at most ``n_pins``."""
+    cores = len(os.sched_getaffinity(0)) if cores is None else cores
+    return max(1, min(n_pins, cores // CORES_PER_PIN_WORKER))
+
+
+def _compile_phases() -> Dict[str, float]:
+    """Seconds of each of Inductor's timers (nested: tracing, lowering,
+    scheduling, kernel codegen, the wait for the kernel compilers, the C++
+    build) that took a second or more in this process."""
+    from torch._dynamo import utils
+
+    metrics = getattr(utils, "compilation_time_metrics", {})
+    return {k: round(sum(v), 2) for k, v in metrics.items() if sum(v) >= 1.0}
+
+
+def _compile_job(build_path: str, path: str, report_path: str) -> None:
     """A worker process's job (``python -m midd_tpu_torch.utils.compile_cache
-    BUILD PIN``): ``build``, unpickled from BUILD (this package's callers
-    wrote it), gives the module and its example inputs; they are exported
-    and compiled into the pin ``path``."""
+    BUILD PIN REPORT``): ``build``, unpickled from BUILD (this package's
+    callers wrote it), gives the module and its example inputs; they are
+    exported and compiled into the pin ``path``. Writes REPORT (JSON): the
+    seconds to build the module (``build_s``), to export it (``export_s``)
+    and to compile it (``compile_s``), Inductor's phases of the compile, the
+    kernel compilers it was given (``compile_threads``) and the worker's
+    peak device memory (``peak_device_mb``)."""
     import pickle
 
+    t = time.perf_counter()
     with open(build_path, "rb") as f:
         build = pickle.load(f)
-    exported = export(*build())
+    module, example_args = build()
+    report = {"build_s": time.perf_counter() - t}
+    t = time.perf_counter()
+    exported = export(module, example_args)
+    report["export_s"] = time.perf_counter() - t
     # what built the module (a whole engine's models) is not needed to
     # compile: its device memory goes back before the compile starts
+    del build, module, example_args
     gc.collect()
     if torch.cuda.is_available():
         torch.cuda.empty_cache()
+    t = time.perf_counter()
     save_executable(exported, path)
+    report["compile_s"] = time.perf_counter() - t
+    report["phases"] = _compile_phases()
+    report["compile_threads"] = os.environ.get("TORCHINDUCTOR_COMPILE_THREADS")
+    report["peak_device_mb"] = (torch.cuda.max_memory_reserved() / 2**20) if torch.cuda.is_available() else 0.0
+    with open(report_path, "w") as f:
+        json.dump(report, f)
 
 
 def pin_all(jobs: Sequence[Tuple[str, Sequence, Callable]], device: Optional[torch.device] = None) -> list:
     """Pinned programs for each (path, example_args, build) of ``jobs``:
     the pins found at ``path`` are loaded and validated on ``example_args``
     (the program's inputs); each of the others is built, exported and
-    compiled in a worker process of its own, all at once (Inductor's
-    lowering and export run in Python, one core a program, and neither is
-    safe on several threads). ``build`` is a picklable callable that gives
-    the worker (module, example_args). Returns [(program, loaded)] in
-    ``jobs``' order; a compile or load that fails raises."""
+    compiled in a worker process of its own (Inductor's lowering and export
+    run in Python, one core a program, and neither is safe on several
+    threads), ``pin_workers`` of them at once, started in ``jobs``' order
+    as workers finish. ``build`` is a picklable callable
+    that gives the worker (module, example_args). Returns [(program, loaded,
+    info)] in ``jobs``' order: ``info`` holds a load's seconds (``load_s``)
+    or a compile's worker report (``_compile_job``) with the seconds it
+    queued (``queued_s``) and ran (``worker_s``). A compile or load that
+    fails raises, and stops the workers still running."""
     import pickle
 
     results = [None] * len(jobs)
     todo = []
     for i, (path, example_args, _) in enumerate(jobs):
+        t = time.perf_counter()
         program = _load_pin(path, example_args, device)
         if program is None:
             todo.append(i)
         else:
-            results[i] = (program, True)
-    if todo:
-        # the workers share the cores: Inductor's own pool of kernel
-        # compilers in each is cut to its part of them
-        env = dict(os.environ, PYTHONPATH=os.pathsep.join(
-            [_PACKAGE_ROOT, *filter(None, [os.environ.get("PYTHONPATH")])]),
-            TORCHINDUCTOR_COMPILE_THREADS=str(max(1, len(os.sched_getaffinity(0)) // len(todo))))
-        with tempfile.TemporaryDirectory() as tmp:
-            procs = []
-            for i in todo:
-                path, _, build = jobs[i]
-                build_path = os.path.join(tmp, f"{i}.pkl")
-                with open(build_path, "wb") as f:
-                    pickle.dump(build, f)
-                procs.append(subprocess.Popen([sys.executable, "-m", __name__, build_path, path], env=env,
-                                              stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True))
-            errors = [(i, proc.returncode, err) for i, proc in zip(todo, procs)
-                      for _, err in [proc.communicate()] if proc.returncode]
-        if errors:
-            i, code, err = errors[0]
-            raise RuntimeError(f"compiling the pin {jobs[i][0]} failed ({code}):\n{err[-4000:]}")
+            results[i] = (program, True, {"load_s": time.perf_counter() - t})
+    if not todo:
+        return results
+    workers = pin_workers(len(todo))
+    # the workers that run at once share the cores: Inductor's own pool of
+    # kernel compilers in each is cut to its part of them
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [_PACKAGE_ROOT, *filter(None, [os.environ.get("PYTHONPATH")])]),
+        TORCHINDUCTOR_COMPILE_THREADS=str(max(1, len(os.sched_getaffinity(0)) // workers)))
+    infos: Dict[int, dict] = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        queue, running, failed = list(todo), {}, None
+        t0 = time.perf_counter()
+        try:
+            while (queue and failed is None) or running:
+                while queue and failed is None and len(running) < workers:
+                    i = queue.pop(0)
+                    path, _, build = jobs[i]
+                    stem = os.path.join(tmp, str(i))
+                    with open(f"{stem}.pkl", "wb") as f:
+                        pickle.dump(build, f)
+                    with open(f"{stem}.err", "w") as err:
+                        proc = subprocess.Popen([sys.executable, "-m", __name__, f"{stem}.pkl", path,
+                                                 f"{stem}.json"], env=env, stdout=subprocess.DEVNULL,
+                                                stderr=err)
+                    running[i] = (proc, time.perf_counter())
+                    infos[i] = {"queued_s": running[i][1] - t0}
+                for i, (proc, started) in list(running.items()):
+                    if proc.poll() is None:
+                        continue
+                    del running[i]
+                    infos[i]["worker_s"] = time.perf_counter() - started
+                    if proc.returncode:
+                        with open(os.path.join(tmp, f"{i}.err")) as f:
+                            failed = failed or (i, proc.returncode, f.read())
+                        continue
+                    with open(os.path.join(tmp, f"{i}.json")) as f:
+                        infos[i].update(json.load(f))
+                if failed is not None:
+                    for proc, _ in running.values():
+                        proc.kill()
+                time.sleep(0.2)
+        finally:
+            for proc, _ in running.values():
+                proc.kill()
+                proc.wait()
+    if failed is not None:
+        i, code, err = failed
+        raise RuntimeError(f"compiling the pin {jobs[i][0]} failed ({code}):\n{err[-4000:]}")
     for i in todo:
-        results[i] = (load_executable(jobs[i][0], device), False)
+        results[i] = (load_executable(jobs[i][0], device), False, infos[i])
     return results
 
 
@@ -290,7 +377,8 @@ class AotDispatch:
     an external convolution reads such a tensor as channels-last) is copied
     densely first. A program that raises is dropped for good, counted in
     ``dropped`` and logged (``aot_dispatch_failed``), and its batch size
-    goes to the fallback."""
+    goes to the fallback. ``served`` counts the calls each pinned program
+    answered, by batch size."""
 
     def __init__(self, fallback: Callable, execs: Dict[int, Callable], bound_args: Tuple = (),
                  like: Optional[torch.Tensor] = None):
@@ -299,6 +387,7 @@ class AotDispatch:
         self._bound = tuple(bound_args)
         self._like = None if like is None else (tuple(like.shape[1:]), like.dtype, like.device)
         self.dropped = 0
+        self.served: Dict[int, int] = {b: 0 for b in self._execs}
         self._lock = threading.Lock()
 
     @property
@@ -314,14 +403,17 @@ class AotDispatch:
         if x.stride() != _dense_strides(x.shape):
             x = x.clone(memory_format=torch.contiguous_format)
         try:
-            return program(*self._bound, x)
+            out = program(*self._bound, x)
         except Exception as e:  # noqa: BLE001 - a broken pin: drop it, serve eagerly
             with self._lock:
                 if self._execs.pop(b, None) is not None:
                     self.dropped += 1
             log.log("aot_dispatch_failed", batch=b, error=f"{type(e).__name__}: {e}")
             return self._fallback(x)
+        with self._lock:
+            self.served[b] += 1
+        return out
 
 
 if __name__ == "__main__":
-    _compile_job(*sys.argv[1:3])
+    _compile_job(*sys.argv[1:4])
